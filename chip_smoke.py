@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an H100.
+
+  python3 chip_smoke.py          # from the root of a checkout, one card
+
+Phases, one result line each; any failure exits non-zero:
+
+1. device   the card's name and power limit (nvidia-smi) and capability;
+            anything but sm_90 fails.
+2. build    nvcc builds every kernel of ``src/repro_torch/csrc`` for
+            sm_90a, one process per source, all at once.
+3. kernels  each kernel against its plain PyTorch version on the card,
+            at the shapes the main path gives it (bf16), at edge shapes
+            and at the reference's conformance shapes, element by
+            element (``repro_torch.kernels.tolerance.check`` states the
+            allowance and why): the worst error as a share of its
+            allowance, which must stay under 1, and the same reading of
+            a planted fault (one 16-deep K step dropped from a product,
+            a 5 % error in the attention scale), which must exceed 1.
+            Then the kernel's time, the plain version's, a PyTorch
+            library call's (a yardstick the port never calls) and the
+            bound from the datasheet rates.
+4. model    reduced qwen2-0.5b (2 layers, fp32) on the card against the
+            same converted parameters on the CPU: prefill logits within
+            1e-4 of the largest logit, 8 greedy tokens identical.
+5. serve    the main path: ``repro_torch.launch.serve`` at full width
+            (qwen2-0.5b, 24 layers, bf16, batch 4, prompt 256, 32 new
+            tokens).  Launch counters are zeroed just before and read
+            just after; each kernel must have launched, and all 4x32
+            tokens must come out (a deadline shed fails) in range.  The
+            timed decode steps replay a captured CUDA graph, which
+            passes no wrapper: the launches those replays made are read
+            from ``serve.main`` and reported beside the counters, and
+            spm_matmul must be among them.
+
+Then one JSON line with every kernel's numbers, the nvidia-smi line,
+and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+the rest of the repository beside this file, it fails before printing
+any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+# H100 SXM datasheet rates (dense): the bound of each kernel case
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# card vs CPU through two fp32 layers: differently ordered sums in every
+# product, and CUDA's and the CPU's exp/rsqrt
+MODEL_TOL = 1e-4
+L2_BYTES = 50 * 2 ** 20
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def rel_err(got, want):
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / (want.float().abs().max().item() + 1e-9), diff
+
+
+def time_ms(fn, arg_sets, min_reps=20):
+    """Device ms per call.  The calls are captured into one CUDA graph
+    and the graph is replayed between CUDA events, so the host's launch
+    cost stays out of the number; the median of three replays counts.
+    The calls cycle through ``arg_sets`` (distinct copies of the
+    weights that together exceed L2), so each call finds its weights
+    cold, as the main path does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    reps = max(min_reps, len(arg_sets))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[1]
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this needs an H100")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    print(f"phase 1 device: {smi}; capability {cap}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if tuple(cap) != (9, 0):
+        fail(f"capability {cap} is not sm_90")
+    from repro_torch import compat
+    return compat.resolve_device("cuda"), smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.monotonic()
+    logs = _build.build(ptxas_verbose=True)
+    secs = time.monotonic() - t0
+    print(f"phase 2 build: {sorted(_build.SOURCES)} with "
+          f"{' '.join(_build.NVCC_FLAGS)} in {secs:.1f} s "
+          f"(newly built: {sorted(logs)})", flush=True)
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line.lower():
+                print(f"  {name}: {line.strip()}")
+    return secs
+
+
+# ----------------------------------------------------------- kernels
+
+def matmul_cases():
+    """(label, m, k, n, trans_b, dtype, out_dtype, plan, main_path)."""
+    from repro_torch.kernels import CONFORMANCE_SHAPES
+    bf, f32 = torch.bfloat16, torch.float32
+    d, ff, V, B, BP = 896, 4864, 151_936, 4, 4 * 256
+    cases = []
+    for phase, m in (("decode", B), ("prefill", BP)):
+        for what, k, n in (("q/o proj", d, d), ("k/v proj", d, 128),
+                           ("gate/up", d, ff), ("down", ff, d)):
+            cases.append((f"{phase} {what}", m, k, n, False, bf, None,
+                          {}, True))
+    cases.append(("logits (tied embed^T)", B, d, V, True, bf, f32, {},
+                  True))
+    cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
+    for m in (1, 2, 259):
+        cases.append((f"ragged M={m}", m, d, d, False, bf, None, {},
+                      False))
+    for m, k, n, bm, bn, bk, dt in CONFORMANCE_SHAPES["spm_matmul"]:
+        cases.append(("conformance", m, k, n, False, getattr(torch, dt),
+                      None, {"bm": bm, "bn": bn, "bk": bk}, False))
+    return cases
+
+
+def flash_cases():
+    """(label, B, S, H, KV, D, causal, window, dtype, main_path)."""
+    from repro_torch.kernels import CONFORMANCE_SHAPES
+    bf = torch.bfloat16
+    cases = [("serve prefill", 4, 256, 14, 2, 64, True, 0, bf, True),
+             ("windowed", 4, 256, 14, 2, 64, True, 64, bf, False),
+             ("non-causal", 4, 256, 14, 2, 64, False, 0, bf, False),
+             ("ragged S=100", 2, 100, 14, 2, 64, True, 0, bf, False),
+             ("ragged S=100 fp32", 2, 100, 4, 1, 128, True, 0,
+              torch.float32, False)]
+    for b, sq, _, h, kv, d, causal, w, dt in \
+            CONFORMANCE_SHAPES["flash_attention"]:
+        cases.append(("conformance", b, sq, h, kv, d, causal, w,
+                      getattr(torch, dt), False))
+    return cases
+
+
+def mask_of(S, causal, window, dev):
+    """[S, S] bool: the (q, k) pairs the kernel must attend to."""
+    q = torch.arange(S, device=dev)[:, None]
+    k = torch.arange(S, device=dev)[None, :]
+    ok = torch.ones(S, S, dtype=torch.bool, device=dev)
+    if causal:
+        ok &= k <= q
+    if window > 0:
+        ok &= (q - k) < window
+    return ok
+
+
+def run_matmul(dev, gen):
+    from repro_torch.kernels.spm_matmul import ops
+    from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
+    rows = []
+    for label, m, k, n, tb, dt, out, plan, main in matmul_cases():
+        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        bshape = (n, k) if tb else (k, n)
+        b = (torch.randn(*bshape, generator=gen, device=dev)
+             / math.sqrt(k)).to(dt)
+        got = ops.matmul(a, b, trans_b=tb, out_dtype=out, **plan)
+        torch.cuda.synchronize()
+        want = ops.matmul_plain(a, b, out, trans_b=tb)
+        ratio, diff = check(got, want, dt)
+        if not ratio < 1:
+            fail(f"spm_matmul {label} {m}x{k}x{n}: error at {ratio:.3f} "
+                 f"of its allowance")
+        # planted fault: the kernel on A with its last 16-deep K step
+        # zeroed, as if one MMA step were dropped; the check must see it
+        dropped = a.clone()
+        dropped[:, -16:] = 0
+        fault, _ = check(ops.matmul(dropped, b, trans_b=tb, out_dtype=out,
+                                    **plan), want, dt)
+        if not fault > 1:
+            fail(f"spm_matmul {label}: the check misses a dropped K step "
+                 f"({fault:.3f} of its allowance)")
+        row = {"kernel": "spm_matmul", "case": label, "shape": [m, k, n],
+               "trans_b": tb, "dtype": str(dt), "err_ratio": ratio,
+               "fault_ratio": fault, "max_abs_err": diff, "rtol": RTOL[dt],
+               "atol_frac": ATOL_FRAC[dt], "main_path": main}
+        copies = max(1, min(512, math.ceil(
+            2 * L2_BYTES / b.numel() / b.element_size())))
+        sets = [(a, b)] + [(a, b.clone()) for _ in range(copies - 1)]
+        row["ms"] = time_ms(
+            lambda x, y: ops.matmul(x, y, trans_b=tb, out_dtype=out), sets)
+        row["plain_ms"] = time_ms(
+            lambda x, y: ops.matmul_plain(x, y, out, trans_b=tb), sets)
+        row["library_ms"] = library_matmul_ms(sets, tb, out)
+        out_bytes = torch.empty((), dtype=out or dt).element_size()
+        nbytes = (a.numel() + b.numel()) * a.element_size() \
+            + m * n * out_bytes
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * k, dt)
+        del sets
+        rows.append(row)
+        print(f"  spm_matmul {label:24s} {m}x{k}x{n} {str(dt)[6:]:8s} "
+              f"err {ratio:.3f} of allowance (dropped K step "
+              f"{fault:.1f})  max abs {diff:.2e}  kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+              f"library {row['library_ms']} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return rows
+
+
+def library_matmul_ms(sets, trans_b, out):
+    """torch.mm as the yardstick; the fp32-output logits need
+    ``out_dtype``, which older torch builds lack (then null)."""
+    if out is None:
+        return time_ms(lambda x, y: torch.mm(x, y.t() if trans_b else y),
+                       sets)
+    a, b = sets[0]
+    try:
+        torch.mm(a, b.t(), out_dtype=out)
+    except (TypeError, RuntimeError, NotImplementedError) as exc:
+        print(f"  (no library yardstick for fp32-output mm: {exc})")
+        return None
+    return time_ms(lambda x, y: torch.mm(x, y.t(), out_dtype=out), sets)
+
+
+def run_flash(dev, gen):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
+    rows = []
+    for label, B, S, H, KV, D, causal, w, dt, main in flash_cases():
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
+        got = ops.attention(q, k, v, causal=causal, window=w)
+        torch.cuda.synchronize()
+        want = ops.attention_plain(q, k, v, causal=causal, window=w)
+        ratio, diff = check(got, want, dt)
+        if not torch.isfinite(got).all() or not ratio < 1:
+            fail(f"flash_attention {label}: error at {ratio:.3f} of its "
+                 f"allowance")
+        # planted fault: the kernel with its scale 5 % off
+        fault, _ = check(ops.attention(q, k, v, causal=causal, window=w,
+                                       scale=1.05 / math.sqrt(D)), want, dt)
+        if not fault > 1:
+            fail(f"flash_attention {label}: the check misses a 5 % scale "
+                 f"error ({fault:.3f} of its allowance)")
+        row = {"kernel": "flash_attention", "case": label,
+               "shape": [B, S, H, KV, D], "causal": causal, "window": w,
+               "dtype": str(dt), "err_ratio": ratio, "fault_ratio": fault,
+               "max_abs_err": diff, "rtol": RTOL[dt],
+               "atol_frac": ATOL_FRAC[dt], "main_path": main}
+        sets = [(q, k, v)]
+        row["ms"] = time_ms(lambda x, y, z: ops.attention(
+            x, y, z, causal=causal, window=w), sets)
+        row["plain_ms"] = time_ms(lambda x, y, z: ops.attention_plain(
+            x, y, z, causal=causal, window=w), sets)
+        mask = mask_of(S, causal, w, dev)
+        # the fused causal path where no window asks for an explicit mask
+        kw = ({"is_causal": True} if causal and not w
+              else {"attn_mask": mask})
+        row["library_ms"] = time_ms(
+            lambda x, y, z: F.scaled_dot_product_attention(
+                x, y, z, enable_gqa=True, **kw),
+            [tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))])
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * D * int(mask.sum()) * B * H
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+        rows.append(row)
+        print(f"  flash_attention {label:18s} B{B} S{S} H{H} KV{KV} D{D} "
+              f"causal={causal} window={w} {str(dt)[6:]:8s} err "
+              f"{ratio:.3f} of allowance (scale x1.05 {fault:.1f})  max abs "
+              f"{diff:.2e}  kernel {row['ms']:.4f} ms  "
+              f"plain {row['plain_ms']:.4f} ms  library "
+              f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+    return rows
+
+
+def phase_kernels(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = run_matmul(dev, gen) + run_flash(dev, gen)
+    print(f"phase 3 kernels: {len(rows)} cases within tolerance",
+          flush=True)
+    return rows
+
+
+# ------------------------------------------------------------- model
+
+def phase_model(dev):
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import lm
+    from repro_torch.models.spec import tree_map
+
+    cfg = reduce_config(get_config("qwen2-0.5b"), layers=2, d_model=128,
+                        vocab=512)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    B, P, G = 2, 64, 8
+    opts = lm.RunOptions(chunk_q=32, chunk_kv=32, cache_len=P + G,
+                         remat=False)
+    cpu_params = lm.init_params(cfg, seed=0, device="cpu")
+    np_params = tree_map(lambda t: t.numpy(), cpu_params)
+    runs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        params = convert.params_from_numpy(cfg, np_params, d)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen)
+        logits, cache = lm.prefill(cfg, params, {"tokens": tokens.to(d)},
+                                   opts)
+        first = logits.cpu()
+        toks = []
+        tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        for i in range(G):
+            logits, cache = lm.decode_step(cfg, params, cache, tok, P + i,
+                                           opts)
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+            toks.append(tok.cpu())
+        runs[name] = (first, torch.stack(toks, 1))
+    rel, _ = rel_err(runs["cuda"][0][:, :cfg.vocab_size],
+                     runs["cpu"][0][:, :cfg.vocab_size])
+    same = torch.equal(runs["cuda"][1], runs["cpu"][1])
+    print(f"phase 4 model: reduced qwen2-0.5b fp32 card vs CPU: prefill "
+          f"logits rel err {rel:.2e} (tol {MODEL_TOL:.0e}); {G} greedy "
+          f"tokens identical: {same}", flush=True)
+    if not rel < MODEL_TOL:
+        fail("reduced model logits disagree between card and CPU")
+    if not same:
+        fail(f"greedy tokens differ: card {runs['cuda'][1].tolist()} "
+             f"cpu {runs['cpu'][1].tolist()}")
+
+
+# ------------------------------------------------------------- serve
+
+def phase_serve():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.spm_matmul import ops as mm_ops
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen2-0.5b", "--full", "--batch", "4",
+            "--prompt-len", "256", "--gen", "32", "--device", "cuda"]
+    print(f"phase 5 serve: repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    mm_ops.matmul.launches = 0
+    fa_ops.attention.launches = 0
+    res = serve.main(argv)
+    launches = {"spm_matmul": mm_ops.matmul.launches,
+                "flash_attention": fa_ops.attention.launches}
+    replayed = res["replayed_launches"]
+    print(f"phase 5 serve: wrapper launches {launches}; launched by the "
+          f"timed decode graph's replays {replayed}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{name} never launched on the main path")
+    if replayed["spm_matmul"] == 0:
+        fail("the timed decode steps ran no spm_matmul")
+    toks = res["tokens"]
+    if [t.shape for t in toks] != [(4,)] * 32:
+        fail(f"expected 4x32 generated tokens, got steps of "
+             f"{[t.shape[0] for t in toks]} (deadline shed)")
+    toks = np.stack(toks, 1)
+    if not ((toks >= 0) & (toks < 151_936)).all():
+        fail("a generated token is outside [0, 151936)")
+    print(f"phase 5 serve: ok, {toks.shape[0]}x{toks.shape[1]} tokens in "
+          f"[0, 151936)", flush=True)
+    return launches, res
+
+
+def kernel_summary(rows, launches, replayed):
+    """One entry per kernel; times and bounds summed over its main-path
+    cases (each shape once), errors the largest of those cases.
+    ``launches`` is the wrapper's count over the serve run,
+    ``replayed_launches`` what the decode graph's replays launched."""
+    from repro_torch.kernels import _build
+    replaced = {
+        "spm_matmul": "src/repro/kernels/spm_matmul/spm_matmul.py:50",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:75"}
+    out = []
+    for name, replaces in replaced.items():
+        main = [r for r in rows if r["kernel"] == name and r["main_path"]]
+        by = {"bytes": 0.0, "operations": 0.0}
+        for r in main:
+            by[r["bound_by"]] += r["bound_ms"]
+        lib = [r["library_ms"] for r in main]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": str((_build.CSRC / f"{name}.cu").relative_to(ROOT)),
+            "replaces": replaces, "launches": launches[name],
+            "replayed_launches": replayed[name],
+            "max_abs_err": max(r["max_abs_err"] for r in main),
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(by.values()),
+            "bound_by": max(by, key=by.get),
+            "library_ms": None if None in lib else sum(lib),
+        })
+    return out
+
+
+def main():
+    dev, smi = phase_device()
+    build_s = phase_build()
+    rows = phase_kernels(dev)
+    phase_model(dev)
+    launches, res = phase_serve()
+    kernels = kernel_summary(rows, launches, res["replayed_launches"])
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps({
+        "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+        "build_s": build_s, "cases": rows, "kernels": kernels,
+        "serve": {"prefill_ms": res["prefill_s"] * 1e3,
+                  "decode_ms": [t * 1e3 for t in res["decode_s"]],
+                  "wcet_ms": res["wcet_s"] * 1e3,
+                  "deadline": res["deadline"], "plan": res["plan"],
+                  "launches": launches,
+                  "replayed_launches": res["replayed_launches"]}},
+        indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,21 @@
+"""qwen2-0.5b [dense]: 24L d_model=896 14H (GQA kv=2) d_ff=4864
+vocab=151936 — GQA with QKV bias.  [arXiv:2407.10671; hf]
+"""
+from repro_torch.configs.base import AttentionConfig, ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    num_layers=24,
+    d_model=896,
+    d_ff=4864,
+    vocab_size=151_936,
+    attention=AttentionConfig(
+        num_heads=14,
+        num_kv_heads=2,
+        head_dim=64,
+        qkv_bias=True,
+    ),
+    activation="swiglu",
+    tie_embeddings=True,
+))

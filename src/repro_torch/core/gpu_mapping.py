@@ -1,0 +1,173 @@
+"""MultiVic -> H100 bridge: the paper's execution model instantiated on
+an NVIDIA H100 SXM, the port's counterpart of the reference's
+``core/tpu_mapping.py``.
+
+Scale mapping:
+    worker core + Vicuna      -> streaming multiprocessor (tensor cores)
+    data scratchpad           -> shared memory (227 KB a block can use)
+    management core + DMA     -> HBM traffic of the kernel's tile loads
+    DDR4                      -> HBM3
+
+``gpu_matmul_schedule`` builds the same static Schedule IR the paper
+core uses: B column blocks are dealt round-robin to the SMs, A tiles
+and C tiles stream through the one shared HBM, and each SM computes
+its tiles in order.  Per-phase WCETs use worst-case effective rates,
+giving a deterministic per-step bound that ``launch/serve.py`` prints
+next to measured step times.
+
+Constants are NVIDIA's H100 SXM data sheet and Hopper architecture
+white paper figures (dense rates, no sparsity): 989 TFLOP/s bf16 on
+the tensor cores, 3.35 TB/s HBM3, 132 SMs, 232,448 bytes of shared
+memory per block.  None is measured.  The two worst-case derates are
+assumptions of this model, carried over from the reference's TPU
+mapping: 80 % of peak HBM bandwidth under contention and 85 % of the
+tensor-core rate after pipeline bubbles.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from repro_torch.core.schedule import DMA, Schedule, core_resource
+
+
+@dataclass(frozen=True)
+class GPUChip:
+    peak_flops: float = 989e12       # bf16 dense, tensor cores
+    hbm_bw: float = 3.35e12          # bytes/s
+    smem_bytes: int = 232_448        # shared memory one block can use
+    num_sms: int = 132
+    # worst-case derates for WCET (assumptions, not datasheet values)
+    worst_hbm_derate: float = 0.8
+    worst_tc_eff: float = 0.85
+
+
+H100 = GPUChip()
+
+# shared-memory row padding of csrc/spm_matmul.cu, in elements
+SMEM_PAD = 8
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
+              elem_bytes: int = 2, trans_b: bool = False, stages: int = 1,
+              chip: GPUChip = H100) -> dict:
+    """Shared-memory feasibility of one spm_matmul block plan: the
+    port's stand-in for the reference's ``vmem_plan``.
+
+    Each of ``stages`` buffers holds an A slab [bm, bkc] and a B slab of
+    bkc rows of K (laid out [bn, bkc] for a transposed B, [bkc, bn]
+    otherwise), each row padded by ``SMEM_PAD`` elements; ``bkc`` is
+    ``bk`` (the whole K when ``bk == 0``) rounded up to the 16-deep MMA
+    step.  ``m`` and ``n`` do not enter: edges are masked, not padded in
+    memory."""
+    del m, n
+    bkc = _round_up(k if bk <= 0 else min(bk, k), 16)
+    a = bm * (bkc + SMEM_PAD)
+    b = bn * (bkc + SMEM_PAD) if trans_b else bkc * (bn + SMEM_PAD)
+    need = stages * (a + b) * elem_bytes
+    return {"smem_need": need, "smem_bytes": chip.smem_bytes,
+            "fits": need <= chip.smem_bytes, "bkc": bkc}
+
+
+def gpu_matmul_schedule(m: int, k: int, n: int, *, n_devices: int = 1,
+                        tile_m: int = 64, tile_n: int = 128,
+                        elem_bytes: int = 2,
+                        chip: GPUChip = H100) -> Schedule:
+    """B-stationary blocked matmul on one or more H100s.
+
+    N is partitioned across devices (the paper's B-column blocks);
+    within a device, column block ``tn`` belongs to SM ``tn % num_sms``,
+    which receives its [k, tile_n] B block once and then streams the
+    [tile_m, k] A tiles against it; C tiles stream back to HBM."""
+    assert n % n_devices == 0
+    n_local = n // n_devices
+    tiles_m = math.ceil(m / tile_m)
+    tiles_n = math.ceil(n_local / tile_n)
+    smem = smem_plan(m, k, n, tile_m, tile_n, 0, elem_bytes, chip=chip)
+    sched = Schedule(meta={"kind": "gpu_matmul", "m": m, "k": k, "n": n,
+                           "n_devices": n_devices, "tile_m": tile_m,
+                           "tile_n": tile_n,
+                           "smem_need": smem["smem_need"],
+                           "smem_ok": smem["fits"]})
+    for dev in range(n_devices):
+        prev_comp = {}
+        for tn in range(tiles_n):
+            sm = dev * chip.num_sms + tn % chip.num_sms
+            prev = prev_comp.get(sm)
+            b_load = sched.add(
+                kind="dma_load", resource=DMA,
+                bytes_moved=k * tile_n * elem_bytes, spm_core=sm,
+                deps=(prev,) if prev is not None else (),
+                tag=f"B[{tn}]->sm{sm}")
+            for tm in range(tiles_m):
+                a_load = sched.add(
+                    kind="dma_load", resource=DMA,
+                    bytes_moved=tile_m * k * elem_bytes,
+                    deps=(b_load,), spm_core=sm,
+                    tag=f"A[{tm}]->sm{sm}")
+                comp = sched.add(
+                    kind="compute", resource=core_resource(sm),
+                    deps=(a_load,) + ((prev,) if prev is not None else ()),
+                    macs=tile_m * k * tile_n,
+                    elems=tile_m * tile_n, spm_core=sm,
+                    tag=f"C[{tm},{tn}]@sm{sm}")
+                sched.add(
+                    kind="dma_store", resource=DMA,
+                    bytes_moved=tile_m * tile_n * elem_bytes,
+                    deps=(comp,), spm_core=sm, tag=f"C[{tm},{tn}]->hbm")
+                prev = comp
+            prev_comp[sm] = prev
+    sched.validate_dag()
+    sched.validate_interference_freedom()
+    return sched
+
+
+def serve_step_schedule(batch: int, d_model: int, n_params: int, *,
+                        plan: dict, elem_bytes: int = 2,
+                        chip: GPUChip = H100) -> Schedule:
+    """Static schedule for one decode step's weight pass, tiled by the
+    SERVED plan's ``mm_bm``/``mm_bn`` pins, with the reference's sizing
+    rule: an effective [batch, d_model, 2*n_params/d_model] matmul."""
+    n_eff = max(d_model, 2 * n_params // d_model)
+    tile_m = max(1, min(int(plan["mm_bm"]), batch))
+    tile_n = max(1, min(int(plan["mm_bn"]), n_eff))
+    return gpu_matmul_schedule(batch, d_model, n_eff, tile_m=tile_m,
+                               tile_n=tile_n, elem_bytes=elem_bytes,
+                               chip=chip)
+
+
+def gpu_phase_wcet(ph, chip: GPUChip = H100) -> float:
+    """Worst-case seconds for one phase: compute at one SM's share of
+    the derated tensor-core peak, transfers at the derated HBM rate."""
+    if ph.kind == "compute":
+        per_sm = chip.peak_flops / chip.num_sms
+        return 2.0 * ph.macs / (per_sm * chip.worst_tc_eff)
+    return ph.bytes_moved / (chip.hbm_bw * chip.worst_hbm_derate)
+
+
+def _totals(sched: Schedule, chip: GPUChip):
+    dma_total = 0.0
+    per_core = {}
+    for p in sched.phases:
+        t = gpu_phase_wcet(p, chip)
+        if p.kind == "compute":
+            per_core[p.resource] = per_core.get(p.resource, 0.0) + t
+        else:
+            dma_total += t
+    return dma_total, (max(per_core.values()) if per_core else 0.0)
+
+
+def gpu_wcet(sched: Schedule, chip: GPUChip = H100) -> float:
+    """Compositional bound: serialized HBM traffic + slowest-SM chain."""
+    dma_total, comp = _totals(sched, chip)
+    return dma_total + comp
+
+
+def gpu_steady_state(sched: Schedule, chip: GPUChip = H100) -> float:
+    """Overlap-aware estimate: max(total HBM traffic, slowest SM)."""
+    dma_total, comp = _totals(sched, chip)
+    return max(dma_total, comp)

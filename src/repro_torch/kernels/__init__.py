@@ -1,0 +1,62 @@
+"""Kernel registry of the port: the reference's ``kernels/__init__.py``
+copied as data.
+
+``KERNEL_REGISTRY`` names each public kernel wrapper and the block
+parameters its plans own, as in the reference.  ``wkv6`` is listed with
+``module=None``: it serves only the RWKV family and is ported with that
+family's slice.
+
+``CONFORMANCE_SHAPES`` are the shapes of the reference's
+``conformance_cases()`` for the two ported kernels; the tests and
+``chip_smoke.py`` run them against the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable, Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    """One public kernel: where its wrapper lives and which kwargs its
+    plans own."""
+    name: str
+    module: Optional[str]
+    func: str
+    plan_params: Tuple[str, ...]
+
+
+KERNEL_REGISTRY: Dict[str, KernelEntry] = {
+    "spm_matmul": KernelEntry(
+        "spm_matmul", "repro_torch.kernels.spm_matmul.ops", "matmul",
+        ("bm", "bn", "bk")),
+    "flash_attention": KernelEntry(
+        "flash_attention", "repro_torch.kernels.flash_attention.ops",
+        "attention", ("bq", "bk")),
+    "wkv6": KernelEntry("wkv6", None, "wkv", ("chunk",)),
+}
+
+
+def import_entry(name: str) -> Callable[..., Any]:
+    """Resolve a registry row to its public wrapper (lazy)."""
+    entry = KERNEL_REGISTRY[name]
+    if entry.module is None:
+        raise NotImplementedError(f"{name} is not ported yet")
+    return getattr(importlib.import_module(entry.module), entry.func)
+
+
+# (m, k, n, bm, bn, bk, dtype)
+MATMUL_CONFORMANCE = (
+    (128, 128, 128, 128, 128, 0, "float32"),
+    (128, 256, 128, 64, 128, 128, "float32"),
+    (128, 128, 256, 128, 128, 0, "bfloat16"),
+)
+# (B, Sq, Sk, H, KV, D, causal, window, dtype)
+FLASH_CONFORMANCE = (
+    (1, 128, 128, 4, 2, 64, True, 0, "float32"),
+    (1, 128, 128, 4, 4, 64, False, 0, "float32"),
+    (1, 128, 128, 4, 2, 64, True, 32, "bfloat16"),
+)
+CONFORMANCE_SHAPES = {"spm_matmul": MATMUL_CONFORMANCE,
+                      "flash_attention": FLASH_CONFORMANCE}

@@ -1,0 +1,103 @@
+"""Public wrapper of the hand-written Hopper flash_attention forward
+(``csrc/flash_attention.cu``), which replaces the reference's Pallas
+kernel ``src/repro/kernels/flash_attention/flash_attention.py::
+flash_attention``.
+
+Dispatch is by device, with no fallback: CPU tensors take the plain
+version (``ref.attention_ref``); CUDA tensors launch the kernel, or the
+wrapper raises.  Each launch adds one to ``attention.launches``.
+
+The kernel is compiled for 64-query by 64-key tiles and head dims 32,
+64 and 128.  ``bq``/``bk`` keep the reference's plan parameters but
+accept only that compiled tile for now; tile tuning comes with the
+port's tuning work.  q, k and v are read in place through their
+strides (the head dim must be contiguous).
+
+What bounds it on the card, and what the design does about it, is in
+the source note of ``csrc/flash_attention.cu``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+TILE = 64
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_Y = 65_535
+
+attention_plain = attention_ref
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                       ctypes.POINTER(ctypes.c_longlong), i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q [B,Sq,H,D], k/v [B,Sk,KV,D]: {tuple(q.shape)},"
+                         f" {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"incompatible q {tuple(q.shape)} and kv "
+                         f"{tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v must share a dtype in {_DTYPES}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, scale: float = 0.0,
+              bq: Optional[int] = None,
+              bk: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype.
+    Positions are ``arange`` for both q and k (prefill)."""
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    scale = scale or 1.0 / math.sqrt(D)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError("flash_attention runs on one CUDA device or the "
+                         f"CPU: {q.device}, {k.device}, {v.device}")
+    for name, tile in (("bq", bq), ("bk", bk)):
+        if tile not in (None, TILE):
+            raise ValueError(f"{name}={tile}: the kernel is compiled for "
+                             f"{TILE}-row tiles")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention needs a contiguous head dim")
+    if B * H > _MAX_GRID_Y or min(B, Sq, Sk) == 0:
+        raise ValueError(f"unsupported problem B={B} H={H} Sq={Sq} Sk={Sk}")
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 B, Sq, Sk, H, KV, D, strides, int(causal), int(window),
+                 float(scale), int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error "
+                           f"{err} (q {tuple(q.shape)}, kv {tuple(k.shape)})")
+    attention.launches += 1
+    return o
+
+
+attention.launches = 0

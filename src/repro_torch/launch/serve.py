@@ -1,0 +1,308 @@
+"""Batched serving driver of the port, with the MultiVic-style static
+step bound (port of the reference's ``launch/serve.py``).
+
+Each decode step runs the same program, so the driver prints the H100
+WCET bound per step (``core.gpu_mapping``) next to the measured step
+times and their jitter.  The step program follows a serving plan
+(``tuning.model.default_model_plan``; explicit ``--chunk-q``/
+``--chunk-kv`` override it), and the WCET bound and the step deadline
+are built from that same plan.  The bound becomes a deadline
+(``wcet * --deadline-slack`` or ``--deadline-ms``); overruns walk the
+record -> warn -> shed ladder (``resilience.DeadlineMonitor``), and a
+shed halves the batch.
+
+On CUDA the weight-pass products run the hand-written ``spm_matmul``
+kernel and prefill attention the hand-written ``flash_attention``
+kernel.  The kernels are built, and one prefill and one decode step
+run, before the timed region, so no build or first-launch cost lands
+in a sample (the counterpart of the reference's AOT compilation).
+The KV cache is preallocated by prefill and updated in place by every
+decode step.  On CUDA the decode step is captured once as a CUDA graph
+on that cache (outside the timed region, and again after a shed) and
+replayed each step: eager, the host's ~70 launches per layer, not the
+card, set the step time.  A replay relaunches the captured kernels
+without passing through their wrappers, so the wrappers' launch counters
+count each captured launch once; ``main`` reports the launches its
+replays made (captured per replay x replays) beside them.  Steps are
+timed on the host clock around work that ends in
+``torch.cuda.synchronize()``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --full --batch 4 --prompt-len 256 --gen 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+The reference's ``REPRO_TRACE`` spans come with the port's
+observability slice.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.core.gpu_mapping import gpu_wcet, serve_step_schedule
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.spm_matmul import ops as mm_ops
+from repro_torch.models import lm as lm_mod
+from repro_torch.models.lm import RunOptions
+from repro_torch.models.spec import tree_map
+from repro_torch.resilience.deadline import DeadlineMonitor
+from repro_torch.tuning.model import (ModelProblem, default_model_plan,
+                                      plan_sig)
+
+
+def reduced_config(cfg, args):
+    """CLI shim over configs.reduce_config (the reference's
+    ``launch/train.py::reduced_config``)."""
+    return reduce_config(cfg, layers=args.layers, d_model=args.d_model,
+                         vocab=args.vocab)
+
+
+def shed_batch(cfg, cache, tok, n_new: int, cache_len: int,
+               windowed: bool = False):
+    """Drop the tail of the batch (graceful degradation).
+
+    ``lm.cache_spec`` names the logical axes of every cache leaf, so
+    exactly the axis labelled ``batch`` is sliced (index 1 behind the
+    ``stack`` axis) and nothing else.  The slices are views of the
+    preallocated buffers, so later in-place decode writes still land
+    in them."""
+    b_old = tok.shape[0]
+    if not 0 < n_new < b_old:
+        raise ValueError(f"shed to {n_new} from a batch of {b_old}")
+    spec = lm_mod.cache_spec(cfg, b_old, cache_len, windowed)
+
+    def shed(c, par):
+        if "batch" not in par.axes:
+            return c
+        return c.narrow(par.axes.index("batch"), 0, n_new)
+
+    return tree_map(shed, cache, spec), tok[:n_new]
+
+
+def plan_wcet_s(cfg, plan: dict, batch: int, n_params: int) -> float:
+    """The per-step WCET bound for the decode weight pass under the
+    served plan's tile pins: the one source of both the printed bound
+    and the derived deadline."""
+    sched = serve_step_schedule(batch, cfg.d_model, n_params, plan=plan)
+    return gpu_wcet(sched)
+
+
+def serving_plan(cfg, problem: ModelProblem, chunk_q: Optional[int],
+                 chunk_kv: Optional[int]):
+    """Explicit flags over the default plan; returns (plan, source)."""
+    plan = default_model_plan(cfg, problem)
+    explicit = {k: int(v) for k, v in (("chunk_q", chunk_q),
+                                       ("chunk_kv", chunk_kv))
+                if v is not None}
+    plan.update(explicit)
+    return plan, ("explicit+defaults" if explicit else "defaults")
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' launch counters, by kernel."""
+    return {"spm_matmul": mm_ops.matmul.launches,
+            "flash_attention": fa_ops.attention.launches}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def decode_stepper(cfg, params, cache, tok, pos: int, opts: RunOptions):
+    """``step(tok, pos) -> logits`` for the decode loop over ``cache``.
+
+    On the CPU it calls ``lm.decode_step``.  On CUDA it captures one
+    decode step as a CUDA graph on static token and position buffers
+    (the cache's buffers are baked in) and replays it.  The warm-up
+    that capture needs writes the K/V of ``tok`` at ``pos``, which the
+    first real step writes again.  ``step.captured`` holds the kernel
+    launches one replay makes, ``step.replays`` the replays so far."""
+    if tok.device.type != "cuda":
+        def step(t, p):
+            return lm_mod.decode_step(cfg, params, cache, t, p, opts)[0]
+        step.captured = dict.fromkeys(launch_counts(), 0)
+        step.replays = 0
+        return step
+    static_tok = tok.clone()
+    static_pos = torch.full((), pos, dtype=torch.long, device=tok.device)
+    side = torch.cuda.Stream(tok.device)
+    side.wait_stream(torch.cuda.current_stream(tok.device))
+    with torch.cuda.stream(side):
+        lm_mod.decode_step(cfg, params, cache, static_tok, static_pos, opts)
+    torch.cuda.current_stream(tok.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        logits, _ = lm_mod.decode_step(cfg, params, cache, static_tok,
+                                       static_pos, opts)
+
+    def step(t, p):
+        static_tok.copy_(t)
+        static_pos.fill_(p)
+        graph.replay()
+        step.replays += 1
+        return logits
+    step.captured = {k: n - before[k] for k, n in launch_counts().items()}
+    step.replays = 0
+    return step
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--vocab", type=int, default=512)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--chunk-q", type=int, default=None,
+                    help="explicit prefill q-chunk of the plain path "
+                         "(overrides the serving plan)")
+    ap.add_argument("--chunk-kv", type=int, default=None,
+                    help="explicit prefill kv-chunk of the plain path "
+                         "(overrides the serving plan)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="explicit per-step deadline; 0 = derive from "
+                         "the WCET bound")
+    ap.add_argument("--deadline-slack", type=float, default=50.0,
+                    help="deadline = WCET bound x slack")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (an sm_90 card) or cpu")
+    ap.add_argument("--dtype", default=None,
+                    help="parameter/activation dtype (default: the "
+                         "config's)")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = build_parser().parse_args(argv)
+    dev = compat.resolve_device(args.device)
+
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = reduced_config(cfg, args)
+    if args.dtype:
+        compat.torch_dtype(args.dtype)
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    total = P + G
+
+    problem = ModelProblem(
+        args.arch, B, P, G, layers=0 if args.full else args.layers,
+        d_model=args.d_model, vocab=args.vocab, dtype=cfg.dtype)
+    plan, plan_source = serving_plan(cfg, problem, args.chunk_q,
+                                     args.chunk_kv)
+    opts = RunOptions(chunk_q=int(plan["chunk_q"]),
+                      chunk_kv=int(plan["chunk_kv"]),
+                      cache_len=total, remat=False,
+                      decode_scan=bool(plan["decode_scan"]),
+                      mm_tiles=(int(plan["mm_bm"]), int(plan["mm_bn"])))
+
+    params = lm_mod.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens, "targets": tokens}
+
+    # static-schedule WCET bound for the decode weight pass, built from
+    # the SAME plan the steps execute; it sets the step deadline
+    n_p = lm_mod.param_count(cfg)
+    wcet_s = plan_wcet_s(cfg, plan, B, n_p)
+    deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms > 0
+                  else wcet_s * args.deadline_slack)
+    dmon = DeadlineMonitor(deadline_s=deadline_s)
+
+    # untimed: kernel builds, first launches, one prefill + one step
+    if dev.type == "cuda":
+        _build.build()
+    logits, cache = lm_mod.prefill(cfg, params, batch, opts)
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    lm_mod.decode_step(cfg, params, cache, tok, P, opts)
+    _sync(dev)
+
+    t0 = time.monotonic()
+    logits, cache = lm_mod.prefill(cfg, params, batch, opts)
+    _sync(dev)
+    t_prefill = time.monotonic() - t0
+
+    out = []
+    times = []
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    step = decode_stepper(cfg, params, cache, tok, P, opts)
+    steppers = [step]
+    for i in range(G):
+        t1 = time.monotonic()
+        logits = step(tok, P + i)
+        _sync(dev)
+        t2 = time.monotonic()
+        times.append(t2 - t1)
+        tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        out.append(tok.cpu().numpy())
+        action = dmon.observe(i, t2 - t1)
+        if action == "warn":
+            print(f"deadline overrun at decode step {i}: "
+                  f"{(t2 - t1) * 1e3:.2f} ms > "
+                  f"{deadline_s * 1e3:.2f} ms")
+        elif action == "shed" and tok.shape[0] > 1:
+            n_new = tok.shape[0] // 2
+            print(f"deadline ladder: shedding batch "
+                  f"{tok.shape[0]} -> {n_new} at decode step {i}")
+            cache, tok = shed_batch(cfg, cache, tok, n_new, total,
+                                    opts.windowed_cache)
+            # new batch shape = new graph, captured outside the step
+            # timing so the shed path stays capture-free too
+            step = decode_stepper(cfg, params, cache, tok, P + i + 1, opts)
+            steppers.append(step)
+    replayed = {k: sum(s.captured[k] * s.replays for s in steppers)
+                for k in steppers[0].captured}
+
+    times = np.array(times)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"device: {dev} ({name}), {cfg.name} {cfg.num_layers}L "
+          f"d_model={cfg.d_model} vocab={cfg.vocab_size} {cfg.dtype}, "
+          f"{n_p:,} params")
+    print(f"serving plan [{plan_source}]: {plan_sig(plan)}")
+    print(f"prefill: {t_prefill*1e3:.1f} ms for {B}x{P} tokens")
+    print(f"decode:  median {np.median(times)*1e3:.2f} ms/step  "
+          f"std {times.std()*1e3:.3f} ms  "
+          f"jitter(max-min) {(times.max()-times.min())*1e3:.3f} ms")
+    if len({o.shape for o in out}) == 1:
+        print(f"generated shape: {np.stack(out, 1).shape}")
+    else:
+        print(f"generated: {len(out)} steps, batch shed to "
+              f"{out[-1].shape[0]} (started at {B})")
+    if dev.type == "cuda":
+        print(f"decode graph: {sum(s.replays for s in steppers)} replays, "
+              f"kernel launches per replay {steppers[-1].captured}, "
+              f"replayed in all {replayed}")
+    print(f"H100 WCET bound per step (weight pass, "
+          f"plan tiles {plan['mm_bm']}x{plan['mm_bn']}): "
+          f"{wcet_s*1e3:.3f} ms")
+    s = dmon.summary()
+    print(f"deadline: {s['deadline_s']*1e3:.3f} ms/step  "
+          f"overruns {s['overruns']}/{len(times)}  "
+          f"ladder record/warn/shed "
+          f"{s['n_record']}/{s['n_warn']}/{s['n_shed']}  "
+          f"worst overrun {s['worst_overrun_s']*1e3:.3f} ms")
+    return {"tokens": out, "prefill_s": t_prefill, "decode_s": times,
+            "wcet_s": wcet_s, "deadline": s, "plan": plan,
+            "replayed_launches": replayed,
+            "plan_source": plan_source, "device": str(dev),
+            "device_name": name, "n_params": n_p}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,135 @@
+"""Layer-stack assembly of the port, from the reference's
+``models/blocks.py``.
+
+A model is a sequence of *stages*; each stage repeats ``n_units`` units;
+a unit is a fixed tuple of layer descriptors.  Parameters of a stage
+are stacked along a leading "stack" axis, one entry per unit, as in the
+reference, so converted reference parameters keep their layout.
+
+This slice carries the dense/vlm families (including gemma3-style
+``layer_pattern`` units of local and global layers).  The other
+families' stages raise ``NotImplementedError`` until their slices land.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import rmsnorm_spec
+from repro_torch.models.spec import Par, stack, tree_map
+
+
+# ---------------------------------------------------------------------------
+# descriptors
+
+
+@dataclass(frozen=True)
+class LayerDescr:
+    kind: str                  # attn | mamba | rwkv | enc_attn | dec_attn
+    window: int = 0            # 0 = global
+    theta: float = 10_000.0
+    use_moe: bool = False
+    shared_attn: bool = False  # zamba2: tied attn block applied first
+    causal: bool = True
+
+
+@dataclass(frozen=True)
+class StageDescr:
+    n_units: int
+    unit: Tuple[LayerDescr, ...]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; it comes with its "
+        "family's slice")
+
+
+def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
+    a = cfg.attention
+    if cfg.family in ("dense", "vlm"):
+        if a.layer_pattern:
+            unit = tuple(
+                LayerDescr("attn",
+                           window=a.window_for_layer(i),
+                           theta=(a.rope_theta_global or a.rope_theta)
+                           if a.window_for_layer(i) == 0 else a.rope_theta)
+                for i in range(len(a.layer_pattern)))
+            return (StageDescr(cfg.num_layers // len(unit), unit),)
+        unit = (LayerDescr("attn", theta=a.rope_theta),)
+        return (StageDescr(cfg.num_layers, unit),)
+    raise _not_ported(f"the {cfg.family!r} family")
+
+
+# ---------------------------------------------------------------------------
+# per-layer parameter specs
+
+
+def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
+    d, dt = cfg.d_model, cfg.dtype
+    if dsc.kind in ("attn", "enc_attn"):
+        if dsc.use_moe:
+            raise _not_ported("the MoE feed-forward layer")
+        p = {
+            "ln_attn": rmsnorm_spec(d),
+            "attn": attn_mod.attn_spec(d, cfg.attention, dt),
+            "ln_ffn": rmsnorm_spec(d),
+            "ffn": ffn_mod.dense_ffn_spec(d, cfg.d_ff, cfg.activation, dt),
+        }
+        if cfg.use_post_norm:
+            p["ln_attn_post"] = rmsnorm_spec(d)
+            p["ln_ffn_post"] = rmsnorm_spec(d)
+        return p
+    raise _not_ported(f"the {dsc.kind!r} layer")
+
+
+def stage_spec(cfg: ModelConfig, stage: StageDescr) -> dict:
+    unit = {f"pos{i}": layer_spec(cfg, dsc)
+            for i, dsc in enumerate(stage.unit)}
+    return stack(unit, stage.n_units)
+
+
+# ---------------------------------------------------------------------------
+# cache specs (decode state)
+
+
+def layer_cache_spec(cfg: ModelConfig, dsc: LayerDescr, batch: int,
+                     cache_len: int, windowed: bool = False) -> dict:
+    dt = cfg.dtype
+    a = cfg.attention
+    if dsc.kind in ("attn", "enc_attn"):
+        L = cache_len
+        if windowed and dsc.window > 0:
+            # ring buffer: a sliding-window layer never attends past
+            # `window` tokens back, so its cache is O(window)
+            L = min(cache_len, dsc.window)
+        return {
+            "k": Par((batch, L, a.num_kv_heads, a.head_dim),
+                     ("batch", "kv_seq", "kv_heads", None), init="zeros",
+                     dtype=dt),
+            "v": Par((batch, L, a.num_kv_heads, a.head_dim),
+                     ("batch", "kv_seq", "kv_heads", None), init="zeros",
+                     dtype=dt),
+        }
+    raise _not_ported(f"the {dsc.kind!r} layer cache")
+
+
+def stage_cache_spec(cfg: ModelConfig, stage: StageDescr, batch: int,
+                     cache_len: int, windowed: bool = False) -> dict:
+    unit = {f"pos{i}": layer_cache_spec(cfg, dsc, batch, cache_len,
+                                        windowed)
+            for i, dsc in enumerate(stage.unit)}
+    return stack(unit, stage.n_units)
+
+
+# ---------------------------------------------------------------------------
+# tree helpers
+
+
+def tree_index(tree, i: int):
+    """Index the leading (stack) axis of every leaf: views, no copies,
+    so in-place writes to an indexed cache land in the stacked buffer."""
+    return tree_map(lambda a: a[i], tree)

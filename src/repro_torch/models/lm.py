@@ -1,0 +1,328 @@
+"""Language model of the port: the dense decoder path of the
+reference's ``models/lm.py``, in PyTorch.
+
+Public API (the reference's, with an explicit ``device`` and seed):
+  model_spec(cfg)                        -> Par tree
+  init_params(cfg, seed, device)         -> random params
+  cache_spec(cfg, batch, cache_len)      -> Par tree for decode state
+  init_cache(cfg, batch, cache_len, device) -> zero cache
+  prefill(cfg, params, batch, opts)      -> (last_logits [B,Vp], cache)
+  decode_step(cfg, params, cache, token, pos, opts) -> (logits, cache)
+
+Parameters, caches and activations keep the reference's layouts
+(``wq`` [d, H, hd], ``wo`` [H, hd, d], q [B, S, H, hd], stacked caches
+[stack, B, L, KV, hd]), so converted reference parameters
+(``repro_torch.convert``) run unchanged and the tests compare like with
+like.  Weight-pass products run through ``spm_matmul`` and prefill
+attention through ``flash_attention``: their hand-written kernels for
+CUDA tensors, their plain versions for CPU tensors.
+
+Entry points default to ``device="cuda"`` and take the CPU only when
+asked.  Training (``lm_loss``/``train_loss``) and the non-dense
+families come with later slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch import compat
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.spm_matmul import ops as spm_ops
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks as blk
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import rmsnorm, rmsnorm_spec
+from repro_torch.models.spec import Par, init_tree
+from repro_torch.models.spec import param_count as spec_param_count
+from repro_torch.models.spec import tree_map
+
+Device = Union[str, torch.device]
+
+
+@dataclass(frozen=True, eq=False)
+class RunOptions:
+    chunk_q: int = 512
+    chunk_kv: int = 512
+    loss_chunk: int = 512
+    cache_len: int = 0        # prefill: cache buffer length (0 = seq len)
+    remat: bool = True
+    aux_weight: float = 0.01  # MoE load-balance loss weight
+    moe_impl: str = "einsum"  # einsum (GShard baseline) | gather (§Perf)
+    windowed_cache: bool = False  # ring-buffer KV for sliding-window
+    #                               layers (wincache variant, §Perf)
+    # decode-loop structure: True walks the stacked leaves, indexing
+    # each unit as the loop reaches it; False indexes every unit's views
+    # up front and walks that list.  None = follow cfg.scan_layers.
+    # Both give identical results.
+    decode_scan: Optional[bool] = None
+    # spm_matmul tile (bm, bn) of the decode step's weight-pass products:
+    # the serving plan's mm_bm/mm_bn pins, the tile its WCET bound counts.
+    # None = the kernel's default plan for each shape.  (The reference
+    # has no such field: its model path runs no kernel.)
+    mm_tiles: Optional[Tuple[int, int]] = None
+    # activation sharding constraints of the reference: stored, unused
+    # until the multi-device slice.
+    shardings: Optional[dict] = None
+
+
+DEFAULT_OPTS = RunOptions()
+
+
+# ---------------------------------------------------------------------------
+# parameter / cache specs
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    spec = {
+        "embed": Par((cfg.padded_vocab, d), ("vocab", "embed"),
+                     init="normal", dtype=cfg.dtype),
+        "final_norm": rmsnorm_spec(d),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = Par((cfg.padded_vocab, d), ("vocab", "embed"),
+                              init="normal", dtype=cfg.dtype)
+    for si, st in enumerate(blk.build_stages(cfg)):
+        spec[f"stage{si}"] = blk.stage_spec(cfg, st)
+    return spec
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Device = "cuda") -> dict:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device``."""
+    dev = compat.resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_tree(model_spec(cfg), gen, dev)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Total parameter count straight from the spec (no allocation) —
+    what the serving WCET model sizes the per-step weight pass with."""
+    return spec_param_count(model_spec(cfg))
+
+
+def cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
+               windowed: bool = False) -> dict:
+    spec = {}
+    for si, st in enumerate(blk.build_stages(cfg)):
+        spec[f"stage{si}"] = blk.stage_cache_spec(cfg, st, batch,
+                                                  cache_len, windowed)
+    return spec
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: Device = "cuda") -> dict:
+    dev = compat.resolve_device(device)
+    return tree_map(lambda p: torch.zeros(p.shape,
+                                          dtype=compat.torch_dtype(p.dtype),
+                                          device=dev),
+                    cache_spec(cfg, batch, cache_len))
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           batch: Optional[dict] = None) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if (cfg.frontend.kind == "patches" and cfg.frontend.num_positions
+            and batch is not None and "patch_embeds" in batch):
+        pe = batch["patch_embeds"].to(x.dtype)
+        x[:, :pe.shape[1]] = pe
+    return x
+
+
+def _head_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def compute_logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                   tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """x: [B, d] -> fp32 logits [B, padded_vocab] (padding masked).
+
+    The [V, d] table is read in place as a transposed B operand of
+    spm_matmul: no transposed copy of it is made.  ``tile`` pins the
+    kernel's (bm, bn)."""
+    head = _head_table(cfg, params)
+    bm, bn = tile or (None, None)
+    logits = spm_ops.matmul(x, head, trans_b=True, out_dtype=torch.float32,
+                            bm=bm, bn=bn)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[:, cfg.vocab_size:] = -1e30
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# full-sequence unit application (prefill)
+
+
+def _to_cache_buf(k: torch.Tensor, cache_len: int,
+                  opts: RunOptions = DEFAULT_OPTS,
+                  window: int = 0) -> torch.Tensor:
+    if opts.windowed_cache and window > 0:
+        L = min(cache_len, window)
+        S = k.shape[1]
+        if S > L:
+            # ring layout: position p lives in slot p % L; the last L
+            # positions cover every slot exactly once (cyclic shift)
+            q0 = S - L
+            return torch.roll(k[:, q0:S], q0 % L, dims=1)
+        cache_len = L
+    if cache_len <= k.shape[1]:
+        return k
+    buf = torch.zeros((k.shape[0], cache_len) + tuple(k.shape[2:]),
+                      dtype=k.dtype, device=k.device)
+    buf[:, :k.shape[1]] = k
+    return buf
+
+
+def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
+                     positions: torch.Tensor, opts: RunOptions,
+                     collect: bool, cache_len: int):
+    cache = {}
+    a = cfg.attention
+    for i, dsc in enumerate(unit):
+        if dsc.kind not in ("attn", "enc_attn") or dsc.use_moe:
+            raise NotImplementedError(f"{dsc.kind} layers come with their "
+                                      "family's slice")
+        p = up[f"pos{i}"]
+        h = rmsnorm(x, p["ln_attn"])
+        res = attn_mod.self_attention(
+            p["attn"], h, a, positions, theta=dsc.theta, window=dsc.window,
+            chunk_q=opts.chunk_q, chunk_kv=opts.chunk_kv,
+            causal=dsc.causal, return_kv=collect)
+        att, kv = res if collect else (res, None)
+        if cfg.use_post_norm:
+            att = rmsnorm(att, p["ln_attn_post"])
+        x = x + att
+        h = rmsnorm(x, p["ln_ffn"])
+        f = ffn_mod.dense_ffn(p["ffn"], h, cfg.activation)
+        if cfg.use_post_norm:
+            f = rmsnorm(f, p["ln_ffn_post"])
+        x = x + f
+        if collect:
+            cache[f"pos{i}"] = {
+                "k": _to_cache_buf(kv[0], cache_len, opts, dsc.window),
+                "v": _to_cache_buf(kv[1], cache_len, opts, dsc.window)}
+    return x, (cache if collect else None)
+
+
+def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
+                    x: torch.Tensor, positions: torch.Tensor,
+                    opts: RunOptions, collect: bool, cache_len: int):
+    caches = []
+    for i in range(stage.n_units):
+        x, c = _apply_unit_full(cfg, blk.tree_index(sp, i), stage.unit, x,
+                                positions, opts, collect, cache_len)
+        caches.append(c)
+    if not collect:
+        return x, None
+    stacked = tree_map(lambda *xs: torch.stack(xs), *caches)
+    return x, stacked
+
+
+def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
+                   opts: RunOptions = DEFAULT_OPTS, collect: bool = False,
+                   cache_len: int = 0):
+    """Run embeddings + all stages.  Returns (x, aux, caches); ``aux``
+    (the MoE balance loss of the reference) is 0 on the dense path."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("encoder-decoder comes with the whisper "
+                                  "slice")
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens, batch)
+    positions = torch.arange(tokens.shape[1], dtype=torch.long,
+                             device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = {}
+    for si, st in enumerate(blk.build_stages(cfg)):
+        x, c_i = _run_stage_full(cfg, params[f"stage{si}"], st, x,
+                                 positions, opts, collect, cache_len)
+        caches[f"stage{si}"] = c_i
+    x = rmsnorm(x, params["final_norm"])
+    return x, aux, (caches if collect else None)
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict,
+            opts: RunOptions = DEFAULT_OPTS):
+    """Process the prompt; returns (last-token fp32 logits, cache).
+    The cache's buffers are ``opts.cache_len`` long (the prompt length
+    when 0) and are updated in place by ``decode_step``."""
+    S = batch["tokens"].shape[1]
+    cache_len = opts.cache_len or S
+    x, _, caches = forward_hidden(cfg, params, batch, opts, collect=True,
+                                  cache_len=cache_len)
+    logits = compute_logits(cfg, params, x[:, -1])
+    return logits, caches
+
+
+def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
+                       pos: Union[int, torch.Tensor], cache_unit: dict,
+                       tile: Optional[Tuple[int, int]]) -> torch.Tensor:
+    a = cfg.attention
+    for i, dsc in enumerate(unit):
+        if dsc.kind not in ("attn", "enc_attn") or dsc.use_moe:
+            raise NotImplementedError(f"{dsc.kind} layers come with their "
+                                      "family's slice")
+        p = up[f"pos{i}"]
+        c = cache_unit[f"pos{i}"]
+        h = rmsnorm(x, p["ln_attn"])
+        att, _, _ = attn_mod.decode_attention(
+            p["attn"], h, a, c["k"], c["v"], pos, theta=dsc.theta,
+            window=dsc.window, tile=tile)
+        if cfg.use_post_norm:
+            att = rmsnorm(att, p["ln_attn_post"])
+        x = x + att
+        h = rmsnorm(x, p["ln_ffn"])
+        f = ffn_mod.dense_ffn(p["ffn"], h, cfg.activation, tile)
+        if cfg.use_post_norm:
+            f = rmsnorm(f, p["ln_ffn_post"])
+        x = x + f
+    return x
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                token: torch.Tensor, pos: Union[int, torch.Tensor],
+                opts: RunOptions = DEFAULT_OPTS):
+    """One decode step.  token: [B] int; pos: position of the new token,
+    an int or a 0-d long tensor on the token's device (then the step
+    reads no host value and can be captured as a CUDA graph).
+    Returns (fp32 logits [B, padded_vocab], cache).
+
+    The KV cache is preallocated and updated in place: the returned
+    cache is the same buffers as ``cache``, holding the new token's K/V
+    at ``pos``.  That in-place update is what ``compat.donated_jit``
+    (buffer donation) buys the reference."""
+    x = _embed(cfg, params, token[:, None])
+    scan_units = (cfg.scan_layers if opts.decode_scan is None
+                  else bool(opts.decode_scan))
+    for si, st in enumerate(blk.build_stages(cfg)):
+        sp, sc = params[f"stage{si}"], cache[f"stage{si}"]
+        if scan_units:
+            for i in range(st.n_units):
+                x = _apply_unit_decode(cfg, blk.tree_index(sp, i), st.unit,
+                                       x, pos, blk.tree_index(sc, i),
+                                       opts.mm_tiles)
+        else:
+            views = [(blk.tree_index(sp, i), blk.tree_index(sc, i))
+                     for i in range(st.n_units)]
+            for up, cu in views:
+                x = _apply_unit_decode(cfg, up, st.unit, x, pos, cu,
+                                       opts.mm_tiles)
+    x = rmsnorm(x, params["final_norm"])
+    logits = compute_logits(cfg, params, x[:, 0], opts.mm_tiles)
+    return logits, cache

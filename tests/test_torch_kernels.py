@@ -1,0 +1,288 @@
+"""The port's kernels against the JAX package's (CPU, small shapes).
+
+For CPU tensors each wrapper runs its kernel's plain PyTorch version;
+these tests hold that plain version against the reference's Pallas
+kernel in interpret mode and against its ``ref.py`` oracle, on the same
+numpy-seeded inputs, under ``conftest.KERNEL_TOLERANCES`` (fp32 1e-5;
+bf16 3e-2, which absorbs p rounded to bf16 before the PV product, as
+the TPU kernel and the CUDA kernel do while the model's chunked sdpa
+keeps it in fp32, and the frameworks' other rounding points).  The plan rule (tile clamping, the shared-memory fit and
+its ``bk`` halving) is host code and is tested here too.
+
+The CUDA kernels themselves cannot run here.  The tests marked ``gpu``
+launch them on a card and skip elsewhere; ``chip_smoke.py`` holds them
+against their plain versions at the main path's shapes.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import KERNEL_TOLERANCES, assert_kernel_close
+from repro.kernels.flash_attention.ops import attention as jax_attention
+from repro.kernels.spm_matmul.ops import matmul as jax_matmul
+from repro.kernels.spm_matmul.ref import matmul_ref as jax_matmul_ref
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.core.gpu_mapping import H100, smem_plan
+from repro_torch.kernels import (CONFORMANCE_SHAPES, KERNEL_REGISTRY,
+                                 import_entry, tolerance)
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.spm_matmul import ops as mm_ops
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _np(x, dtype):
+    """numpy array in ``dtype`` (bf16 as an ml_dtypes array)."""
+    return np.asarray(jnp.asarray(x, JDT[dtype]))
+
+
+def _f32(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+# ------------------------------------------------------------ spm_matmul
+
+MATMUL_CASES = [c[:3] + (c[6], None) for c in
+                CONFORMANCE_SHAPES["spm_matmul"]] + [
+    (4, 128, 384, "bfloat16", None),          # decode-like
+    (4, 128, 384, "bfloat16", "float32"),
+    (3, 64, 96, "float32", "float32"),
+    (3, 64, 96, "bfloat16", "float32"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,out", MATMUL_CASES)
+def test_plain_matmul_matches_reference(m, k, n, dtype, out):
+    rng = np.random.default_rng(m * 1000 + k + n)
+    a = _np(rng.standard_normal((m, k), np.float32), dtype)
+    b = _np(rng.standard_normal((k, n), np.float32), dtype)
+    out_t = torch.float32 if out else None
+    got = mm_ops.matmul(tensor_from_numpy(a), tensor_from_numpy(b),
+                        out_dtype=out_t)
+    assert got.dtype == (torch.float32 if out else got.dtype)
+    want = jax_matmul_ref(jnp.asarray(a), jnp.asarray(b),
+                          out_dtype=jnp.float32 if out else None)
+    assert_kernel_close(_f32(got), _f32(want), dtype)
+    if out is None:   # the Pallas kernel returns A's dtype
+        pallas = jax_matmul(jnp.asarray(a), jnp.asarray(b), interpret=True)
+        assert_kernel_close(_f32(got), _f32(pallas), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matmul_transposed_b_reads_table_in_place(dtype):
+    """The logits path: B given as the [N, K] table, no transposed copy
+    on the caller's side."""
+    rng = np.random.default_rng(7)
+    a = _np(rng.standard_normal((4, 64), np.float32), dtype)
+    table = _np(rng.standard_normal((96, 64), np.float32), dtype)
+    got = mm_ops.matmul(tensor_from_numpy(a), tensor_from_numpy(table),
+                        trans_b=True, out_dtype=torch.float32)
+    want = jax_matmul_ref(jnp.asarray(a), jnp.asarray(table).T,
+                          out_dtype=jnp.float32)
+    assert_kernel_close(_f32(got), _f32(want), dtype)
+
+
+def test_plain_path_does_not_count_launches():
+    before = mm_ops.matmul.launches
+    mm_ops.matmul(torch.ones(2, 16), torch.ones(16, 8))
+    assert mm_ops.matmul.launches == before
+
+
+@pytest.mark.parametrize("a_shape,b_shape,kw,err", [
+    ((4, 8), (9, 4), {}, ValueError),                      # K mismatch
+    ((4, 8), (4, 8), {"trans_b": False}, ValueError),
+    ((4, 8, 1), (8, 4), {}, ValueError),                   # not 2-D
+    ((4, 8), (8, 4), {"out_dtype": torch.float16}, TypeError),
+])
+def test_matmul_rejects_bad_operands(a_shape, b_shape, kw, err):
+    with pytest.raises(err):
+        mm_ops.matmul(torch.ones(a_shape), torch.ones(b_shape), **kw)
+
+
+def test_matmul_rejects_mixed_dtypes():
+    with pytest.raises(TypeError):
+        mm_ops.matmul(torch.ones(2, 8), torch.ones(8, 2,
+                                                   dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    # decode, 14 blocks: the small-M tile, whole K resident
+    (4, 896, 896, (16, 64, 0, 896, 1)),
+    # decode, 14 blocks, K too deep to pin: 512-deep slabs, two buffers
+    (4, 4864, 896, (16, 64, 512, 512, 2)),
+    # decode logits, 2374 blocks: 64-deep slabs, two buffers
+    (4, 896, 151_936, (16, 64, 64, 64, 2)),
+    # prefill, 608 blocks
+    (1024, 896, 4864, (64, 128, 64, 64, 2)),
+    (20, 896, 32, (32, 64, 0, 896, 1)),       # ragged M, narrow N
+])
+def test_default_plan_follows_the_grid(m, k, n, want):
+    plan = mm_ops.resolve_plan(m, k, n, 2, n == 151_936)
+    assert (plan["bm"], plan["bn"], plan["bk"], plan["bkc"],
+            plan["stages"]) == want
+    assert (plan["bm"], plan["bn"]) in mm_ops.TILES
+    assert smem_plan(m, k, n, plan["bm"], plan["bn"], plan["bk"], 2,
+                     n == 151_936, plan["stages"])["fits"]
+
+
+def test_whole_k_plan_halves_bk_until_it_fits():
+    """bk == 0 pins the whole K; when that overflows the 227 KB of
+    shared memory the wrapper halves bk from 512, as the reference's
+    vmem fallback does."""
+    assert not smem_plan(4, 4864, 896, 16, 64, 0)["fits"]
+    plan = mm_ops.resolve_plan(4, 4864, 896, 2, False, bk=0)
+    assert plan["bk"] == 512
+    assert smem_plan(4, 4864, 896, plan["bm"], plan["bn"],
+                     plan["bk"])["smem_need"] <= H100.smem_bytes
+    small = mm_ops.resolve_plan(4, 896, 896, 2, False, bk=0)
+    assert small["bk"] == 0 and small["bkc"] == 896     # resident K fits
+
+
+@pytest.mark.parametrize("kw", [{"bk": 24}, {"bm": 8}, {"bn": 32}])
+def test_plan_rejects_what_the_kernel_does_not_take(kw):
+    with pytest.raises(ValueError):
+        mm_ops.resolve_plan(64, 128, 128, 4, False, **kw)
+
+
+def test_smem_rule_matches_transposed_layout():
+    # [bn, bkc] for a transposed B, [bkc, bn] otherwise, rows padded
+    t = smem_plan(4, 64, 64, 16, 64, 64, 2, trans_b=True)
+    n = smem_plan(4, 64, 64, 16, 64, 64, 2, trans_b=False)
+    assert t["smem_need"] == (16 * 72 + 64 * 72) * 2
+    assert n["smem_need"] == (16 * 72 + 64 * 72) * 2
+    assert smem_plan(4, 64, 64, 16, 64, 64, 2, stages=2)["smem_need"] \
+        == 2 * n["smem_need"]
+    assert smem_plan(4, 100, 64, 16, 64, 0)["bkc"] == 112
+
+
+# ------------------------------------------------------- flash_attention
+
+FLASH_CASES = list(CONFORMANCE_SHAPES["flash_attention"]) + [
+    (2, 100, 100, 4, 2, 64, True, 0, "float32"),      # ragged S
+    (1, 100, 100, 4, 1, 32, True, 24, "bfloat16"),    # ragged, windowed
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,dtype", FLASH_CASES)
+def test_plain_flash_matches_pallas(B, Sq, Sk, H, KV, D, causal, window,
+                                    dtype):
+    rng = np.random.default_rng(Sq + H + D)
+    q = _np(rng.standard_normal((B, Sq, H, D), np.float32), dtype)
+    k = _np(rng.standard_normal((B, Sk, KV, D), np.float32), dtype)
+    v = _np(rng.standard_normal((B, Sk, KV, D), np.float32), dtype)
+    got = fa_ops.attention(tensor_from_numpy(q), tensor_from_numpy(k),
+                           tensor_from_numpy(v), causal=causal,
+                           window=window)
+    assert got.dtype == tensor_from_numpy(q).dtype
+    want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window, interpret=True)
+    assert_kernel_close(_f32(got), _f32(want), dtype)
+
+
+def test_flash_first_tile_fully_masked_row_is_cleared():
+    """Window < tile with causal: the early keys are masked for late
+    rows; the finite -1e30 keeps the row finite and exact."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               for s in ((1, 96, 2, 32), (1, 96, 2, 32), (1, 96, 2, 32)))
+    out = fa_ops.attention(q, k, v, causal=True, window=4)
+    assert torch.isfinite(out).all()
+    # row 95 sees keys 92..95 only
+    s = torch.einsum("hd,thd->ht", q[0, 95], k[0, 92:96]) / 32 ** 0.5
+    want = torch.einsum("ht,thd->hd", torch.softmax(s, -1), v[0, 92:96])
+    assert torch.allclose(out[0, 95], want, atol=1e-5)
+
+
+def test_flash_rejects_mismatched_heads():
+    with pytest.raises(ValueError):
+        fa_ops.attention(torch.ones(1, 8, 3, 32), torch.ones(1, 8, 2, 32),
+                         torch.ones(1, 8, 2, 32))
+
+
+def test_registry_resolves_ported_wrappers():
+    assert import_entry("spm_matmul") is mm_ops.matmul
+    assert import_entry("flash_attention") is fa_ops.attention
+    assert KERNEL_REGISTRY["wkv6"].module is None
+    with pytest.raises(NotImplementedError):
+        import_entry("wkv6")
+
+
+def test_tolerance_policy_is_the_repos():
+    assert KERNEL_TOLERANCES == {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("S,window", [(128, 0), (100, 24)])
+def test_flash_rounding_model_is_the_attention(S, window):
+    """In fp32 the CPU model of the CUDA kernel's tiling and rounding
+    (which sized the card's bf16 allowance) computes the attention."""
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               for s in ((2, S, 4, 64), (2, S, 2, 64), (2, S, 2, 64)))
+    got = tolerance.flash_kernel_rounding(q, k, v, window=window)
+    want = fa_ops.attention_plain(q, k, v, window=window)
+    assert_kernel_close(got.numpy(), want.numpy(), "float32")
+
+
+@pytest.mark.parametrize("kernel", ["spm_matmul", "flash_attention"])
+def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
+    """The element-wise check chip_smoke.py holds each kernel to on the
+    card: under its bf16 allowance for the kernel's own rounding, over
+    it for the planted faults chip_smoke.py runs (one 16-deep K step
+    dropped from a product; the attention scale 5 % off)."""
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    if kernel == "spm_matmul":
+        a = torch.randn(4, 896, generator=gen).to(bf)
+        b = (torch.randn(896, 896, generator=gen) / 896 ** 0.5).to(bf)
+        want = mm_ops.matmul_plain(a, b)
+        sound = (a[:, :448].float() @ b[:448].float()
+                 + a[:, 448:].float() @ b[448:].float()).to(bf)
+        dropped = a.clone()
+        dropped[:, -16:] = 0
+        fault = mm_ops.matmul_plain(dropped, b)
+    else:
+        q, k, v = (torch.randn(*s, generator=gen).to(bf)
+                   for s in ((1, 128, 4, 64), (1, 128, 2, 64),
+                             (1, 128, 2, 64)))
+        want = fa_ops.attention_plain(q, k, v)
+        sound = tolerance.flash_kernel_rounding(q, k, v)
+        fault = tolerance.flash_kernel_rounding(q, k, v, scale=1.05 / 8)
+    assert tolerance.check(sound, want, bf)[0] < 1
+    assert tolerance.check(fault, want, bf)[0] > 1
+
+
+# ----------------------------------------------------- on the card only
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an sm_90 CUDA card; run chip_smoke.py there")
+    from repro_torch.compat import resolve_device
+    return resolve_device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_matmul_launches_kernel_and_matches_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4, 896, generator=g, device=cuda_device).bfloat16()
+    b = torch.randn(896, 128, generator=g, device=cuda_device).bfloat16()
+    before = mm_ops.matmul.launches
+    got = mm_ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm_ops.matmul.launches == before + 1
+    want = mm_ops.matmul_plain(a, b)
+    assert_kernel_close(_f32(got.cpu()), _f32(want.cpu()), "bfloat16")
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
+    before = (mm_ops.matmul.launches, fa_ops.attention.launches)
+    a = torch.ones(4, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        mm_ops.matmul(a, a.t().contiguous())
+    q = torch.ones(1, 64, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError):
+        fa_ops.attention(q, q, q)               # head dim 48: no kernel
+    assert (mm_ops.matmul.launches, fa_ops.attention.launches) == before

@@ -1,0 +1,174 @@
+"""The port's serving layer on the CPU: the serve driver's banner, the
+H100 WCET bound's dependence on the served plan (as
+tests/test_model_plan.py asserts for the reference), spec-driven batch
+shedding, the gpu_mapping schedule's invariants, and the copied
+deadline ladder and plan helpers against the reference's."""
+import numpy as np
+import pytest
+import torch
+
+from repro.resilience.deadline import DeadlineMonitor as JaxDeadline
+from repro.tuning.plan import plan_sig as jax_plan_sig
+from repro_torch import compat
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.core.gpu_mapping import (H100, gpu_matmul_schedule,
+                                          gpu_steady_state, gpu_wcet,
+                                          serve_step_schedule)
+from repro_torch.launch import serve
+from repro_torch.models import lm
+from repro_torch.models.spec import tree_items
+from repro_torch.resilience.deadline import DeadlineMonitor
+from repro_torch.tuning.model import (ModelProblem, default_model_plan,
+                                      plan_sig)
+
+MICRO = ModelProblem("qwen2-0.5b", 2, 32, 4, layers=2, d_model=64,
+                     vocab=256)
+
+
+def _micro_cfg():
+    return reduce_config(get_config("qwen2-0.5b"), layers=2, d_model=64,
+                         vocab=256)
+
+
+def test_serve_main_on_cpu_prints_the_banner(capsys):
+    res = serve.main(["--device", "cpu", "--prompt-len", "32", "--gen",
+                      "4", "--d-model", "64", "--vocab", "256",
+                      "--deadline-ms", "10000"])
+    out = capsys.readouterr().out
+    for line in ("serving plan [defaults]:", "prefill:",
+                 "decode:  median", "generated shape: (4, 4)",
+                 "H100 WCET bound per step", "deadline:"):
+        assert line in out, (line, out)
+    toks = np.stack(res["tokens"], 1)
+    assert toks.shape == (4, 4)
+    assert ((toks >= 0) & (toks < 256)).all()
+    assert res["device"] == "cpu" and res["wcet_s"] > 0
+
+
+def test_serve_explicit_chunks_and_dtype(capsys):
+    res = serve.main(["--device", "cpu", "--prompt-len", "24", "--gen",
+                      "2", "--d-model", "64", "--vocab", "256",
+                      "--chunk-q", "8", "--chunk-kv", "8", "--dtype",
+                      "float32", "--deadline-ms", "10000"])
+    out = capsys.readouterr().out
+    assert "serving plan [explicit+defaults]:" in out
+    assert res["plan"]["chunk_q"] == 8 and "float32" in out
+
+
+def test_wcet_bound_derives_from_the_served_plan():
+    cfg = _micro_cfg()
+    n_p = lm.param_count(cfg)
+    plan = default_model_plan(cfg, MICRO)
+    w = serve.plan_wcet_s(cfg, plan, MICRO.batch, n_p)
+    assert w > 0
+    repinned = dict(plan, mm_bn=max(1, plan["mm_bn"] // 2))
+    assert serve.plan_wcet_s(cfg, repinned, MICRO.batch, n_p) != w
+    sched = serve_step_schedule(MICRO.batch, cfg.d_model, n_p, plan=plan)
+    assert sched.meta["tile_m"] == min(plan["mm_bm"], MICRO.batch)
+    assert sched.meta["tile_n"] == plan["mm_bn"]
+
+
+def test_decode_products_run_the_plans_tile(monkeypatch, capsys):
+    """The serving plan's mm_bm/mm_bn pins (the tile the WCET bound
+    counts) reach every weight-pass product of every decode step, and
+    are what spm_matmul resolves for the decode weight pass; prefill
+    keeps the kernel's per-shape defaults."""
+    from repro_torch.kernels.spm_matmul import ops as mm_ops
+    plain = mm_ops.matmul
+    calls = []
+
+    def recording(a, b, **kw):
+        calls.append((kw.get("bm"), kw.get("bn")))
+        return plain(a, b, **kw)
+
+    recording.launches = 0
+    monkeypatch.setattr(mm_ops, "matmul", recording)
+    gen, layers = 3, 2
+    res = serve.main(["--device", "cpu", "--prompt-len", "32", "--gen",
+                      str(gen), "--d-model", "64", "--vocab", "256",
+                      "--deadline-ms", "10000"])
+    capsys.readouterr()
+    pins = (res["plan"]["mm_bm"], res["plan"]["mm_bn"])
+    resolved = mm_ops.resolve_plan(4, 64, 2 * res["n_params"] // 64, 4,
+                                   False)
+    assert pins == (resolved["bm"], resolved["bn"]) in mm_ops.TILES
+    per_step = 7 * layers + 1          # q k v o gate up down + logits
+    # one untimed warm-up step, then the timed ones
+    assert calls.count(pins) == (1 + gen) * per_step
+    assert set(calls) == {pins, (None, None)}
+    assert res["replayed_launches"] == {"spm_matmul": 0,
+                                        "flash_attention": 0}
+
+
+def test_default_plan_follows_the_reference_rules():
+    cfg = _micro_cfg()
+    plan = default_model_plan(cfg, MICRO)
+    assert (plan["chunk_q"], plan["chunk_kv"]) == (32, 32)
+    assert plan["decode_scan"] == int(cfg.scan_layers)
+    odd = ModelProblem("qwen2-0.5b", 2, 24, 4)
+    assert default_model_plan(cfg, odd)["chunk_q"] == 24
+    assert plan_sig(plan) == jax_plan_sig(plan)
+
+
+def test_shed_batch_slices_only_the_batch_axis():
+    cfg = _micro_cfg()
+    cache = lm.init_cache(cfg, 4, 40, device="cpu")
+    for _, leaf in tree_items(cache):
+        leaf.normal_()
+    tok = torch.arange(4)
+    shed, tok2 = serve.shed_batch(cfg, cache, tok, 2, 40)
+    assert tok2.tolist() == [0, 1]
+    for (path, old), (_, new) in zip(tree_items(cache), tree_items(shed)):
+        assert new.shape == (old.shape[0], 2) + old.shape[2:], path
+        assert torch.equal(new, old[:, :2])
+        assert new.data_ptr() == old.data_ptr()      # a view, no copy
+    with pytest.raises(ValueError):
+        serve.shed_batch(cfg, cache, tok, 4, 40)
+
+
+@pytest.mark.parametrize("m,k,n,tm,tn", [
+    (4, 896, 4096, 4, 64), (256, 512, 1024, 64, 128), (3, 64, 200, 16, 64)])
+def test_gpu_schedule_is_valid_and_bounded(m, k, n, tm, tn):
+    sched = gpu_matmul_schedule(m, k, n, tile_m=tm, tile_n=tn)
+    sched.validate_dag()
+    sched.validate_interference_freedom()
+    assert 0 < gpu_steady_state(sched) <= gpu_wcet(sched)
+    assert sched.meta["smem_ok"] == (sched.meta["smem_need"]
+                                     <= H100.smem_bytes)
+
+
+def test_gpu_schedule_spreads_column_blocks_over_sms():
+    one = gpu_wcet(gpu_matmul_schedule(512, 512, 64 * 132, tile_m=512,
+                                       tile_n=64))
+    sched = gpu_matmul_schedule(512, 512, 64 * 264, tile_m=512, tile_n=64)
+    assert len(sched.resources()) == 133          # 132 SMs + HBM
+    assert gpu_wcet(sched) > one
+
+
+def test_deadline_ladder_matches_reference():
+    durations = [0.5, 2, 2, 2, 2, 2, 0.1, 3, 3, 3, 3, 0.2]
+    ours, ref = DeadlineMonitor(1.0), JaxDeadline(1.0)
+    assert [ours.observe(i, d) for i, d in enumerate(durations)] == \
+        [ref.observe(i, d) for i, d in enumerate(durations)]
+    assert ours.summary() == ref.summary()
+
+
+def test_cuda_entry_points_refuse_without_a_card():
+    """Entry points default to CUDA and never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compat.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(_micro_cfg())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--gen", "1"])
+
+
+def test_compat_dtype_mapping():
+    assert compat.torch_dtype("bfloat16") is torch.bfloat16
+    assert compat.torch_dtype(torch.float32) is torch.float32
+    with pytest.raises(ValueError):
+        compat.torch_dtype("int4")
+    with pytest.raises(ValueError):
+        compat.resolve_device("mps")
