@@ -10,28 +10,33 @@ Phases, one result line each; any failure exits non-zero:
 2. build    nvcc builds every kernel of ``src/repro_torch/csrc`` for
             sm_90a, one process per source, all at once.
 3. kernels  each kernel against its plain PyTorch version on the card,
-            at the shapes the main path gives it (bf16), at edge shapes
+            at the shapes the main paths give it (bf16), at edge shapes
             and at the reference's conformance shapes, element by
-            element (``repro_torch.kernels.tolerance.check`` states the
+            element (``repro_torch.kernels.tolerance`` states the
             allowance and why): the worst error as a share of its
             allowance, which must stay under 1, and the same reading of
-            a planted fault (one 16-deep K step dropped from a product,
-            a 5 % error in the attention scale), which must exceed 1.
-            Then the kernel's time, the plain version's, a PyTorch
-            library call's (a yardstick the port never calls) and the
-            bound from the datasheet rates.
-4. model    reduced qwen2-0.5b (2 layers, fp32) on the card against the
-            same converted parameters on the CPU: prefill logits within
-            1e-4 of the largest logit, 8 greedy tokens identical.
-5. serve    the main path: ``repro_torch.launch.serve`` at full width
-            (qwen2-0.5b, 24 layers, bf16, batch 4, prompt 256, 32 new
-            tokens).  Launch counters are zeroed just before and read
-            just after; each kernel must have launched, and all 4x32
+            planted faults, which must exceed 1 (spm_matmul: one 16-deep
+            K step dropped; flash_attention: a 5 % error in the scale;
+            wkv6: the u bonus dropped, the state not carried across a
+            chunk boundary, the decay off by one position).  Then the
+            kernel's time, the plain version's, a PyTorch library
+            call's where one computes the same function (a yardstick the
+            port never calls) and the bound from the datasheet rates.
+4. model    reduced qwen2-0.5b and reduced rwkv6-1.6b (2 layers, fp32)
+            on the card against the same converted parameters on the
+            CPU: prefill logits within 1e-4 of the largest logit, 8
+            greedy tokens identical.
+5. serve    the main paths: ``repro_torch.launch.serve`` at full width
+            (qwen2-0.5b, then rwkv6-1.6b; 24 layers, bf16, batch 4,
+            prompt 256, 32 new tokens).  Launch counters are zeroed just
+            before each serve and read just after; each kernel of that
+            path must have launched, one prefill must launch each kernel
+            once per layer (spm_matmul once per product), and all 4x32
             tokens must come out (a deadline shed fails) in range.  The
             timed decode steps replay a captured CUDA graph, which
             passes no wrapper: the launches those replays made are read
-            from ``serve.main`` and reported beside the counters, and
-            spm_matmul must be among them.
+            from ``serve.main`` and must be the step's spm_matmul
+            products times the steps.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -145,7 +150,8 @@ def phase_build():
 # ----------------------------------------------------------- kernels
 
 def matmul_cases():
-    """(label, m, k, n, trans_b, dtype, out_dtype, plan, main_path)."""
+    """(label, m, k, n, trans_b, dtype, out_dtype, plan, main_path);
+    the main path's shapes of qwen2-0.5b, then of rwkv6-1.6b."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
     d, ff, V, B, BP = 896, 4864, 151_936, 4, 4 * 256
@@ -156,6 +162,16 @@ def matmul_cases():
             cases.append((f"{phase} {what}", m, k, n, False, bf, None,
                           {}, True))
     cases.append(("logits (tied embed^T)", B, d, V, True, bf, f32, {},
+                  True))
+    rd, rff, rV = 2048, 7168, 65_536
+    for phase, m in (("decode", B), ("prefill", BP)):
+        for what, k, n in (("r/k/v/g/o, cm r", rd, rd), ("cm k", rd, rff),
+                           ("cm v", rff, rd), ("mix_w1", rd, 160),
+                           ("mix_w2 (x5)", 32, rd), ("wd_w1", rd, 64),
+                           ("wd_w2", 64, rd)):
+            cases.append((f"rwkv {phase} {what}", m, k, n, False, bf, None,
+                          {}, True))
+    cases.append(("rwkv logits (lm_head^T)", B, rd, rV, True, bf, f32, {},
                   True))
     cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
     for m in (1, 2, 259):
@@ -181,6 +197,21 @@ def flash_cases():
             CONFORMANCE_SHAPES["flash_attention"]:
         cases.append(("conformance", b, sq, h, kv, d, causal, w,
                       getattr(torch, dt), False))
+    return cases
+
+
+def wkv_cases():
+    """(label, B, S, H, K, chunk, dtype, decay, main_path)."""
+    from repro_torch.kernels import CONFORMANCE_SHAPES
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("serve prefill", 4, 256, 32, 64, 256, bf, "model", True),
+             ("strong decay", 1, 256, 2, 64, None, f32, "strong", False),
+             ("chunk halved, K=128", 2, 256, 4, 128, 128, bf, "model",
+              False),
+             ("ragged S=100", 2, 100, 2, 64, 64, bf, "model", False)]
+    for b, s, h, k, chunk, dt in CONFORMANCE_SHAPES["wkv6"]:
+        cases.append(("conformance", b, s, h, k, chunk, getattr(torch, dt),
+                      "reference", False))
     return cases
 
 
@@ -316,10 +347,66 @@ def run_flash(dev, gen):
     return rows
 
 
+def run_wkv(dev, gen):
+    from repro_torch.kernels.tolerance import (allowance, check_wkv,
+                                               wkv_inputs,
+                                               wkv_planted_faults)
+    from repro_torch.kernels.wkv6 import ops
+    rows = []
+    for label, B, S, H, K, chunk, dt, decay, main in wkv_cases():
+        args = wkv_inputs(B, S, H, K, dt, decay, gen, dev)
+        L = ops.resolve_chunk(S, K, chunk)
+        got = ops.wkv(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ops.wkv_plain(*args)
+        ratio, diff = check_wkv(got, want, dt)
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+                and ratio < 1):
+            fail(f"wkv6 {label}: error at {ratio:.3f} of its allowance")
+        faults = {name: check_wkv(f, want, dt)[0]
+                  for name, f in wkv_planted_faults(
+                      lambda *a: ops.wkv(*a, chunk=chunk), *args, L).items()}
+        for name, fault in faults.items():
+            if not fault > 1:
+                fail(f"wkv6 {label}: the check misses '{name}' "
+                     f"({fault:.3f} of its allowance)")
+        atol_frac, rtol = allowance(dt, "wkv6")
+        row = {"kernel": "wkv6", "case": label, "shape": [B, S, H, K],
+               "chunk_asked": chunk, "chunk": L, "dtype": str(dt),
+               "decay": decay, "err_ratio": ratio,
+               "fault_ratio": min(faults.values()), "faults": faults,
+               "max_abs_err": diff, "rtol": rtol, "atol_frac": atol_frac,
+               "main_path": main}
+        # distinct copies that together exceed L2, as the main path finds
+        # its inputs
+        nbytes = sum(t.numel() * t.element_size() for t in args) \
+            + got[0].numel() * got[0].element_size() \
+            + got[1].numel() * got[1].element_size()
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
+        sets = [args] + [tuple(t.clone() for t in args)
+                         for _ in range(copies - 1)]
+        row["ms"] = time_ms(lambda *a: ops.wkv(*a, chunk=chunk), sets)
+        row["plain_ms"] = time_ms(lambda *a: ops.wkv_plain(*a), sets[:1],
+                                  min_reps=2)
+        row["library_ms"] = None      # no one PyTorch call computes WKV6
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 4 * B * S * H * K * K, torch.float32)
+        del sets
+        rows.append(row)
+        print(f"  wkv6 {label:20s} B{B} S{S} H{H} K{K} chunk {L} "
+              f"{str(dt)[6:]:8s} {decay} decay: err {ratio:.3f} of "
+              f"allowance (faults " + ", ".join(
+                  f"{n} {f:.1f}" for n, f in faults.items())
+              + f")  max abs {diff:.2e}  kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+    return rows
+
+
 def phase_kernels(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = run_matmul(dev, gen) + run_flash(dev, gen)
+    rows = run_matmul(dev, gen) + run_flash(dev, gen) + run_wkv(dev, gen)
     print(f"phase 3 kernels: {len(rows)} cases within tolerance",
           flush=True)
     return rows
@@ -327,21 +414,27 @@ def phase_kernels(dev):
 
 # ------------------------------------------------------------- model
 
-def phase_model(dev):
+def phase_model(dev, arch):
     import dataclasses
 
     from repro_torch import convert
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import lm
-    from repro_torch.models.spec import tree_map
+    from repro_torch.models.spec import tree_items, tree_map
 
-    cfg = reduce_config(get_config("qwen2-0.5b"), layers=2, d_model=128,
+    cfg = reduce_config(get_config(arch), layers=2, d_model=128,
                         vocab=512)
     cfg = dataclasses.replace(cfg, dtype="float32")
     B, P, G = 2, 64, 8
     opts = lm.RunOptions(chunk_q=32, chunk_kv=32, cache_len=P + G,
                          remat=False)
     cpu_params = lm.init_params(cfg, seed=0, device="cpu")
+    # the RWKV bonus and token-shift mixes start at zero: make them count
+    gen = torch.Generator().manual_seed(2)
+    for path, leaf in tree_items(cpu_params):
+        if path.rsplit("/", 1)[-1] in ("u", "maa_x", "maa_rkvwg", "maa_k",
+                                       "maa_r"):
+            leaf.copy_(0.3 * torch.randn(leaf.shape, generator=gen))
     np_params = tree_map(lambda t: t.numpy(), cpu_params)
     runs = {}
     for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
@@ -362,7 +455,7 @@ def phase_model(dev):
     rel, _ = rel_err(runs["cuda"][0][:, :cfg.vocab_size],
                      runs["cpu"][0][:, :cfg.vocab_size])
     same = torch.equal(runs["cuda"][1], runs["cpu"][1])
-    print(f"phase 4 model: reduced qwen2-0.5b fp32 card vs CPU: prefill "
+    print(f"phase 4 model: reduced {arch} fp32 card vs CPU: prefill "
           f"logits rel err {rel:.2e} (tol {MODEL_TOL:.0e}); {G} greedy "
           f"tokens identical: {same}", flush=True)
     if not rel < MODEL_TOL:
@@ -374,50 +467,81 @@ def phase_model(dev):
 
 # ------------------------------------------------------------- serve
 
-def phase_serve():
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.spm_matmul import ops as mm_ops
+# per served arch: its vocabulary, the kernels its path must launch, the
+# wrapper launches one prefill must make (24 layers) and the spm_matmul
+# launches one decode step must make (products per layer x 24 + logits)
+SERVES = {
+    "qwen2-0.5b": {"vocab": 151_936,
+                   "kernels": ("spm_matmul", "flash_attention"),
+                   "per_prefill": {"spm_matmul": 7 * 24 + 1,
+                                   "flash_attention": 24},
+                   "mm_per_step": 7 * 24 + 1},
+    "rwkv6-1.6b": {"vocab": 65_536, "kernels": ("spm_matmul", "wkv6"),
+                   "per_prefill": {"spm_matmul": 16 * 24 + 1, "wkv6": 24},
+                   "mm_per_step": 16 * 24 + 1},
+}
+
+
+def phase_serve(arch):
     from repro_torch.launch import serve
 
-    argv = ["--arch", "qwen2-0.5b", "--full", "--batch", "4",
-            "--prompt-len", "256", "--gen", "32", "--device", "cuda"]
+    want = SERVES[arch]
+    G = 32
+    argv = ["--arch", arch, "--full", "--batch", "4", "--prompt-len", "256",
+            "--gen", str(G), "--device", "cuda"]
     print(f"phase 5 serve: repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
-    mm_ops.matmul.launches = 0
-    fa_ops.attention.launches = 0
+    reset_launches()
     res = serve.main(argv)
-    launches = {"spm_matmul": mm_ops.matmul.launches,
-                "flash_attention": fa_ops.attention.launches}
+    launches = serve.launch_counts()
     replayed = res["replayed_launches"]
-    print(f"phase 5 serve: wrapper launches {launches}; launched by the "
-          f"timed decode graph's replays {replayed}", flush=True)
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} never launched on the main path")
-    if replayed["spm_matmul"] == 0:
-        fail("the timed decode steps ran no spm_matmul")
+    print(f"phase 5 serve {arch}: wrapper launches {launches}; in the "
+          f"timed prefill {res['prefill_launches']}; launched by the timed "
+          f"decode graph's replays {replayed}", flush=True)
+    for name in want["kernels"]:
+        if launches[name] == 0:
+            fail(f"{name} never launched on the {arch} path")
+    for name, n in want["per_prefill"].items():
+        if res["prefill_launches"][name] != n:
+            fail(f"{arch}: {res['prefill_launches'][name]} {name} launches "
+                 f"in one prefill, expected {n}")
+    if replayed["spm_matmul"] != want["mm_per_step"] * G:
+        fail(f"{arch}: the timed decode steps' replays launched "
+             f"{replayed['spm_matmul']} spm_matmul, expected "
+             f"{want['mm_per_step']} x {G}")
     toks = res["tokens"]
-    if [t.shape for t in toks] != [(4,)] * 32:
-        fail(f"expected 4x32 generated tokens, got steps of "
+    if [t.shape for t in toks] != [(4,)] * G:
+        fail(f"expected 4x{G} generated tokens, got steps of "
              f"{[t.shape[0] for t in toks]} (deadline shed)")
     toks = np.stack(toks, 1)
-    if not ((toks >= 0) & (toks < 151_936)).all():
-        fail("a generated token is outside [0, 151936)")
-    print(f"phase 5 serve: ok, {toks.shape[0]}x{toks.shape[1]} tokens in "
-          f"[0, 151936)", flush=True)
+    if not ((toks >= 0) & (toks < want["vocab"])).all():
+        fail(f"a generated token is outside [0, {want['vocab']})")
+    print(f"phase 5 serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
+          f"tokens in [0, {want['vocab']})", flush=True)
     return launches, res
+
+
+def reset_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.spm_matmul import ops as mm_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    mm_ops.matmul.launches = 0
+    fa_ops.attention.launches = 0
+    wkv_ops.wkv.launches = 0
 
 
 def kernel_summary(rows, launches, replayed):
     """One entry per kernel; times and bounds summed over its main-path
-    cases (each shape once), errors the largest of those cases.
-    ``launches`` is the wrapper's count over the serve run,
-    ``replayed_launches`` what the decode graph's replays launched."""
+    cases (each shape once, both served models), errors the largest of
+    those cases.  ``launches`` is the wrappers' count over the serve
+    runs (summed), ``replayed_launches`` what the decode graphs'
+    replays launched."""
     from repro_torch.kernels import _build
     replaced = {
         "spm_matmul": "src/repro/kernels/spm_matmul/spm_matmul.py:50",
         "flash_attention":
-            "src/repro/kernels/flash_attention/flash_attention.py:75"}
+            "src/repro/kernels/flash_attention/flash_attention.py:75",
+        "wkv6": "src/repro/kernels/wkv6/wkv6.py:84"}
     out = []
     for name, replaces in replaced.items():
         main = [r for r in rows if r["kernel"] == name and r["main_path"]]
@@ -444,20 +568,27 @@ def main():
     dev, smi = phase_device()
     build_s = phase_build()
     rows = phase_kernels(dev)
-    phase_model(dev)
-    launches, res = phase_serve()
-    kernels = kernel_summary(rows, launches, res["replayed_launches"])
+    for arch in SERVES:
+        phase_model(dev, arch)
+    serves = {arch: phase_serve(arch) for arch in SERVES}
+    launches = {k: sum(l[k] for l, _ in serves.values())
+                for k in serves["qwen2-0.5b"][0]}
+    replayed = {k: sum(r["replayed_launches"][k] for _, r in serves.values())
+                for k in launches}
+    kernels = kernel_summary(rows, launches, replayed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "cases": rows, "kernels": kernels,
-        "serve": {"prefill_ms": res["prefill_s"] * 1e3,
-                  "decode_ms": [t * 1e3 for t in res["decode_s"]],
-                  "wcet_ms": res["wcet_s"] * 1e3,
-                  "deadline": res["deadline"], "plan": res["plan"],
-                  "launches": launches,
-                  "replayed_launches": res["replayed_launches"]}},
+        "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
+                         "decode_ms": [t * 1e3 for t in res["decode_s"]],
+                         "wcet_ms": res["wcet_s"] * 1e3,
+                         "deadline": res["deadline"], "plan": res["plan"],
+                         "launches": l,
+                         "prefill_launches": res["prefill_launches"],
+                         "replayed_launches": res["replayed_launches"]}
+                  for arch, (l, res) in serves.items()}},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -73,6 +73,24 @@ def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
             "fits": need <= chip.smem_bytes, "bkc": bkc}
 
 
+def wkv_smem_plan(chunk: int, K: int, chip: GPUChip = H100) -> dict:
+    """Shared-memory feasibility of one ``csrc/wkv6.cu`` block: the
+    port's stand-in for the reference's ``cost_model.py`` VMEM rule for
+    a wkv6 chunk.
+
+    The block keeps, in fp32: the [K, K] state; r, k, the anchored k
+    and the cumulative log-decay of the chunk ([chunk, K + 1] each, rows
+    padded by one against bank conflicts); v [chunk, K]; the intra-chunk
+    matrix [chunk, chunk + 1]; the u-bonus per row; u and the chunk's
+    total decay per channel.  ``smem_floats`` in ``csrc/wkv6.cu`` is the
+    same sum."""
+    L = chunk
+    floats = (K * K + 4 * L * (K + 1) + L * K + L * (L + 1) + L + 2 * K)
+    need = 4 * floats
+    return {"smem_need": need, "smem_bytes": chip.smem_bytes,
+            "fits": need <= chip.smem_bytes}
+
+
 def gpu_matmul_schedule(m: int, k: int, n: int, *, n_devices: int = 1,
                         tile_m: int = 64, tile_n: int = 128,
                         elem_bytes: int = 2,

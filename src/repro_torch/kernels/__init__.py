@@ -2,19 +2,17 @@
 copied as data.
 
 ``KERNEL_REGISTRY`` names each public kernel wrapper and the block
-parameters its plans own, as in the reference.  ``wkv6`` is listed with
-``module=None``: it serves only the RWKV family and is ported with that
-family's slice.
+parameters its plans own, as in the reference.
 
 ``CONFORMANCE_SHAPES`` are the shapes of the reference's
-``conformance_cases()`` for the two ported kernels; the tests and
+``conformance_cases()`` for the three kernels; the tests and
 ``chip_smoke.py`` run them against the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +20,7 @@ class KernelEntry:
     """One public kernel: where its wrapper lives and which kwargs its
     plans own."""
     name: str
-    module: Optional[str]
+    module: str
     func: str
     plan_params: Tuple[str, ...]
 
@@ -34,15 +32,14 @@ KERNEL_REGISTRY: Dict[str, KernelEntry] = {
     "flash_attention": KernelEntry(
         "flash_attention", "repro_torch.kernels.flash_attention.ops",
         "attention", ("bq", "bk")),
-    "wkv6": KernelEntry("wkv6", None, "wkv", ("chunk",)),
+    "wkv6": KernelEntry("wkv6", "repro_torch.kernels.wkv6.ops", "wkv",
+                        ("chunk",)),
 }
 
 
 def import_entry(name: str) -> Callable[..., Any]:
     """Resolve a registry row to its public wrapper (lazy)."""
     entry = KERNEL_REGISTRY[name]
-    if entry.module is None:
-        raise NotImplementedError(f"{name} is not ported yet")
     return getattr(importlib.import_module(entry.module), entry.func)
 
 
@@ -58,5 +55,11 @@ FLASH_CONFORMANCE = (
     (1, 128, 128, 4, 4, 64, False, 0, "float32"),
     (1, 128, 128, 4, 2, 64, True, 32, "bfloat16"),
 )
+# (B, S, H, K, chunk, dtype)
+WKV_CONFORMANCE = (
+    (1, 64, 2, 32, 32, "float32"),
+    (2, 64, 2, 64, 32, "float32"),
+)
 CONFORMANCE_SHAPES = {"spm_matmul": MATMUL_CONFORMANCE,
-                      "flash_attention": FLASH_CONFORMANCE}
+                      "flash_attention": FLASH_CONFORMANCE,
+                      "wkv6": WKV_CONFORMANCE}

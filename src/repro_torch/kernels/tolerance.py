@@ -17,6 +17,15 @@ A check of the largest error against the largest |want| alone (under
 3e-2) passed an attention kernel with its scale 1 % off at the serve
 prefill shape.
 
+wkv6 in fp32 (its y in an fp32 model, and its fp32 state always)
+allows 1e-4 for both terms (``KERNEL_FP32``): a chunked form takes each
+decay product as the exp of a difference of cumulative log-decays,
+whose rounding grows with the chunk's total decay (|cw| reaches 256 in
+the strong-decay case, where an fp32 ulp is 3e-5), while the plain
+version multiplies the step decays one by one.  The CPU model of that
+arithmetic (``wkv_chunked_direct``) reads 1.3 of the 1e-5 allowance in
+the strong-decay case, and its planted faults read over 1e3 of 1e-4.
+
 Run it to print, at the serve prefill shapes on the CPU, the worst error
 of the modelled kernels and of planted faults as shares of the
 allowance (under 1 passes), and for attention that older reading:
@@ -34,14 +43,120 @@ RTOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
 ATOL_FRAC = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def check(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype):
+# (atol_frac, rtol) of a kernel whose fp32 rounding differs from the rule
+KERNEL_FP32 = {"wkv6": 1e-4}
+
+
+def allowance(dtype: torch.dtype, kernel: Optional[str] = None):
+    """(atol_frac, rtol) for ``kernel``'s outputs in ``dtype``."""
+    if dtype == torch.float32 and kernel in KERNEL_FP32:
+        return KERNEL_FP32[kernel], KERNEL_FP32[kernel]
+    return ATOL_FRAC[dtype], RTOL[dtype]
+
+
+def check(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+          kernel: Optional[str] = None):
     """(worst |got - want| as a share of its allowance, max abs err);
     ``got`` passes when the share is below 1."""
+    atol_frac, rtol = allowance(dtype, kernel)
     g, w = got.float(), want.float()
-    atol = ATOL_FRAC[dtype] * w.pow(2).mean(-1, keepdim=True).sqrt()
+    atol = atol_frac * w.pow(2).mean(-1, keepdim=True).sqrt()
     diff = (g - w).abs()
-    ratio = (diff / (atol + RTOL[dtype] * w.abs() + 1e-30)).max().item()
+    ratio = (diff / (atol + rtol * w.abs() + 1e-30)).max().item()
     return ratio, diff.max().item()
+
+
+def check_wkv(got, want, dtype: torch.dtype):
+    """``check`` of a wkv6 result (y, state) against its plain version:
+    y in its dtype, the state in fp32; the worse of the two."""
+    ry, dy = check(got[0], want[0], dtype, "wkv6")
+    rs, ds = check(got[1], want[1], torch.float32, "wkv6")
+    return max(ry, rs), max(dy, ds)
+
+
+def wkv_chunked_direct(r, k, v, w_log, u, chunk: int):
+    """The chunked arithmetic of ``csrc/wkv6.cu`` in plain torch, fp32:
+    per chunk the inclusive cumulative log-decay cw, e = cw - w, the
+    intra-chunk pairs' decay exp(e_t - cw_j) taken directly, the state
+    read through r * exp(e) and updated by exp(total) and
+    k * exp(total - cw).  (The kernel factors the pairs' decay through
+    an anchor row per tile; the rounding of the exponents, the term that
+    grows with the decay, is the same.)  Builds [B, L, L, H, K] per
+    chunk: small shapes only."""
+    B, S, H, K = r.shape
+    f32 = torch.float32
+    s = torch.zeros(B, H, K, K, dtype=f32, device=r.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        rc, kc, vc, wc = (a[:, c0:c0 + chunk].to(f32)
+                          for a in (r, k, v, w_log))
+        n = rc.shape[1]
+        cw = torch.cumsum(wc, 1)
+        e = cw - wc
+        tot = cw[:, -1]
+        tri = torch.tril(torch.ones(n, n, dtype=torch.bool,
+                                    device=r.device), -1)[None, :, :,
+                                                          None, None]
+        seg = torch.where(tri, e[:, :, None] - cw[:, None, :], 0.0)
+        P = torch.where(tri, torch.exp(seg), 0.0)
+        A = torch.einsum("bthk,bjhk,btjhk->bhtj", rc, kc, P)
+        y = torch.einsum("bhtj,bjhv->bthv", A, vc)
+        y = y + torch.einsum("bthk,hk,bthk->bth", rc, u.to(f32),
+                             kc)[..., None] * vc
+        y = y + torch.einsum("bthk,bhkv->bthv", rc * torch.exp(e), s)
+        kd = kc * torch.exp(tot[:, None] - cw)
+        s = s * torch.exp(tot)[..., None] + torch.einsum(
+            "bjhk,bjhv->bhkv", kd, vc)
+        ys.append(y)
+    return torch.cat(ys, 1).to(r.dtype), s
+
+
+def wkv_planted_faults(wkv_fn, r, k, v, w_log, u, boundary: int) -> dict:
+    """{name: (y, state)}: three wrong wkv6 results made by running
+    ``wkv_fn`` (the kernel on the card, a CPU model here) on altered
+    inputs.  The u bonus dropped (u = 0); the state not carried across
+    the chunk boundary at ``boundary`` (the two parts run apart); the
+    decay off by one position (the read r_t S_{t-1} decayed by the
+    step's own w_t, i.e. an inclusive cumulative sum where the kernel
+    takes the exclusive one: r exp(w) with u = 0, plus the u bonus)."""
+    def part(sl):
+        return [a[:, sl].contiguous() for a in (r, k, v, w_log)]
+
+    zero_u = torch.zeros_like(u)
+    first = wkv_fn(*part(slice(0, boundary)), u)
+    second = wkv_fn(*part(slice(boundary, None)), u)
+    late = wkv_fn((r.float() * torch.exp(w_log)).to(r.dtype), k, v, w_log,
+                  zero_u)
+    bonus = torch.einsum("bthk,hk,bthk->bth", r.float(), u,
+                         k.float())[..., None] * v.float()
+    return {
+        "u bonus dropped": wkv_fn(r, k, v, w_log, zero_u),
+        "state not carried across a chunk boundary":
+            (torch.cat([first[0], second[0]], 1), second[1]),
+        "decay off by one position":
+            ((late[0].float() + bonus).to(r.dtype), late[1]),
+    }
+
+
+def wkv_inputs(B, S, H, K, dtype, decay, gen, device="cpu"):
+    """Seeded wkv6 inputs: r, k, v ~ N(0, 0.25) in ``dtype``, u ~
+    N(0, 0.09), and w_log by ``decay``: "model" as the model makes it at
+    its random init (-exp(w0 + eps), w0 uniform in [-2.5, -0.5], eps ~
+    N(0, 0.09)), "strong" the constant -4, "reference" the reference
+    test's -exp(0.8 N - 2)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    r, k, v = (0.5 * randn(B, S, H, K) for _ in range(3))
+    if decay == "model":
+        w0 = -0.5 - 2.0 * torch.rand(H, K, generator=gen, device=device)
+        w_log = -torch.exp(w0 + 0.3 * randn(B, S, H, K))
+    elif decay == "strong":
+        w_log = torch.full((B, S, H, K), -4.0, device=device)
+    else:
+        w_log = -torch.exp(0.8 * randn(B, S, H, K) - 2.0)
+    u = 0.3 * randn(H, K)
+    return r.to(dtype), k.to(dtype), v.to(dtype), w_log, u
 
 
 def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
@@ -129,5 +244,29 @@ def main() -> None:
               + ", ".join(f"{name} {r:.3f}" for name, r in share.items()))
 
 
+def wkv_main() -> None:
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    gen = torch.Generator().manual_seed(0)
+    for B, S, H, K, L, dt, decay in (
+            (4, 256, 32, 64, 64, torch.bfloat16, "model"),
+            (1, 256, 2, 64, 64, torch.float32, "strong"),
+            (1, 64, 2, 32, 32, torch.float32, "reference"),
+            (2, 64, 2, 64, 32, torch.float32, "reference")):
+        args = wkv_inputs(B, S, H, K, dt, decay, gen)
+        want = wkv6_ref(*args)
+
+        def model(*a):
+            return wkv_chunked_direct(*a, L)
+
+        faults = wkv_planted_faults(model, *args, L)
+        print(f"wkv6 B{B} S{S} H{H} K{K} chunk {L} {str(dt)[6:]} "
+              f"{decay} decay: modelled kernel "
+              f"{check_wkv(model(*args), want, dt)[0]:.3f}, "
+              + ", ".join(f"{name} {check_wkv(got, want, dt)[0]:.1f}"
+                          for name, got in faults.items()))
+
+
 if __name__ == "__main__":
     main()
+    wkv_main()

@@ -12,11 +12,12 @@ record -> warn -> shed ladder (``resilience.DeadlineMonitor``), and a
 shed halves the batch.
 
 On CUDA the weight-pass products run the hand-written ``spm_matmul``
-kernel and prefill attention the hand-written ``flash_attention``
-kernel.  The kernels are built, and one prefill and one decode step
-run, before the timed region, so no build or first-launch cost lands
-in a sample (the counterpart of the reference's AOT compilation).
-The KV cache is preallocated by prefill and updated in place by every
+kernel, prefill attention the hand-written ``flash_attention`` kernel
+and an RWKV model's prefill WKV the hand-written ``wkv6`` kernel.  The
+kernels are built, and one prefill and one decode step run, before the
+timed region, so no build or first-launch cost lands in a sample (the
+counterpart of the reference's AOT compilation).  The cache (KV, or
+RWKV state) is preallocated by prefill and updated in place by every
 decode step.  On CUDA the decode step is captured once as a CUDA graph
 on that cache (outside the timed region, and again after a shed) and
 replayed each step: eager, the host's ~70 launches per layer, not the
@@ -28,6 +29,8 @@ timed on the host clock around work that ends in
 ``torch.cuda.synchronize()``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --full --batch 4 --prompt-len 256 --gen 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --full --batch 4 --prompt-len 256 --gen 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
@@ -50,6 +53,7 @@ from repro_torch.core.gpu_mapping import gpu_wcet, serve_step_schedule
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.lm import RunOptions
 from repro_torch.models.spec import tree_map
@@ -109,7 +113,8 @@ def serving_plan(cfg, problem: ModelProblem, chunk_q: Optional[int],
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters, by kernel."""
     return {"spm_matmul": mm_ops.matmul.launches,
-            "flash_attention": fa_ops.attention.launches}
+            "flash_attention": fa_ops.attention.launches,
+            "wkv6": wkv_ops.wkv.launches}
 
 
 def _sync(dev: torch.device) -> None:
@@ -232,10 +237,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     lm_mod.decode_step(cfg, params, cache, tok, P, opts)
     _sync(dev)
 
+    before = launch_counts()
     t0 = time.monotonic()
     logits, cache = lm_mod.prefill(cfg, params, batch, opts)
     _sync(dev)
     t_prefill = time.monotonic() - t0
+    prefill_launches = {k: n - before[k] for k, n in launch_counts().items()}
 
     out = []
     times = []
@@ -300,6 +307,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return {"tokens": out, "prefill_s": t_prefill, "decode_s": times,
             "wcet_s": wcet_s, "deadline": s, "plan": plan,
             "replayed_launches": replayed,
+            "prefill_launches": prefill_launches,
             "plan_source": plan_source, "device": str(dev),
             "device_name": name, "n_params": n_p}
 

@@ -6,9 +6,10 @@ a unit is a fixed tuple of layer descriptors.  Parameters of a stage
 are stacked along a leading "stack" axis, one entry per unit, as in the
 reference, so converted reference parameters keep their layout.
 
-This slice carries the dense/vlm families (including gemma3-style
-``layer_pattern`` units of local and global layers).  The other
-families' stages raise ``NotImplementedError`` until their slices land.
+The port carries the dense/vlm families (including gemma3-style
+``layer_pattern`` units of local and global layers) and the RWKV
+family.  The other families' stages raise ``NotImplementedError``
+until their slices land.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Tuple
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import rmsnorm_spec
 from repro_torch.models.spec import Par, stack, tree_map
 
@@ -61,6 +63,8 @@ def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
             return (StageDescr(cfg.num_layers // len(unit), unit),)
         unit = (LayerDescr("attn", theta=a.rope_theta),)
         return (StageDescr(cfg.num_layers, unit),)
+    if cfg.family == "rwkv":
+        return (StageDescr(cfg.num_layers, (LayerDescr("rwkv"),)),)
     raise _not_ported(f"the {cfg.family!r} family")
 
 
@@ -83,6 +87,13 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
             p["ln_attn_post"] = rmsnorm_spec(d)
             p["ln_ffn_post"] = rmsnorm_spec(d)
         return p
+    if dsc.kind == "rwkv":
+        return {
+            "ln_tm": rmsnorm_spec(d),
+            "tm": rwkv_mod.timemix_spec(d, cfg.rwkv, dt),
+            "ln_cm": rmsnorm_spec(d),
+            "cm": rwkv_mod.channelmix_spec(d, cfg.d_ff, dt),
+        }
     raise _not_ported(f"the {dsc.kind!r} layer")
 
 
@@ -114,6 +125,8 @@ def layer_cache_spec(cfg: ModelConfig, dsc: LayerDescr, batch: int,
                      ("batch", "kv_seq", "kv_heads", None), init="zeros",
                      dtype=dt),
         }
+    if dsc.kind == "rwkv":
+        return rwkv_mod.rwkv_state_spec(batch, cfg.d_model, cfg.rwkv, dt)
     raise _not_ported(f"the {dsc.kind!r} layer cache")
 
 

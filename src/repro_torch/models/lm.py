@@ -1,5 +1,5 @@
-"""Language model of the port: the dense decoder path of the
-reference's ``models/lm.py``, in PyTorch.
+"""Language model of the port: the dense decoder and RWKV paths of
+the reference's ``models/lm.py``, in PyTorch.
 
 Public API (the reference's, with an explicit ``device`` and seed):
   model_spec(cfg)                        -> Par tree
@@ -13,13 +13,14 @@ Parameters, caches and activations keep the reference's layouts
 (``wq`` [d, H, hd], ``wo`` [H, hd, d], q [B, S, H, hd], stacked caches
 [stack, B, L, KV, hd]), so converted reference parameters
 (``repro_torch.convert``) run unchanged and the tests compare like with
-like.  Weight-pass products run through ``spm_matmul`` and prefill
-attention through ``flash_attention``: their hand-written kernels for
-CUDA tensors, their plain versions for CPU tensors.
+like.  Weight-pass products run through ``spm_matmul``, prefill
+attention through ``flash_attention`` and prefill WKV through
+``wkv6``: their hand-written kernels for CUDA tensors, their plain
+versions for CPU tensors.
 
 Entry points default to ``device="cuda"`` and take the CPU only when
-asked.  Training (``lm_loss``/``train_loss``) and the non-dense
-families come with later slices.
+asked.  Training (``lm_loss``/``train_loss``) and the MoE, SSM, hybrid
+and encoder-decoder families come with later slices.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.kernels.spm_matmul import ops as spm_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import rmsnorm, rmsnorm_spec
 from repro_torch.models.spec import Par, init_tree
 from repro_torch.models.spec import param_count as spec_param_count
@@ -186,16 +188,36 @@ def _to_cache_buf(k: torch.Tensor, cache_len: int,
     return buf
 
 
+def _rwkv_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     collect: bool):
+    """One RWKV layer over the whole sequence; with ``collect``, its
+    decode state ``{"tm": {"shift", "wkv"}, "cm"}``."""
+    h = rmsnorm(x, p["ln_tm"])
+    res = rwkv_mod.timemix_forward(p["tm"], h, cfg.rwkv,
+                                   return_state=collect)
+    tm, st = res if collect else (res, None)
+    x = x + tm
+    h = rmsnorm(x, p["ln_cm"])
+    res = rwkv_mod.channelmix_forward(p["cm"], h, return_state=collect)
+    cm, st2 = res if collect else (res, None)
+    return x + cm, ({"tm": st, "cm": st2} if collect else None)
+
+
 def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                      positions: torch.Tensor, opts: RunOptions,
                      collect: bool, cache_len: int):
     cache = {}
     a = cfg.attention
     for i, dsc in enumerate(unit):
+        p = up[f"pos{i}"]
+        if dsc.kind == "rwkv":
+            x, c = _rwkv_layer_full(cfg, p, x, collect)
+            if collect:
+                cache[f"pos{i}"] = c
+            continue
         if dsc.kind not in ("attn", "enc_attn") or dsc.use_moe:
             raise NotImplementedError(f"{dsc.kind} layers come with their "
                                       "family's slice")
-        p = up[f"pos{i}"]
         h = rmsnorm(x, p["ln_attn"])
         res = attn_mod.self_attention(
             p["attn"], h, a, positions, theta=dsc.theta, window=dsc.window,
@@ -270,16 +292,38 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     return logits, caches
 
 
+def _rwkv_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       c: dict, tile: Optional[Tuple[int, int]]
+                       ) -> torch.Tensor:
+    """One RWKV decode step.  The new token-shift and WKV states are
+    copied into the cache's buffers (``c``, views of the stacked cache),
+    so a captured graph's next replay reads them."""
+    h = rmsnorm(x, p["ln_tm"])
+    tm, st = rwkv_mod.timemix_forward(p["tm"], h, cfg.rwkv, c["tm"],
+                                      return_state=True, tile=tile)
+    x = x + tm
+    h = rmsnorm(x, p["ln_cm"])
+    cm, st2 = rwkv_mod.channelmix_forward(p["cm"], h, c["cm"],
+                                          return_state=True, tile=tile)
+    c["tm"]["shift"].copy_(st["shift"])
+    c["tm"]["wkv"].copy_(st["wkv"])
+    c["cm"].copy_(st2)
+    return x + cm
+
+
 def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                        pos: Union[int, torch.Tensor], cache_unit: dict,
                        tile: Optional[Tuple[int, int]]) -> torch.Tensor:
     a = cfg.attention
     for i, dsc in enumerate(unit):
+        p = up[f"pos{i}"]
+        c = cache_unit[f"pos{i}"]
+        if dsc.kind == "rwkv":
+            x = _rwkv_layer_decode(cfg, p, x, c, tile)
+            continue
         if dsc.kind not in ("attn", "enc_attn") or dsc.use_moe:
             raise NotImplementedError(f"{dsc.kind} layers come with their "
                                       "family's slice")
-        p = up[f"pos{i}"]
-        c = cache_unit[f"pos{i}"]
         h = rmsnorm(x, p["ln_attn"])
         att, _, _ = attn_mod.decode_attention(
             p["attn"], h, a, c["k"], c["v"], pos, theta=dsc.theta,
@@ -303,9 +347,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     reads no host value and can be captured as a CUDA graph).
     Returns (fp32 logits [B, padded_vocab], cache).
 
-    The KV cache is preallocated and updated in place: the returned
-    cache is the same buffers as ``cache``, holding the new token's K/V
-    at ``pos``.  That in-place update is what ``compat.donated_jit``
+    The cache is preallocated and updated in place: the returned cache
+    is the same buffers as ``cache``, holding the new token's K/V at
+    ``pos`` (RWKV: the new token-shift and WKV states; ``pos`` is
+    unused).  That in-place update is what ``compat.donated_jit``
     (buffer donation) buys the reference."""
     x = _embed(cfg, params, token[:, None])
     scan_units = (cfg.scan_layers if opts.decode_scan is None

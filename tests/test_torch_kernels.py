@@ -6,8 +6,10 @@ kernel in interpret mode and against its ``ref.py`` oracle, on the same
 numpy-seeded inputs, under ``conftest.KERNEL_TOLERANCES`` (fp32 1e-5;
 bf16 3e-2, which absorbs p rounded to bf16 before the PV product, as
 the TPU kernel and the CUDA kernel do while the model's chunked sdpa
-keeps it in fp32, and the frameworks' other rounding points).  The plan rule (tile clamping, the shared-memory fit and
-its ``bk`` halving) is host code and is tested here too.
+keeps it in fp32, and the frameworks' other rounding points).  The
+plan rules (spm_matmul's tile clamping, shared-memory fit and ``bk``
+halving; wkv6's chunk halving) are host code and are tested here too;
+the plain wkv6 against the Pallas kernel is in ``test_torch_rwkv.py``.
 
 The CUDA kernels themselves cannot run here.  The tests marked ``gpu``
 launch them on a card and skip elsewhere; ``chip_smoke.py`` holds them
@@ -23,11 +25,12 @@ from repro.kernels.flash_attention.ops import attention as jax_attention
 from repro.kernels.spm_matmul.ops import matmul as jax_matmul
 from repro.kernels.spm_matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.convert import tensor_from_numpy
-from repro_torch.core.gpu_mapping import H100, smem_plan
+from repro_torch.core.gpu_mapping import H100, smem_plan, wkv_smem_plan
 from repro_torch.kernels import (CONFORMANCE_SHAPES, KERNEL_REGISTRY,
                                  import_entry, tolerance)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -204,9 +207,8 @@ def test_flash_rejects_mismatched_heads():
 def test_registry_resolves_ported_wrappers():
     assert import_entry("spm_matmul") is mm_ops.matmul
     assert import_entry("flash_attention") is fa_ops.attention
-    assert KERNEL_REGISTRY["wkv6"].module is None
-    with pytest.raises(NotImplementedError):
-        import_entry("wkv6")
+    assert import_entry("wkv6") is wkv_ops.wkv
+    assert KERNEL_REGISTRY["wkv6"].plan_params == ("chunk",)
 
 
 def test_tolerance_policy_is_the_repos():
@@ -225,7 +227,40 @@ def test_flash_rounding_model_is_the_attention(S, window):
     assert_kernel_close(got.numpy(), want.numpy(), "float32")
 
 
-@pytest.mark.parametrize("kernel", ["spm_matmul", "flash_attention"])
+# -------------------------------------------------------------- wkv6 plan
+
+def test_wkv_smem_rule_rejects_the_model_chunk_at_k64():
+    assert not wkv_smem_plan(256, 64)["fits"]
+    assert not wkv_smem_plan(128, 64)["fits"]
+    assert wkv_smem_plan(64, 64)["fits"]
+    assert wkv_smem_plan(64, 64)["smem_bytes"] == H100.smem_bytes
+
+
+@pytest.mark.parametrize("S,K,chunk,want", [
+    (256, 64, 256, 64),      # the serve shape: 256 -> 128 -> 64
+    (256, 64, None, 64),     # the reference's default 128, halved
+    (256, 32, None, 128),    # fits as asked
+    (256, 128, 128, 32),
+    (40, 64, 256, 40),       # clamped to S, which fits
+    (100, 64, 64, 64),       # a ragged last chunk is the kernel's
+])
+def test_wkv_chunk_halves_until_it_fits(S, K, chunk, want):
+    got = wkv_ops.resolve_chunk(S, K, chunk)
+    assert got == want
+    assert wkv_smem_plan(got, K)["fits"]
+
+
+def test_wkv_smem_rule_is_monotone_in_chunk_and_k():
+    for K in wkv_ops.HEAD_DIMS:
+        needs = [wkv_smem_plan(c, K)["smem_need"] for c in range(1, 300)]
+        assert all(a < b for a, b in zip(needs, needs[1:]))
+    for c in (16, 64, 128):
+        needs = [wkv_smem_plan(c, K)["smem_need"] for K in range(8, 200, 8)]
+        assert all(a < b for a, b in zip(needs, needs[1:]))
+
+
+@pytest.mark.parametrize("kernel", ["spm_matmul", "flash_attention",
+                                    "wkv6"])
 def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
     """The element-wise check chip_smoke.py holds each kernel to on the
     card: under its bf16 allowance for the kernel's own rounding, over
@@ -242,13 +277,29 @@ def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
         dropped = a.clone()
         dropped[:, -16:] = 0
         fault = mm_ops.matmul_plain(dropped, b)
-    else:
+    elif kernel == "flash_attention":
         q, k, v = (torch.randn(*s, generator=gen).to(bf)
                    for s in ((1, 128, 4, 64), (1, 128, 2, 64),
                              (1, 128, 2, 64)))
         want = fa_ops.attention_plain(q, k, v)
         sound = tolerance.flash_kernel_rounding(q, k, v)
         fault = tolerance.flash_kernel_rounding(q, k, v, scale=1.05 / 8)
+    else:
+        # the chunked arithmetic of csrc/wkv6.cu, and its three planted
+        # faults, in bf16 (model decays) and fp32 (strong decay)
+        for dt, decay in ((bf, "model"), (torch.float32, "strong")):
+            args = tolerance.wkv_inputs(2, 128, 2, 64, dt, decay, gen)
+            want = wkv_ops.wkv_plain(*args)
+
+            def model(*a):
+                return tolerance.wkv_chunked_direct(*a, 32)
+
+            assert tolerance.check_wkv(model(*args), want, dt)[0] < 1
+            faults = tolerance.wkv_planted_faults(model, *args, 32)
+            assert len(faults) == 3
+            for got in faults.values():
+                assert tolerance.check_wkv(got, want, dt)[0] > 1
+        return
     assert tolerance.check(sound, want, bf)[0] < 1
     assert tolerance.check(fault, want, bf)[0] > 1
 

@@ -71,19 +71,23 @@ def _rand(rng, shape, dtype, scale=1.0):
 
 # ------------------------------------------------------------- configs
 
-def test_config_copy_matches_reference_field_for_field():
-    ref = jax_get_config("qwen2-0.5b")
-    assert port_cfg(ref) == get_config("qwen2-0.5b")
-    assert plm.param_count(get_config("qwen2-0.5b")) == 494_032_768
-    assert plm.param_count(get_config("qwen2-0.5b")) == \
-        jlm.param_count(ref)
+PARAMS = {"qwen2-0.5b": 494_032_768, "rwkv6-1.6b": 1_599_719_424}
 
 
+@pytest.mark.parametrize("arch", sorted(PARAMS))
+def test_config_copy_matches_reference_field_for_field(arch):
+    ref = jax_get_config(arch)
+    assert port_cfg(ref) == get_config(arch)
+    assert plm.param_count(get_config(arch)) == PARAMS[arch]
+    assert plm.param_count(get_config(arch)) == jlm.param_count(ref)
+
+
+@pytest.mark.parametrize("arch", sorted(PARAMS))
 @pytest.mark.parametrize("full", [True, False])
-def test_model_and_cache_specs_match_reference(full):
-    ref = jax_get_config("qwen2-0.5b")
+def test_model_and_cache_specs_match_reference(full, arch):
+    ref = jax_get_config(arch)
     if not full:
-        ref = tiny_cfg("qwen2-0.5b", num_layers=2)
+        ref = tiny_cfg(arch, num_layers=2)
     cfg = port_cfg(ref)
 
     def ref_items(tree):

@@ -1,8 +1,9 @@
-"""The port's serving layer on the CPU: the serve driver's banner, the
-H100 WCET bound's dependence on the served plan (as
-tests/test_model_plan.py asserts for the reference), spec-driven batch
-shedding, the gpu_mapping schedule's invariants, and the copied
-deadline ladder and plan helpers against the reference's."""
+"""The port's serving layer on the CPU: the serve entry point's banner
+(for qwen2-0.5b and rwkv6-1.6b), the H100 WCET bound's dependence on
+the served plan (as tests/test_model_plan.py asserts for the
+reference), spec-driven batch shedding, the gpu_mapping schedule's
+invariants, and the copied deadline ladder and plan helpers against
+the reference's."""
 import numpy as np
 import pytest
 import torch
@@ -45,6 +46,21 @@ def test_serve_main_on_cpu_prints_the_banner(capsys):
     assert res["device"] == "cpu" and res["wcet_s"] > 0
 
 
+def test_serve_main_serves_rwkv_on_cpu(capsys):
+    """The reduced rwkv6-1.6b through the same entry point: prefill runs
+    the wkv6 wrapper (its plain version here), decode carries the
+    state."""
+    res = serve.main(["--device", "cpu", "--arch", "rwkv6-1.6b",
+                      "--prompt-len", "64", "--gen", "4", "--d-model", "64",
+                      "--vocab", "256", "--deadline-ms", "10000"])
+    out = capsys.readouterr().out
+    assert "rwkv6-1.6b 2L d_model=64" in out
+    assert "generated shape: (4, 4)" in out
+    toks = np.stack(res["tokens"], 1)
+    assert ((toks >= 0) & (toks < 256)).all()
+    assert res["deadline"]["n_shed"] == 0
+
+
 def test_serve_explicit_chunks_and_dtype(capsys):
     res = serve.main(["--device", "cpu", "--prompt-len", "24", "--gen",
                       "2", "--d-model", "64", "--vocab", "256",
@@ -68,7 +84,14 @@ def test_wcet_bound_derives_from_the_served_plan():
     assert sched.meta["tile_n"] == plan["mm_bn"]
 
 
-def test_decode_products_run_the_plans_tile(monkeypatch, capsys):
+# weight-pass products per layer of one decode step: q k v o gate up
+# down; rwkv's time mix mix_w1, mix_w2 x 5, wd_w1, wd_w2, r k v g o and
+# its channel mix k v r
+PRODUCTS_PER_LAYER = {"qwen2-0.5b": 7, "rwkv6-1.6b": 16}
+
+
+@pytest.mark.parametrize("arch", sorted(PRODUCTS_PER_LAYER))
+def test_decode_products_run_the_plans_tile(monkeypatch, capsys, arch):
     """The serving plan's mm_bm/mm_bn pins (the tile the WCET bound
     counts) reach every weight-pass product of every decode step, and
     are what spm_matmul resolves for the decode weight pass; prefill
@@ -84,20 +107,20 @@ def test_decode_products_run_the_plans_tile(monkeypatch, capsys):
     recording.launches = 0
     monkeypatch.setattr(mm_ops, "matmul", recording)
     gen, layers = 3, 2
-    res = serve.main(["--device", "cpu", "--prompt-len", "32", "--gen",
-                      str(gen), "--d-model", "64", "--vocab", "256",
-                      "--deadline-ms", "10000"])
+    res = serve.main(["--device", "cpu", "--arch", arch, "--prompt-len",
+                      "32", "--gen", str(gen), "--d-model", "64",
+                      "--vocab", "256", "--deadline-ms", "10000"])
     capsys.readouterr()
     pins = (res["plan"]["mm_bm"], res["plan"]["mm_bn"])
     resolved = mm_ops.resolve_plan(4, 64, 2 * res["n_params"] // 64, 4,
                                    False)
     assert pins == (resolved["bm"], resolved["bn"]) in mm_ops.TILES
-    per_step = 7 * layers + 1          # q k v o gate up down + logits
+    per_step = PRODUCTS_PER_LAYER[arch] * layers + 1     # + logits
     # one untimed warm-up step, then the timed ones
     assert calls.count(pins) == (1 + gen) * per_step
     assert set(calls) == {pins, (None, None)}
     assert res["replayed_launches"] == {"spm_matmul": 0,
-                                        "flash_attention": 0}
+                                        "flash_attention": 0, "wkv6": 0}
 
 
 def test_default_plan_follows_the_reference_rules():
@@ -110,8 +133,9 @@ def test_default_plan_follows_the_reference_rules():
     assert plan_sig(plan) == jax_plan_sig(plan)
 
 
-def test_shed_batch_slices_only_the_batch_axis():
-    cfg = _micro_cfg()
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b"])
+def test_shed_batch_slices_only_the_batch_axis(arch):
+    cfg = reduce_config(get_config(arch), layers=2, d_model=64, vocab=256)
     cache = lm.init_cache(cfg, 4, 40, device="cpu")
     for _, leaf in tree_items(cache):
         leaf.normal_()
