@@ -8,7 +8,8 @@ Phases, one result line each; any failure exits non-zero:
 1. device   the card's name and power limit (nvidia-smi) and capability;
             anything but sm_90 fails.
 2. build    nvcc builds every kernel of ``src/repro_torch/csrc`` for
-            sm_90a, one process per source, all at once.
+            sm_90a, one process per source, all at once, and prints
+            each kernel's registers and spills (``-Xptxas -v``).
 3. kernels  each kernel against its plain PyTorch version on the card,
             at the shapes the main paths give it (bf16), at edge shapes
             and at the reference's conformance shapes, element by
@@ -18,10 +19,17 @@ Phases, one result line each; any failure exits non-zero:
             planted faults, which must exceed 1 (spm_matmul: one 16-deep
             K step dropped; flash_attention: a 5 % error in the scale;
             wkv6: the u bonus dropped, the state not carried across a
-            chunk boundary, the decay off by one position).  Then the
-            kernel's time, the plain version's, a PyTorch library
-            call's where one computes the same function (a yardstick the
-            port never calls) and the bound from the datasheet rates.
+            chunk boundary, the decay off by one position).  Each case
+            records the kernel path its wrapper launched (and the split
+            count): the main path's bf16 shapes must take the redesigned
+            paths (spm_matmul: cluster split-K for decode products but
+            the logits, wgmma for prefill; flash_attention: the
+            tensor-core kernel), fp32 and unaligned operands the older
+            kernels.  Each main-path case runs twice and must give the
+            same bits.  Then the kernel's time, the plain version's, a
+            PyTorch library call's where one computes the same function
+            (a yardstick the port never calls) and the bound from the
+            datasheet rates.
 4. model    reduced qwen2-0.5b and reduced rwkv6-1.6b (2 layers, fp32)
             on the card against the same converted parameters on the
             CPU: prefill logits within 1e-4 of the largest logit, 8
@@ -36,7 +44,11 @@ Phases, one result line each; any failure exits non-zero:
             timed decode steps replay a captured CUDA graph, which
             passes no wrapper: the launches those replays made are read
             from ``serve.main`` and must be the step's spm_matmul
-            products times the steps.
+            products times the steps.  The wrappers' path counters,
+            zeroed with the launch counters, must show every eager
+            decode product but the logits on the split-K path and every
+            prefill product on the wgmma path (and, for qwen2-0.5b,
+            every flash_attention launch on the tensor-core kernel).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -133,6 +145,8 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernels; returns the build time and, per kernel entry,
+    ptxas's register and spill lines."""
     from repro_torch.kernels import _build
     t0 = time.monotonic()
     logs = _build.build(ptxas_verbose=True)
@@ -140,11 +154,18 @@ def phase_build():
     print(f"phase 2 build: {sorted(_build.SOURCES)} with "
           f"{' '.join(_build.NVCC_FLAGS)} in {secs:.1f} s "
           f"(newly built: {sorted(logs)})", flush=True)
+    usage = {}
     for name, text in logs.items():
+        entry = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line.lower():
-                print(f"  {name}: {line.strip()}")
-    return secs
+            if "Compiling entry function" in line and "'" in line:
+                entry = line.split("'")[1]
+            elif entry and ("registers" in line or "spill" in line):
+                usage.setdefault(entry, []).append(
+                    line.split(":", 1)[-1].strip())
+    for entry, lines in usage.items():
+        print(f"  {entry}: {'; '.join(lines)}")
+    return secs, usage
 
 
 # ----------------------------------------------------------- kernels
@@ -174,9 +195,11 @@ def matmul_cases():
     cases.append(("rwkv logits (lm_head^T)", B, rd, rV, True, bf, f32, {},
                   True))
     cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
-    for m in (1, 2, 259):
+    for m in (1, 2, 48, 259):
         cases.append((f"ragged M={m}", m, d, d, False, bf, None, {},
                       False))
+    # rows off the 16-byte grid (A = a [4, 897] slice's last 896 columns)
+    cases.append(("unaligned bf16", B, d, d, False, bf, None, {}, False))
     for m, k, n, bm, bn, bk, dt in CONFORMANCE_SHAPES["spm_matmul"]:
         cases.append(("conformance", m, k, n, False, getattr(torch, dt),
                       None, {"bm": bm, "bn": bn, "bk": bk}, False))
@@ -191,6 +214,8 @@ def flash_cases():
              ("windowed", 4, 256, 14, 2, 64, True, 64, bf, False),
              ("non-causal", 4, 256, 14, 2, 64, False, 0, bf, False),
              ("ragged S=100", 2, 100, 14, 2, 64, True, 0, bf, False),
+             ("S=100 window 24", 1, 100, 4, 1, 32, True, 24, bf, False),
+             ("unaligned bf16", 2, 100, 4, 1, 64, True, 0, bf, False),
              ("ragged S=100 fp32", 2, 100, 4, 1, 128, True, 0,
               torch.float32, False)]
     for b, sq, _, h, kv, d, causal, w, dt in \
@@ -232,12 +257,23 @@ def run_matmul(dev, gen):
     from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
     rows = []
     for label, m, k, n, tb, dt, out, plan, main in matmul_cases():
-        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        a = torch.randn(m, k + (label == "unaligned bf16"), generator=gen,
+                        device=dev).to(dt)[:, -k:]
         bshape = (n, k) if tb else (k, n)
         b = (torch.randn(*bshape, generator=gen, device=dev)
              / math.sqrt(k)).to(dt)
+        before = dict(ops.matmul.paths)
         got = ops.matmul(a, b, trans_b=tb, out_dtype=out, **plan)
         torch.cuda.synchronize()
+        path = launched_path(ops.matmul.paths, before)
+        route = ops.route(a, b, tb, **plan)
+        want_path = expected_matmul_path(label, m, dt, tb)
+        if path != route["path"] or path != want_path:
+            fail(f"spm_matmul {label} {m}x{k}x{n}: launched {path}, "
+                 f"dispatch says {route['path']}, expected {want_path}")
+        if main and not torch.equal(got, ops.matmul(a, b, trans_b=tb,
+                                                    out_dtype=out)):
+            fail(f"spm_matmul {label} {m}x{k}x{n}: two runs differ")
         want = ops.matmul_plain(a, b, out, trans_b=tb)
         ratio, diff = check(got, want, dt)
         if not ratio < 1:
@@ -253,7 +289,9 @@ def run_matmul(dev, gen):
             fail(f"spm_matmul {label}: the check misses a dropped K step "
                  f"({fault:.3f} of its allowance)")
         row = {"kernel": "spm_matmul", "case": label, "shape": [m, k, n],
-               "trans_b": tb, "dtype": str(dt), "err_ratio": ratio,
+               "trans_b": tb, "dtype": str(dt), "path": path,
+               "splits": route["splits"], "deterministic": main or None,
+               "err_ratio": ratio,
                "fault_ratio": fault, "max_abs_err": diff, "rtol": RTOL[dt],
                "atol_frac": ATOL_FRAC[dt], "main_path": main}
         copies = max(1, min(512, math.ceil(
@@ -271,12 +309,34 @@ def run_matmul(dev, gen):
         del sets
         rows.append(row)
         print(f"  spm_matmul {label:24s} {m}x{k}x{n} {str(dt)[6:]:8s} "
+              f"{path} x{route['splits']}  "
               f"err {ratio:.3f} of allowance (dropped K step "
               f"{fault:.1f})  max abs {diff:.2e}  kernel "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
               f"library {row['library_ms']} ms  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     return rows
+
+
+def launched_path(paths, before):
+    """The one path whose launch counter moved since ``before``."""
+    moved = [p for p, n in paths.items() if n != before[p]]
+    if len(moved) != 1 or paths[moved[0]] != before[moved[0]] + 1:
+        fail(f"expected one launch on one path: {before} -> {paths}")
+    return moved[0]
+
+
+def expected_matmul_path(label, m, dtype, trans_b):
+    """The path a case must take: the tiled kernel for fp32 and
+    unaligned operands and for the conformance plans (their pins, bk 0
+    among them, name tiles no other path runs); for bf16 the split-K
+    path at M <= 16 but the transposed-B logits, wgmma at M >= 64, the
+    tiled kernel in between."""
+    if dtype == torch.float32 or label in ("unaligned bf16", "conformance"):
+        return "tiled"
+    if m <= 16:
+        return "tiled" if trans_b else "splitk"
+    return "wgmma" if m >= 64 else "tiled"
 
 
 def library_matmul_ms(sets, trans_b, out):
@@ -299,11 +359,23 @@ def run_flash(dev, gen):
     from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
     rows = []
     for label, B, S, H, KV, D, causal, w, dt, main in flash_cases():
-        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
-        k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
-        v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
+        # "unaligned": each head's row one element off the 16-byte grid
+        off = int(label == "unaligned bf16")
+        q, k, v = (torch.randn(B, S, n, D + off, generator=gen,
+                               device=dev).to(dt)[..., off:]
+                   for n in (H, KV, KV))
+        before = dict(ops.attention.paths)
         got = ops.attention(q, k, v, causal=causal, window=w)
         torch.cuda.synchronize()
+        path = launched_path(ops.attention.paths, before)
+        want_path = ("tensor_core" if dt == torch.bfloat16 and not off
+                     else "fma")
+        if path != want_path:
+            fail(f"flash_attention {label}: launched {path}, expected "
+                 f"{want_path}")
+        if main and not torch.equal(got, ops.attention(
+                q, k, v, causal=causal, window=w)):
+            fail(f"flash_attention {label}: two runs differ")
         want = ops.attention_plain(q, k, v, causal=causal, window=w)
         ratio, diff = check(got, want, dt)
         if not torch.isfinite(got).all() or not ratio < 1:
@@ -317,7 +389,9 @@ def run_flash(dev, gen):
                  f"error ({fault:.3f} of its allowance)")
         row = {"kernel": "flash_attention", "case": label,
                "shape": [B, S, H, KV, D], "causal": causal, "window": w,
-               "dtype": str(dt), "err_ratio": ratio, "fault_ratio": fault,
+               "dtype": str(dt), "path": path,
+               "deterministic": main or None, "err_ratio": ratio,
+               "fault_ratio": fault,
                "max_abs_err": diff, "rtol": RTOL[dt],
                "atol_frac": ATOL_FRAC[dt], "main_path": main}
         sets = [(q, k, v)]
@@ -338,7 +412,7 @@ def run_flash(dev, gen):
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
         rows.append(row)
         print(f"  flash_attention {label:18s} B{B} S{S} H{H} KV{KV} D{D} "
-              f"causal={causal} window={w} {str(dt)[6:]:8s} err "
+              f"causal={causal} window={w} {str(dt)[6:]:8s} {path} err "
               f"{ratio:.3f} of allowance (scale x1.05 {fault:.1f})  max abs "
               f"{diff:.2e}  kernel {row['ms']:.4f} ms  "
               f"plain {row['plain_ms']:.4f} ms  library "
@@ -494,6 +568,7 @@ def phase_serve(arch):
     reset_launches()
     res = serve.main(argv)
     launches = serve.launch_counts()
+    paths = path_counts()
     replayed = res["replayed_launches"]
     print(f"phase 5 serve {arch}: wrapper launches {launches}; in the "
           f"timed prefill {res['prefill_launches']}; launched by the timed "
@@ -509,6 +584,7 @@ def phase_serve(arch):
         fail(f"{arch}: the timed decode steps' replays launched "
              f"{replayed['spm_matmul']} spm_matmul, expected "
              f"{want['mm_per_step']} x {G}")
+    check_serve_paths(arch, launches, paths)
     toks = res["tokens"]
     if [t.shape for t in toks] != [(4,)] * G:
         fail(f"expected 4x{G} generated tokens, got steps of "
@@ -518,7 +594,38 @@ def phase_serve(arch):
         fail(f"a generated token is outside [0, {want['vocab']})")
     print(f"phase 5 serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
           f"tokens in [0, {want['vocab']})", flush=True)
-    return launches, res
+    return launches, dict(res, paths=paths)
+
+
+def check_serve_paths(arch, launches, paths):
+    """Every eager decode product but the logits took the split-K path,
+    every prefill product but the logits (taken at the last position,
+    M = batch) the wgmma path, and flash_attention its tensor-core
+    kernel.  A serve makes two prefills (untimed, timed) and its eager
+    decode steps (untimed, the capture's warm-up, the capture)."""
+    want = SERVES[arch]
+    per_prefill = want["per_prefill"]["spm_matmul"]
+    decodes, rest = divmod(launches["spm_matmul"] - 2 * per_prefill,
+                           want["mm_per_step"])
+    expect = {"splitk": decodes * (want["mm_per_step"] - 1),
+              "wgmma": 2 * (per_prefill - 1), "tiled": decodes + 2}
+    print(f"phase 5 serve {arch}: kernel paths {paths} ({decodes} eager "
+          f"decode steps, 2 prefills)", flush=True)
+    if rest or decodes < 1 or paths["spm_matmul"] != expect:
+        fail(f"{arch}: spm_matmul paths {paths['spm_matmul']}, expected "
+             f"{expect}")
+    fa = paths["flash_attention"]
+    if "flash_attention" in want["kernels"] and (
+            fa["fma"] or fa["tensor_core"] != launches["flash_attention"]):
+        fail(f"{arch}: flash_attention paths {fa}: every launch must take "
+             f"the tensor-core kernel")
+
+
+def path_counts():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.spm_matmul import ops as mm_ops
+    return {"spm_matmul": dict(mm_ops.matmul.paths),
+            "flash_attention": dict(fa_ops.attention.paths)}
 
 
 def reset_launches():
@@ -528,6 +635,8 @@ def reset_launches():
     mm_ops.matmul.launches = 0
     fa_ops.attention.launches = 0
     wkv_ops.wkv.launches = 0
+    for counts in (mm_ops.matmul.paths, fa_ops.attention.paths):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def kernel_summary(rows, launches, replayed):
@@ -566,7 +675,7 @@ def kernel_summary(rows, launches, replayed):
 
 def main():
     dev, smi = phase_device()
-    build_s = phase_build()
+    build_s, registers = phase_build()
     rows = phase_kernels(dev)
     for arch in SERVES:
         phase_model(dev, arch)
@@ -580,12 +689,13 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "build_s": build_s, "cases": rows, "kernels": kernels,
+        "build_s": build_s, "registers": registers, "cases": rows,
+        "kernels": kernels,
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],
                          "wcet_ms": res["wcet_s"] * 1e3,
                          "deadline": res["deadline"], "plan": res["plan"],
-                         "launches": l,
+                         "launches": l, "paths": res["paths"],
                          "prefill_launches": res["prefill_launches"],
                          "replayed_launches": res["replayed_launches"]}
                   for arch, (l, res) in serves.items()}},

@@ -44,31 +44,71 @@ class GPUChip:
 
 H100 = GPUChip()
 
-# shared-memory row padding of csrc/spm_matmul.cu, in elements
-SMEM_PAD = 8
+# csrc/spm_matmul.cu's shared-memory layouts (the kernels' constants;
+# tests/test_torch_kernels.py reads them back from the source)
+SMEM_PAD = 8            # tiled path: row padding, in elements
+SPLITK_WARPS = 8        # split-K decode path: warps of a block
+WGMMA_BK = 64           # wgmma path: K depth of a stage (128 bf16 bytes)
+WGMMA_PART_PAD = 8      # wgmma path: fp32 epilogue tile row padding
+WGMMA_ALIGN = 1024      # wgmma path: swizzle-atom alignment slack
+MBARRIER_BYTES = 8
+PATHS = ("tiled", "splitk", "wgmma")
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def splitk_rows(m: int) -> int:
+    """Rows the split-K decode kernel is compiled for: 4, 8 or 16."""
+    return 4 if m <= 4 else 8 if m <= 8 else 16
+
+
 def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
               elem_bytes: int = 2, trans_b: bool = False, stages: int = 1,
-              chip: GPUChip = H100) -> dict:
-    """Shared-memory feasibility of one spm_matmul block plan: the
-    port's stand-in for the reference's ``vmem_plan``.
+              chip: GPUChip = H100, *, path: str = "tiled") -> dict:
+    """Shared-memory feasibility of one spm_matmul block: the port's
+    stand-in for the reference's ``vmem_plan``, for each of the three
+    kernels of ``csrc/spm_matmul.cu`` (whose launchers size their
+    dynamic shared memory by the same sums).
 
-    Each of ``stages`` buffers holds an A slab [bm, bkc] and a B slab of
-    bkc rows of K (laid out [bn, bkc] for a transposed B, [bkc, bn]
-    otherwise), each row padded by ``SMEM_PAD`` elements; ``bkc`` is
-    ``bk`` (the whole K when ``bk == 0``) rounded up to the 16-deep MMA
-    step.  ``m`` and ``n`` do not enter: edges are masked, not padded in
-    memory."""
-    del m, n
-    bkc = _round_up(k if bk <= 0 else min(bk, k), 16)
-    a = bm * (bkc + SMEM_PAD)
-    b = bn * (bkc + SMEM_PAD) if trans_b else bkc * (bn + SMEM_PAD)
-    need = stages * (a + b) * elem_bytes
+    ``tiled``: each of ``stages`` buffers holds an A slab [bm, bkc] and a
+    B slab of bkc rows of K (laid out [bn, bkc] for a transposed B,
+    [bkc, bn] otherwise), each row padded by ``SMEM_PAD`` elements;
+    ``bkc`` is ``bk`` (the whole K when ``bk == 0``) rounded up to the
+    16-deep MMA step.
+
+    ``splitk``: ``bk`` is the block's K slice; the block keeps that
+    slice of A in fp32 ([bk, rows], rows = ``splitk_rows(m)``), one
+    fp32 [rows, bn] partial per warp and the block's own [rows, bn]
+    partial, which the cluster reads.
+
+    ``wgmma``: ``stages`` ring stages of an A box [bm, bk] and a B box
+    [bk, bn] in ``elem_bytes``, a full and an empty mbarrier per stage,
+    and 1 KB of slack to align the 128-byte swizzle atoms; the
+    epilogue's fp32 [bm, bn + WGMMA_PART_PAD] tile (with ``splits`` > 1
+    the block's partial, which the cluster reads) reuses the drained
+    stages.
+
+    ``m`` and ``n`` enter only through ``rows``: edges are masked, not
+    padded in memory."""
+    del n
+    if path == "tiled":
+        bkc = _round_up(k if bk <= 0 else min(bk, k), 16)
+        a = bm * (bkc + SMEM_PAD)
+        b = bn * (bkc + SMEM_PAD) if trans_b else bkc * (bn + SMEM_PAD)
+        need = stages * (a + b) * elem_bytes
+    elif path == "splitk":
+        bkc = bk
+        rows = splitk_rows(m)
+        need = 4 * (bk * rows + (SPLITK_WARPS + 1) * rows * bn)
+    elif path == "wgmma":
+        bkc = bk
+        ring = stages * (bm + bn) * bk * elem_bytes
+        tile = bm * (bn + WGMMA_PART_PAD) * 4
+        need = WGMMA_ALIGN + max(ring, tile) + 2 * stages * MBARRIER_BYTES
+    else:
+        raise ValueError(f"path {path!r} not in {PATHS}")
     return {"smem_need": need, "smem_bytes": chip.smem_bytes,
             "fits": need <= chip.smem_bytes, "bkc": bkc}
 

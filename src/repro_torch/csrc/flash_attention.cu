@@ -5,16 +5,38 @@
 // causal and/or sliding-window attention with GQA, an online softmax that
 // carries (m, l, acc) in fp32, scale 1/sqrt(D) unless one is given,
 // masked scores set to the finite -1e30, p rounded to v's type before the
-// PV product, and the output acc / max(l, 1e-30).
+// PV product with l summed from the fp32 p, and the output
+// acc / max(l, 1e-30).
 //
-// Design on this card:
-//   * One block covers one (batch, head) pair and a tile of 64 queries;
-//     it loops over 64-row K/V tiles itself.  The TPU's sequential kv
-//     grid axis, whose VMEM scratch carried (m, l, acc), becomes that
-//     loop with the statistics in registers.
-//   * Two threads share a query row: each scores half of the tile's
-//     keys, the pair reduces the row max and sum with one shuffle, and
-//     each keeps half of the row's output dims in registers.
+// Two kernels, chosen by the wrapper from the dtype before the launch:
+//
+// bf16: `flash_fwd_tc_kernel`, on the tensor cores.
+//   * One block of 4 warps covers one (batch, head) pair and a tile of
+//     64 queries; each warp owns 16 query rows.  The block loops over
+//     64-key K/V tiles itself: the TPU's sequential kv grid axis, whose
+//     VMEM scratch carried (m, l, acc), becomes that loop with the
+//     statistics in registers.
+//   * Q.K^T and P.V are mma.sync m16n8k16 bf16 products with fp32
+//     accumulators.  Q's fragments are loaded once (ldmatrix); K and V
+//     tiles stay bf16 in shared memory, rows padded by 16 bytes so the
+//     ldmatrix reads of eight rows hit eight distinct bank groups, and
+//     the next tile is loaded by cp.async into a second buffer while the
+//     current one is multiplied.
+//   * The score fragment becomes the A operand of the PV product in
+//     registers (the m16n8 accumulator layout is the m16k16 A layout),
+//     rounded to bf16; l is summed from the fp32 p.
+//   * log2(e) * scale is folded into the scores and exp2f replaces exp;
+//     masked scores are set to -1e30 after that scaling, so they stay
+//     finite.
+//   * The causal grid runs its heaviest query tiles (the last ones, which
+//     see the most keys) first.
+//
+// fp32: `flash_fwd_kernel`, fp32 FMAs from shared memory (tensor cores
+// cannot meet the 1e-5 fp32 policy).  Two threads share a query row: each
+// scores half of the tile's keys, the pair reduces the row max and sum
+// with one shuffle, and each keeps half of the row's output dims.
+//
+// Both kernels:
 //   * GQA: head h reads KV head h / (H / KV) through strides, so q, k
 //     and v are read in their [B, S, heads, D] layout without copies.
 //   * Ragged q and kv edges are masked here (the TPU kernel asserted
@@ -23,42 +45,27 @@
 //     visited tile is fully masked keeps m = -1e30 and collects exp(0)
 //     terms, which alpha = exp(-1e30 - m) = 0 clears at its first real
 //     tile, as in the reference; -inf would give NaN there.
-//   * Scores and the PV product use fp32 FMAs from shared memory.
 //
 // What bounds it on an H100 SXM: at the serve prefill shape (B 4, S 256,
 // H 14, KV 2, D 64, causal) the causal pairs need ~0.47 GFLOP (0.48 us at
 // the bf16 tensor-core rate) and the inputs and output ~4.2 MB (1.25 us
-// at 3.35 TB/s), so bytes bound it.  This design reads each K/V tile once
-// per 64-query tile and keeps scores, p and the output accumulator out of
-// device memory; its fp32 FMA inner loops, not bytes, set its time.
-// Tensor-core (mma/wgmma) tiles are later work.
+// at 3.35 TB/s), so bytes bound it.  Both designs read each K/V tile once
+// per 64-query tile and keep scores, p and the output accumulator out of
+// device memory.  The 224 blocks of that shape do 1 to 4 tiles each, so
+// the time is a few tile latencies, which the double buffer overlaps.
 //
-// Plain C interface, loaded with ctypes; the entry returns
+// Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError() right after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBQ = 64;  // queries per block (two threads per query)
+constexpr int kBQ = 64;  // queries per block
 constexpr int kBK = 64;  // keys per kv tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // p as the PV product sees it: rounded to v's type.
 template <typename T>
@@ -221,6 +228,242 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   }
 }
 
+
+// ------------------------------------------------ bf16, tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// Rows r0..r0+63 of G (row stride ld elements, D contiguous) into S
+// [kBK][D + 8] by cp.async, 16 bytes a copy; rows past R are zeros.
+template <int D>
+__device__ __forceinline__ void tc_load_tile(bf16* S, const bf16* G,
+                                             long long ld, int r0, int R) {
+  constexpr int LD = D + 8;
+  constexpr int CPR = D / 8;  // 16-byte pieces per row
+  for (int idx = threadIdx.x; idx < kBK * CPR; idx += kThreads) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * 8;
+    const int gr = r0 + r;
+    const bool in = gr < R;
+    cp_async16_zfill(S + r * LD + c,
+                     G + (in ? static_cast<long long>(gr) * ld + c : 0), in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_tc_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+                        const bf16* __restrict__ V, bf16* __restrict__ O,
+                        int Sq, int Sk, int H, int KV, int nqt,
+                        long long q_sb, long long q_ss, long long q_sh,
+                        long long k_sb, long long k_ss, long long k_sh,
+                        long long v_sb, long long v_ss, long long v_sh,
+                        long long o_sb, long long o_ss, long long o_sh,
+                        int causal, int window, float scale_log2) {
+  constexpr int LD = D + 8;    // padded row: ldmatrix reads conflict-free
+  constexpr int DK = D / 16;   // k16 steps of Q.K^T over the head dim
+  constexpr int DN = D / 8;    // n8 chunks of the output
+  constexpr int NK = kBK / 8;  // n8 chunks of a score tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
+  bf16* Ks = Qs + kBQ * LD;                      // [2][kBK][LD]
+  bf16* Vs = Ks + 2 * kBK * LD;                  // [2][kBK][LD]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int kvh = h / (H / KV);
+  // heaviest query tiles first under the causal mask
+  const int qt = causal ? nqt - 1 - static_cast<int>(blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kBQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const bf16* qb = Q + b * q_sb + h * q_sh;
+  const bf16* kb = K + b * k_sb + kvh * k_sh;
+  const bf16* vb = V + b * v_sb + kvh * v_sh;
+
+  // kv tiles that some row of this block can see
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
+  int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  kv_begin = (kv_begin / kBK) * kBK;
+  const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + kBK - 1) / kBK
+                                       : 0;
+
+  tc_load_tile<D>(Qs, qb, q_ss, q0, Sq);
+  cp_async_commit();
+  if (ntiles > 0) {
+    tc_load_tile<D>(Ks, kb, k_ss, kv_begin, Sk);
+    tc_load_tile<D>(Vs, vb, v_ss, kv_begin, Sk);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  uint32_t qa[DK][4];
+#pragma unroll
+  for (int kc = 0; kc < DK; ++kc)
+    ldmatrix_x4(qa[kc], Qs + (warp * 16 + (lane & 15)) * LD + kc * 16 +
+                            (lane >> 4) * 8);
+
+  const int row_lo = q0 + warp * 16 + g;
+  const int row_hi = row_lo + 8;
+  float m_lo = kNegInf, m_hi = kNegInf;
+  float l_lo = 0.f, l_hi = 0.f;  // this thread's share of the row sums
+  float acc[DN][4];
+#pragma unroll
+  for (int j = 0; j < DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kv_begin + it * kBK;
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {  // the next tile loads while this one runs
+      tc_load_tile<D>(Ks + (buf ^ 1) * kBK * LD, kb, k_ss, k0 + kBK, Sk);
+      tc_load_tile<D>(Vs + (buf ^ 1) * kBK * LD, vb, v_ss, k0 + kBK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + buf * kBK * LD;
+    const bf16* Vt = Vs + buf * kBK * LD;
+    const int mi = lane >> 3;  // which of ldmatrix's four matrices
+
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DK; ++kc) {
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LD +
+                            kc * 16 + (mi & 1) * 8);
+        mma_bf16(s[j], qa[kc], kf[0], kf[1]);
+        mma_bf16(s[j + 1], qa[kc], kf[2], kf[3]);
+      }
+    }
+
+    // scale (log2 domain), mask, and the tile's row maxima
+    float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+        const int qpos = e < 2 ? row_lo : row_hi;
+        bool ok = kpos < Sk;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && (qpos - kpos) < window;
+        s[j][e] = ok ? s[j][e] * scale_log2 : kNegInf;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // the quad shares its rows
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo);
+    const float mn_hi = fmaxf(m_hi, mx_hi);
+    const float alpha_lo = exp2f(m_lo - mn_lo);
+    const float alpha_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn_lo);
+      s[j][1] = exp2f(s[j][1] - mn_lo);
+      s[j][2] = exp2f(s[j][2] - mn_hi);
+      s[j][3] = exp2f(s[j][3] - mn_hi);
+      sum_lo += s[j][0] + s[j][1];
+      sum_hi += s[j][2] + s[j][3];
+    }
+    l_lo = l_lo * alpha_lo + sum_lo;
+    l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      acc[j][0] *= alpha_lo;
+      acc[j][1] *= alpha_lo;
+      acc[j][2] *= alpha_hi;
+      acc[j][3] *= alpha_hi;
+    }
+
+    // P (rounded to bf16) . V, P straight from the score registers
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = pack_f32_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[1] = pack_f32_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[2] = pack_f32_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[3] = pack_f32_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+      for (int j = 0; j < DN; j += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * LD +
+                                  (j + (mi >> 1)) * 8);
+        mma_bf16(acc[j], pa, vf[0], vf[1]);
+        mma_bf16(acc[j + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
+  }
+  const float d_lo = fmaxf(l_lo, 1e-30f);
+  const float d_hi = fmaxf(l_hi, 1e-30f);
+  bf16* ob = O + b * o_sb + h * o_sh + 2 * t;
+#pragma unroll
+  for (int j = 0; j < DN; ++j) {
+    if (row_lo < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_lo * o_ss + j * 8) =
+          __floats2bfloat162_rn(acc[j][0] / d_lo, acc[j][1] / d_lo);
+    if (row_hi < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_hi * o_ss + j * 8) =
+          __floats2bfloat162_rn(acc[j][2] / d_hi, acc[j][3] / d_hi);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      int B, int Sq, int Sk, int H, int KV,
+                      const long long* st, int causal, int window,
+                      float scale, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
+  static bool opted_in = false;  // once per instantiation
+  if (smem > 48 * 1024 && !opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const int nqt = (Sq + kBQ - 1) / kBQ;
+  const dim3 grid(B * H, nqt);
+  flash_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV, nqt,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and o in
@@ -237,6 +480,37 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                          strides, causal, window, scale, s)
            : launch_typed<float>(q, k, v, o, B, Sq, Sk, H, KV, D, strides,
                                  causal, window, scale, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 tensor-core kernel: same arguments, minus the dtype flag.
+// Every row of q, k and v must start on a 16-byte boundary (the
+// wrapper checks the pointers and strides).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int Sq, int Sk, int H, int KV, int D,
+                                         const long long* strides, int causal,
+                                         int window, float scale,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 32:
+      err = launch_tc<32>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+                          window, scale, s);
+      break;
+    case 64:
+      err = launch_tc<64>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+                          window, scale, s);
+      break;
+    case 128:
+      err = launch_tc<128>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+                           window, scale, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

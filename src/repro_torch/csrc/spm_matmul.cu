@@ -2,80 +2,60 @@
 //
 // Replaces the TPU kernel src/repro/kernels/spm_matmul/spm_matmul.py
 // (`spm_matmul`, bodies `_kernel_2d` and `_kernel_3d`).  It computes
-// what that kernel computes, not its grid block by block:
+// what that kernel computes, not its grid block by block: the TPU's
+// sequential K grid axis and its fp32 VMEM accumulator become a loop
+// over K inside a block (and, for narrow problems, a K split across the
+// blocks of a thread-block cluster), with the accumulator in registers.
 //
-//   * One block owns one [BM, BN] output tile.  The TPU's sequential
-//     K grid axis (and its fp32 VMEM accumulator) becomes a loop inside
-//     the block over K chunks of `bkc` columns, with the accumulator in
-//     registers.  `bkc` is the plan's `bk` (bk == 0 stages the whole K,
-//     the reference's resident-B regime, when it fits in shared memory).
-//   * Chunks arrive by cp.async, 16 bytes a copy with every copy of a
-//     chunk in flight at once; with `stages` = 2 the next chunk loads
-//     into a second buffer while the current one is multiplied (the
-//     TPU pipeline's double buffering).
-//   * Blocks are laid out with the M tiles innermost (blockIdx.x), so
-//     neighbouring blocks read the same B column block: the reference's
-//     B-stationary order, here as L2 reuse instead of VMEM residency.
-//   * bf16 inputs go through the tensor cores with mma.sync m16n8k16
-//     (fp32 accumulate); fp32 inputs use plain fp32 FMAs with the same
-//     fragment ownership, so both types share loads and epilogue.
-//   * B is read either as [K, N] (weights) or, with trans_b, as [N, K]
-//     (the tied embedding table read in place for the logits: no
-//     transposed copy of the [V, d] table is made).
-//   * Every edge is masked: M, N and K need not divide any tile.
-//     Decode feeds M = batch (1..4), far below a 16-row MMA tile; the
-//     rows past M are zero-filled and never stored.
+// Three kernels; the wrapper (kernels/spm_matmul/ops.py) picks one from
+// dtype, alignment, M and the B layout before the launch:
 //
-// What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s):
-//   * decode (M = 4): bytes.  Each weight is read once per step; the
-//     0.99 GB of qwen2-0.5b weights take >= 0.29 ms per step.  The design
-//     answer is the small-M tile (BM = 16, BN = 64) that puts more blocks
-//     on the card for narrow N, whole-K (or 512-deep) slabs when there
-//     are fewer blocks than SMs, and many 16-byte copies in flight.
-//   * prefill (M = B*P = 1024): tensor-core operations for the wide
-//     products.  mma.sync reaches only part of the wgmma peak; wgmma and
-//     TMA pipelines are later work.
+//   * `splitk_decode_kernel` (bf16, M <= 16, B as [K, N], rows 16-byte
+//     aligned): decode.  Bytes bound it (each weight read once per step;
+//     qwen2-0.5b's 0.99 GB take >= 0.29 ms at 3.35 TB/s), and a grid of
+//     one block per 64-column tile leaves most SMs idle at these widths.
+//     A cluster of up to 8 blocks splits K instead, streams the weights
+//     with 16-byte loads, many in flight, and reduces the fp32 partials
+//     through distributed shared memory in rank order.  Notes at the
+//     kernel.
+//   * `wgmma_gemm_kernel` (bf16, M >= 64, rows 16-byte aligned): prefill.
+//     Tensor-core operations bound the wide products; a TMA-fed 4-stage
+//     mbarrier ring feeds two consumer warpgroups running wgmma on a
+//     128 x 128 tile.  Narrow problems split K over a cluster the same
+//     way.  Notes at the kernel.
+//   * `spm_matmul_kernel` (everything else: fp32, bf16 rows that are not
+//     16-byte aligned, 16 < M < 64, and the transposed-B decode logits):
+//     one block owns one [BM, BN] tile and loops over K chunks of `bkc`
+//     columns (the plan's `bk`; bk == 0 stages the whole K when it fits)
+//     brought in by cp.async, double buffered with `stages` = 2.  bf16
+//     goes through mma.sync m16n8k16; fp32 through fp32 FMAs with the
+//     same fragment ownership.  M tiles are innermost (blockIdx.x), so
+//     neighbouring blocks read the same B column block (the reference's
+//     B-stationary order, as L2 reuse).  Every edge is masked; decode's
+//     rows past M are zero-filled and never stored.  At the decode
+//     logits (M = 4, B the [V, d] table read in place through trans_b)
+//     it reaches ~71 % of the byte bound.
+//
+// B is read either as [K, N] (weights) or, with trans_b, as [N, K] (the
+// tied embedding table read in place for the logits: no transposed copy).
+// No path uses atomics: the same inputs give the same bits.
 //
 // Plain C interface, loaded with ctypes; every entry returns
 // cudaGetLastError() right after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
+
+#include <cooperative_groups.h>
+#include <cuda.h>
+
+#include <unordered_map>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kPad = 8;        // shared-memory row padding, in elements
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Copy a [rows, bkc] slab of a row-major matrix G (rows r0.., columns
 // k0..) into S (row stride lds), zero-filling past R rows and K columns.
@@ -131,21 +111,6 @@ __device__ __forceinline__ void load_kn(T* S, int lds, const T* G,
       }
     }
   }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One k16 step of a warp's [MT*16, NT*8] tile.  Fragment ownership is
@@ -365,6 +330,576 @@ cudaError_t launch_typed(const void* a, const void* b, void* c, int m, int n,
   return cudaErrorInvalidValue;
 }
 
+
+// ============================================== decode: cluster split-K
+//
+// M <= 16, bf16, B as [K, N].  Bytes bound it: each weight is read once.
+// A cluster of `splits` blocks (cluster dims (splits, 1, 1)) owns one
+// 64-column output tile; block `rank` streams K rows [rank*ks, ...) of
+// that tile with 16-byte loads, 16 (MR <= 4) or 8 of them in flight per
+// thread, 64 KB or 32 KB per block.  The first loads are issued before
+// A's slice is staged in shared memory (fp32), so the two latencies
+// overlap; a slice of at most 64 rows reads A straight from L2 and skips
+// the staging and its barrier (the LoRA products' K of 32 and 64).  Each
+// block sums its partial over its warps in order; after a cluster
+// barrier each block sums a share of the tile over the cluster's
+// partials in rank order through distributed shared memory and stores
+// it once: one launch, no atomics, the same bits from the same inputs.
+// One split is launched without a cluster and stores directly.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kSkThreads = 256;
+constexpr int kSkWarps = kSkThreads / 32;
+constexpr int kSkBN = 64;                        // a cluster's columns
+constexpr int kSkGroups = kSkBN / 8;             // 16-byte column groups
+constexpr int kSkRows = kSkThreads / kSkGroups;  // K rows one pass reads
+
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& w, float (&f)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_one(void* C, int out_f32, long long idx,
+                                          float v) {
+  if (out_f32) {
+    static_cast<float*>(C)[idx] = v;
+  } else {
+    static_cast<T*>(C)[idx] = from_f32<T>(v);
+  }
+}
+
+// Rows base, base + kSkRows, ... (H of them) of the thread's 16-byte
+// column group of B, zeros past the slice or past N.  Issued together,
+// before any of them is used.
+template <int H>
+__device__ __forceinline__ void splitk_load(uint4 (&w)[H], const bf16* bp,
+                                            long long ldb, int base, int nk,
+                                            bool col_ok) {
+#pragma unroll
+  for (int u = 0; u < H; ++u) {
+    const int kk = base + u * kSkRows;
+    w[u] = (col_ok && kk < nk)
+               ? __ldg(reinterpret_cast<const uint4*>(bp + kk * ldb))
+               : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// acc += A[:, rows] * w for the H rows base, base + kSkRows, ...; `a(u,
+// kk, m)` gives A's element (m, kk) of the slice, kk the u-th of those
+// rows.
+template <int MR, int H, typename AF>
+__device__ __forceinline__ void splitk_fma(float (&acc)[MR][8],
+                                           const uint4 (&w)[H], int base,
+                                           int nk, AF a) {
+#pragma unroll
+  for (int u = 0; u < H; ++u) {
+    const int kk = base + u * kSkRows;
+    if (kk < nk) {
+      float bv[8];
+      bf16x8_to_f32(w[u], bv);
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const float am = a(u, kk, m);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(am, bv[j], acc[m][j]);
+      }
+    }
+  }
+}
+
+template <int MR>
+__global__ void __launch_bounds__(kSkThreads)
+    splitk_decode_kernel(const bf16* __restrict__ A,
+                         const bf16* __restrict__ B, void* __restrict__ C,
+                         int M, int N, int K, long long lda, long long ldb,
+                         int out_f32, int ks) {
+  constexpr int U = MR <= 4 ? 16 : 8;  // 16-byte loads in flight per thread
+  // the cluster is (splits, 1, 1) and the grid's x extent is `splits`
+  const int rank = blockIdx.x;
+  const int splits = gridDim.x;
+
+  extern __shared__ __align__(16) float sk_smem[];
+  float* As = sk_smem;                      // [ks][MR]: A's slice, fp32
+  float* red = As + ks * MR;                // [kSkWarps][MR][kSkBN]
+  float* part = red + kSkWarps * MR * kSkBN;  // [MR][kSkBN]: this block's sum
+
+  const int n0 = blockIdx.y * kSkBN;
+  const int k0 = rank * ks;
+  const int nk = max(0, min(K, k0 + ks) - k0);
+  const int grp = threadIdx.x % kSkGroups;
+  const int kr = threadIdx.x / kSkGroups;
+  const int n = n0 + grp * 8;
+  const bool col_ok = n < N;  // N is a multiple of 8
+  const bf16* bp = B + static_cast<long long>(k0) * ldb + n;
+
+  float acc[MR][8];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+
+  if (nk <= 2 * kSkRows) {
+    // two rows per thread at most: their B loads in flight while A's
+    // values come straight from global memory (L2), no staging and no
+    // barrier
+    uint4 w[2];
+    splitk_load<2>(w, bp, ldb, kr, nk, col_ok);
+    float ar[2][MR];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int kk = kr + u * kSkRows;
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+        ar[u][m] = (m < M && kk < nk)
+                       ? __bfloat162float(A[m * lda + k0 + kk])
+                       : 0.f;
+    }
+    splitk_fma<MR, 2>(acc, w, kr, nk,
+                      [&](int u, int, int m) { return ar[u][m]; });
+  } else {
+    // the first rows of B are in flight while A's slice is staged
+    uint4 w[U];
+    splitk_load<U>(w, bp, ldb, kr, nk, col_ok);
+    for (int idx = threadIdx.x; idx < MR * nk; idx += kSkThreads) {
+      const int m = idx / nk;
+      const int k = idx - m * nk;
+      As[k * MR + m] = m < M ? __bfloat162float(A[m * lda + k0 + k]) : 0.f;
+    }
+    __syncthreads();
+    const auto a_s = [&](int, int kk, int m) { return As[kk * MR + m]; };
+    for (int base = kr; base < nk; base += kSkRows * U) {
+      if (base != kr) splitk_load<U>(w, bp, ldb, base, nk, col_ok);
+      splitk_fma<MR, U>(acc, w, base, nk, a_s);
+    }
+  }
+
+  // the block's sum: over the warp's four row groups by shuffles, then
+  // over the warps in order
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = acc[m][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < kSkGroups) red[(warp * MR + m) * kSkBN + lane * 8 + j] = v;
+    }
+  }
+  __syncthreads();
+  constexpr int E = MR * kSkBN;
+  for (int e = threadIdx.x; e < E; e += kSkThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSkWarps; ++q) v += red[q * E + e];
+    if (splits == 1) {  // no cluster: the block's sum is the output
+      const int row = e / kSkBN;
+      const int col = n0 + (e - row * kSkBN);
+      if (row < M && col < N)
+        store_one<bf16>(C, out_f32, static_cast<long long>(row) * N + col, v);
+    } else {
+      part[e] = v;
+    }
+  }
+  if (splits == 1) return;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every partial of the cluster is written
+  const int per = (E + splits - 1) / splits;
+  const int e_end = min(E, (rank + 1) * per);
+  for (int e = rank * per + threadIdx.x; e < e_end; e += kSkThreads) {
+    float v = 0.f;
+    for (int r = 0; r < splits; ++r) v += cluster.map_shared_rank(part, r)[e];
+    const int row = e / kSkBN;
+    const int col = n0 + (e - row * kSkBN);
+    if (row < M && col < N)
+      store_one<bf16>(C, out_f32, static_cast<long long>(row) * N + col, v);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+template <int MR>
+cudaError_t launch_splitk_mr(const void* a, const void* b, void* c, int m,
+                             int n, int k, long long lda, long long ldb,
+                             int out_f32, int splits, int ks,
+                             cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(ks) * MR + (kSkWarps + 1) * MR * kSkBN) *
+      sizeof(float);
+  static size_t opted_in = 48 * 1024;  // once per instantiation and size
+  if (smem > opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        splitk_decode_kernel<MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    opted_in = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (n + kSkBN - 1) / kSkBN, 1);
+  cfg.blockDim = dim3(kSkThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, splitk_decode_kernel<MR>,
+                            static_cast<const bf16*>(a),
+                            static_cast<const bf16*>(b), c, m, n, k, lda, ldb,
+                            out_f32, ks);
+}
+
+// =================================================== prefill: TMA + wgmma
+//
+// M >= 64, bf16.  Tensor-core operations bound the wide products.  A
+// block of three warpgroups owns a 128 x 128 output tile: warpgroup 2's
+// first thread is the producer, keeping a ring of four 64-deep stages
+// (A box 128 x 64 and B box 64 x 128, 32 KB a stage) filled by TMA, each
+// stage guarded by a `full` mbarrier (the bytes landed) and an `empty`
+// one (both consumers are done with it); warpgroups 0 and 1 each run
+// wgmma m64n128k16 on 64 of the tile's rows, fp32 accumulators in
+// registers.  TMA writes the 128-byte swizzle that the wgmma descriptors
+// name; A is K-major; B is K-major when given as [N, K] (trans_b) and
+// MN-major ([K, N], the transpose bit) otherwise.  Ragged M, N and K
+// edges are TMA's zero fill and masked stores.
+//
+// Narrow problems give too few tiles for the 132 SMs: the grid's z axis
+// then splits K over a cluster of `splits` blocks in whole 64-deep
+// steps, each block parks its fp32 partial in the (drained) stages, and
+// the cluster sums them in rank order through distributed shared memory,
+// as the decode path does.
+
+constexpr int kWgBM = 128;
+constexpr int kWgBN = 128;
+constexpr int kWgBK = 64;  // 128 bytes of bf16: one swizzle row
+constexpr int kWgStages = 4;
+constexpr int kWgThreads = 384;
+constexpr int kWgABytes = kWgBM * kWgBK * 2;
+constexpr int kWgBBytes = kWgBN * kWgBK * 2;
+constexpr int kWgStageBytes = kWgABytes + kWgBBytes;
+constexpr int kWgPartLd = kWgBN + 8;  // fp32 tile row stride (epilogue)
+// 1 KB of alignment slack (the swizzle atoms are 1024-byte aligned), the
+// stages, then a full and an empty barrier per stage
+constexpr size_t kWgSmem =
+    1024 + static_cast<size_t>(kWgStages) * kWgStageBytes + 16 * kWgStages;
+static_assert(kWgBM * kWgPartLd * 4 <= kWgStages * kWgStageBytes,
+              "the epilogue's fp32 tile reuses the stages");
+
+// d (64 x 128, fp32) += A (64 x 16, K-major) * B (16 x 128) from shared
+// memory; TB = 1 reads B MN-major (N contiguous: the transpose bit),
+// TB = 0 K-major.  Each thread of the warpgroup holds 64 of d's values.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// Four consecutive outputs of row `row` from column `col`: one 16-byte
+// (fp32) or 8-byte (bf16) store when they are inside N and aligned.
+__device__ __forceinline__ void store_quad(void* C, int out_f32, int M, int N,
+                                           int row, int col, float4 v) {
+  if (row >= M || col >= N) return;
+  const long long idx = static_cast<long long>(row) * N + col;
+  if (col + 3 < N && (idx & 3) == 0) {
+    if (out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(C) + idx) = v;
+    } else {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&lo);
+      u.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(C) + idx) = u;
+    }
+    return;
+  }
+  const float f[4] = {v.x, v.y, v.z, v.w};
+  for (int i = 0; i < 4 && col + i < N; ++i)
+    store_one<bf16>(C, out_f32, idx + i, f[i]);
+}
+
+template <int TRANS_B>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
+                      const __grid_constant__ CUtensorMap tmB,
+                      void* __restrict__ C, int M, int N, int K, int out_f32,
+                      int kb_per) {
+  extern __shared__ __align__(16) unsigned char wg_smem_raw[];
+  unsigned char* smem =
+      wg_smem_raw + ((1024 - (smem_addr(wg_smem_raw) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x * kWgBM;
+  const int n0 = blockIdx.y * kWgBN;
+  const int nkb_all = (K + kWgBK - 1) / kWgBK;
+  const int kb0 = blockIdx.z * kb_per;
+  const int nkb = max(0, min(nkb_all, kb0 + kb_per) - kb0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  if (wg == 2) {
+    if (threadIdx.x == 256) {  // the producer
+      for (int i = 0; i < nkb; ++i) {
+        const int st = i % kWgStages;
+        if (i >= kWgStages) mbar_wait(&empty[st], ((i / kWgStages) - 1) & 1);
+        unsigned char* sa = smem + st * kWgStageBytes;
+        unsigned char* sb = sa + kWgABytes;
+        const int kc = (kb0 + i) * kWgBK;
+        mbar_arrive_expect_tx(&full[st], kWgStageBytes);
+        tma_load_2d(sa, &tmA, kc, m0, &full[st]);
+        if (TRANS_B) {
+          tma_load_2d(sb, &tmB, kc, n0, &full[st]);
+        } else {  // two 64-column boxes, 8 KB each
+          tma_load_2d(sb, &tmB, n0, kc, &full[st]);
+          tma_load_2d(sb + kWgBBytes / 2, &tmB, n0 + 64, kc, &full[st]);
+        }
+      }
+    }
+  } else {
+    for (int i = 0; i < nkb; ++i) {
+      const int st = i % kWgStages;
+      mbar_wait(&full[st], (i / kWgStages) & 1);
+      // this warpgroup's 64 rows of A: 64 swizzled 128-byte rows further
+      const uint32_t sa =
+          smem_addr(smem + st * kWgStageBytes) + wg * 64 * 128;
+      const uint32_t sb = smem_addr(smem + st * kWgStageBytes + kWgABytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        // K-major: the k16 step is 32 bytes along the swizzled row, 8-row
+        // groups 1024 bytes apart.  MN-major B: the k16 step is 16 rows
+        // of 128 bytes, 8-row groups 1024 bytes apart, the second
+        // 64-column box 8 KB on.
+        const uint64_t da = wgmma_desc_sw128(sa + kk * 32, 16, 1024);
+        const uint64_t db =
+            TRANS_B ? wgmma_desc_sw128(sb + kk * 32, 16, 1024)
+                    : wgmma_desc_sw128(sb + kk * 2048, kWgBBytes / 2, 1024);
+        wgmma_m64n128k16<TRANS_B ? 0 : 1>(acc, da, db);
+      }
+      wgmma_commit();
+      // keep this step's products in flight; the previous step's are
+      // done, so its stage goes back to the producer
+      wgmma_wait<1>();
+      if (i > 0 && threadIdx.x % 128 == 0)
+        mbar_arrive(&empty[(i - 1) % kWgStages]);
+    }
+    wgmma_wait<0>();
+  }
+
+  // The epilogue goes through shared memory: both consumers park their
+  // fp32 tile in the drained stages, then every thread stores 4 columns
+  // at a time along the rows (coalesced), summing the cluster's
+  // partials in rank order when K is split.
+  __syncthreads();  // both consumers are done with the stages
+  float* part = reinterpret_cast<float*>(smem);  // [kWgBM][kWgPartLd]
+  if (wg < 2) {
+    // accumulator fragment: warp w of the warpgroup holds rows
+    // 16w..16w+15; acc[4j + e] is row lane/4 (+8 for e >= 2), column
+    // 8j + 2(lane%4) (+1 for odd e)
+    const int lane = threadIdx.x & 31;
+    const int r = wg * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+    const int c = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float* p = part + r * kWgPartLd + 8 * j + c;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(p + 8 * kWgPartLd) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  const int splits = gridDim.z;  // the cluster is (1, 1, splits)
+  int row0 = 0, rows = kWgBM;
+  if (splits == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();  // every partial of the cluster is written
+    const int per = (kWgBM + splits - 1) / splits;
+    row0 = blockIdx.z * per;
+    rows = max(0, min(kWgBM, row0 + per) - row0);
+  }
+  for (int e = threadIdx.x; e < rows * (kWgBN / 4); e += kWgThreads) {
+    const int r = row0 + e / (kWgBN / 4);
+    const int c = 4 * (e % (kWgBN / 4));
+    float4 v = *reinterpret_cast<const float4*>(part + r * kWgPartLd + c);
+    if (splits > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < splits; ++q) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, q) + r * kWgPartLd + c);
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+    }
+    store_quad(C, out_f32, M, N, m0 + r, n0 + c, v);
+  }
+  if (splits > 1)
+    cg::this_cluster().sync();  // no block leaves while another reads
+}
+
+// cuTensorMapEncodeTiled, fetched at first use through the runtime's
+// entry-point query (the library links only the CUDA runtime).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Tensor maps cached by pointer, shape, stride and box: the eager
+// prefill asks for the same weights (384 of them in rwkv6-1.6b) and
+// activation buffers every call.  Cleared when it passes kMapCap.
+struct MapKey {
+  const void* ptr;
+  uint64_t d0, d1, stride;
+  uint32_t b0, b1;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && stride == o.stride &&
+           b0 == o.b0 && b1 == o.b1;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = reinterpret_cast<uint64_t>(k.ptr);
+    for (uint64_t v : {k.d0, k.d1, k.stride, uint64_t(k.b0) << 32 | k.b1})
+      h = (h ^ v) * 0x100000001b3ull;
+    return static_cast<size_t>(h);
+  }
+};
+constexpr size_t kMapCap = 4096;
+
+// A 2-D bf16 map of a row-major matrix with `d1` rows of `d0` elements
+// (row stride `stride` bytes), box b0 x b1, 128-byte swizzle.
+bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t d0, uint64_t d1,
+                uint64_t stride, uint32_t b0, uint32_t b1) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{ptr, d0, d1, stride, b0, b1};
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *out = hit->second;
+    return true;
+  }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {b0, b1};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult res =
+      fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return false;
+  if (cache.size() >= kMapCap) cache.clear();
+  cache.emplace(key, *out);
+  return true;
+}
+
+template <int TB>
+cudaError_t launch_wgmma_tb(const CUtensorMap& ma, const CUtensorMap& mb,
+                            void* c, int m, int n, int k, int out_f32,
+                            int splits, int kb_per, cudaStream_t stream) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        wgmma_gemm_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kWgSmem));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((m + kWgBM - 1) / kWgBM, (n + kWgBN - 1) / kWgBN, splits);
+  cfg.blockDim = dim3(kWgThreads, 1, 1);
+  cfg.dynamicSmemBytes = kWgSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, wgmma_gemm_kernel<TB>, ma, mb, c, m, n, k,
+                            out_f32, kb_per);
+}
+
 }  // namespace
 
 // in_bf16: 1 = bf16 A and B, 0 = fp32.  out_f32: 1 = fp32 C, 0 = C in the
@@ -385,6 +920,58 @@ extern "C" int spm_matmul_launch(const void* a, const void* b, void* c, int m,
                                             stages, vec, s)
               : launch_typed<float>(a, b, c, m, n, k, lda, ldb, trans_b,
                                     out_f32, bm, bn, bkc, stages, vec, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Decode path: M <= 16, bf16 A and B, B as [K, N] with N a multiple of 8,
+// every row 16-byte aligned.  `splits` blocks (1..8, one cluster) per
+// 64-column tile, each over `ks` rows of K (a multiple of 16; the last
+// may be shorter).  out_f32: 1 = fp32 C, 0 = bf16 C.
+extern "C" int spm_matmul_splitk_launch(const void* a, const void* b, void* c,
+                                        int m, int n, int k, long long lda,
+                                        long long ldb, int out_f32, int splits,
+                                        int ks, void* stream) {
+  if (m < 1 || m > 16 || splits < 1 || splits > 8 || ks <= 0 || ks % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (m <= 4) {
+    err = launch_splitk_mr<4>(a, b, c, m, n, k, lda, ldb, out_f32, splits, ks,
+                              s);
+  } else if (m <= 8) {
+    err = launch_splitk_mr<8>(a, b, c, m, n, k, lda, ldb, out_f32, splits, ks,
+                              s);
+  } else {
+    err = launch_splitk_mr<16>(a, b, c, m, n, k, lda, ldb, out_f32, splits,
+                               ks, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Prefill path: bf16 A [M, K] and B ([K, N], or [N, K] with trans_b),
+// every row 16-byte aligned.  `splits` blocks (1..8, one cluster) per
+// 128 x 128 tile, each over `kb_per` 64-deep steps of K.  Returns
+// cudaErrorInvalidValue when a tensor map cannot be made.
+extern "C" int spm_matmul_wgmma_launch(const void* a, const void* b, void* c,
+                                       int m, int n, int k, long long lda,
+                                       long long ldb, int trans_b, int out_f32,
+                                       int splits, int kb_per, void* stream) {
+  if (splits < 1 || splits > 8 || kb_per < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mb;
+  const uint64_t es = sizeof(bf16);
+  bool ok = tensor_map(&ma, a, k, m, lda * es, kWgBK, kWgBM);
+  ok = ok && (trans_b ? tensor_map(&mb, b, k, n, ldb * es, kWgBK, kWgBN)
+                      : tensor_map(&mb, b, n, k, ldb * es, 64, kWgBK));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      trans_b ? launch_wgmma_tb<1>(ma, mb, c, m, n, k, out_f32, splits,
+                                   kb_per, s)
+              : launch_wgmma_tb<0>(ma, mb, c, m, n, k, out_f32, splits,
+                                   kb_per, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

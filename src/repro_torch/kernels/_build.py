@@ -3,9 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the root
 of the checkout (listed in ``.gitignore``).  The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded.  ``build`` starts one ``nvcc`` per
-missing library, all at once, and waits for them together.
+carries a hash of its source, of every header of ``csrc/`` (which a
+source may include) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  The sources link only the
+CUDA runtime: the one call outside it (``cuTensorMapEncodeTiled``, for
+TMA) is fetched at run time through ``cudaGetDriverEntryPoint``.
+``build`` starts one ``nvcc`` per missing library, all at once, and
+waits for them together.
 
 Importing this module touches no CUDA: the CPU tests import it.
 """
@@ -45,10 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """``build/repro_torch/lib<name>-<hash>.so``: the hash covers
+    ``csrc/<name>.cu``, every ``csrc/*.cuh`` and ``NVCC_FLAGS``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES,

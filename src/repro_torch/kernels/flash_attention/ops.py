@@ -4,11 +4,18 @@ kernel ``src/repro/kernels/flash_attention/flash_attention.py::
 flash_attention``.
 
 Dispatch is by device, with no fallback: CPU tensors take the plain
-version (``ref.attention_ref``); CUDA tensors launch the kernel, or the
-wrapper raises.  Each launch adds one to ``attention.launches``.
+version (``ref.attention_ref``); CUDA tensors launch a kernel, or the
+wrapper raises.  Each launch adds one to ``attention.launches`` and one
+to its path's count in ``attention.paths``.
 
-The kernel is compiled for 64-query by 64-key tiles and head dims 32,
-64 and 128.  ``bq``/``bk`` keep the reference's plan parameters but
+On CUDA, ``select_path`` picks one of two kernels before the launch:
+``tensor_core`` (mma.sync bf16 products, fp32 statistics) for bf16
+q, k and v whose rows start on 16-byte boundaries, and ``fma`` (fp32
+FMAs) for fp32, which the tensor cores cannot hold to the 1e-5 fp32
+policy, and for bf16 rows that are not 16-byte aligned.
+
+Both kernels are compiled for 64-query by 64-key tiles and head dims
+32, 64 and 128.  ``bq``/``bk`` keep the reference's plan parameters but
 accept only that compiled tile for now; tile tuning comes with the
 port's tuning work.  q, k and v are read in place through their
 strides (the head dim must be contiguous).
@@ -31,18 +38,34 @@ TILE = 64
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65_535
+PATHS = ("tensor_core", "fma")
 
 attention_plain = attention_ref
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def select_path(dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel a CUDA call launches, decided before the launch:
+    ``tensor_core`` for bf16 with every row of q, k and v on a 16-byte
+    boundary (``aligned``), else ``fma``."""
+    return "tensor_core" if dtype == torch.bfloat16 and aligned else "fma"
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_COMMON = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+           ctypes.POINTER(ctypes.c_longlong), _I, _I, ctypes.c_float]
+# each path's C entry in csrc/flash_attention.cu and its argument types:
+# q, k, v, o, B, Sq, Sk, H, KV, D, strides, causal, window, scale, (the
+# fma kernel's dtype flag,) the stream
+ENTRIES = {"tensor_core": ("flash_attention_tc_launch", _COMMON + [_P]),
+           "fma": ("flash_attention_launch", _COMMON + [_I, _P])}
+
+
+def _lib(path: str):
+    """The C entry of ``path``'s kernel, argument types set once."""
+    name, argtypes = ENTRIES[path]
+    fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), i, i,
-                       ctypes.c_float, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -86,18 +109,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention needs a contiguous head dim")
     if B * H > _MAX_GRID_Y or min(B, Sq, Sk) == 0:
         raise ValueError(f"unsupported problem B={B} H={H} Sq={Sq} Sk={Sk}")
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(s % 8 == 0 for s in t.stride()[:3])
+                  for t in (q, k, v))
+    path = select_path(q.dtype, aligned)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, Sq, Sk, H, KV, D, strides, int(causal), int(window),
-                 float(scale), int(q.dtype == torch.bfloat16), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
+            Sk, H, KV, D, strides, int(causal), int(window), float(scale))
+    if path == "tensor_core":
+        err = _lib(path)(*args, stream)
+    else:
+        err = _lib(path)(*args, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, kv {tuple(k.shape)})")
+                           f"{err} (q {tuple(q.shape)}, kv {tuple(k.shape)},"
+                           f" {path})")
     attention.launches += 1
+    attention.paths[path] += 1
     return o
 
 
 attention.launches = 0
+attention.paths = dict.fromkeys(PATHS, 0)

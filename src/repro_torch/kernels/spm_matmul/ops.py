@@ -3,21 +3,44 @@
 ``src/repro/kernels/spm_matmul/spm_matmul.py::spm_matmul``.
 
 Dispatch is by device, with no fallback: CPU tensors take the plain
-version (``ref.matmul_ref``); CUDA tensors launch the kernel, or the
-wrapper raises.  Each launch adds one to ``matmul.launches``.
+version (``ref.matmul_ref``); CUDA tensors launch a kernel, or the
+wrapper raises.  Each launch adds one to ``matmul.launches`` and one to
+its path's count in ``matmul.paths``.
+
+On CUDA, ``select_path`` picks one of three kernels before the launch:
+
+* ``splitk``: bf16 operands whose rows start on 16-byte boundaries,
+  M <= 16 (decode) and B given as [K, N] with N a multiple of 8.  One
+  cluster of ``splits`` blocks (1 to 8, the portable cluster limit) per
+  64-column tile, each block over one K slice (``splitk_plan``).
+* ``wgmma``: bf16, 16-byte aligned rows, M >= 64 (prefill), either B
+  layout.  TMA and wgmma on 128 x 128 x 64 tiles; problems with fewer
+  tiles than half the SMs split K over a cluster in 64-deep steps
+  (``wgmma_plan``).
+* ``tiled``: everything else, the port's first kernel: fp32 operands,
+  bf16 rows that are not 16-byte aligned, 16 < M < 64, the transposed-B
+  decode logits (already at ~71 % of their byte bound), and plans that
+  pin a tile the other two do not run.
 
 Block plans keep the reference's parameters: ``bm``/``bn`` are the
 output tile and ``bk`` the K extent staged in shared memory per step
-(``bk == 0``: the whole K).  The kernel is compiled for the ``TILES``
-its plans select; a plan's tile is clamped to the problem as the
-reference clamps ``min(bm, m)``.  Two staging
+(``bk == 0``: the whole K).  They shape the ``tiled`` kernel, which is
+compiled for the ``TILES`` its plans select; a plan's tile is clamped
+to the problem as the reference clamps ``min(bm, m)``.  Two staging
 buffers are used when they fit the 227 KB a block may use
 (``core.gpu_mapping.smem_plan``), else one; when one does not fit
 either, ``bk`` is halved from 512 down to 128, the reference's
 ``vmem_plan`` fallback with the shared-memory rule in its place.
 
-What bounds it on the card, and what the design does about it, is in
-the source note of ``csrc/spm_matmul.cu``.
+``splitk`` and ``wgmma`` run fixed tiles (``PATH_TILES``): 16 x 64
+with a K slice the wrapper picks from the shape (the split count is
+not a plan parameter), and 128 x 128 x 64.  A call whose plan pins
+another ``bm``, ``bn`` or ``bk`` runs on ``tiled``, which honours it.
+So the serving plan's decode pins (16 x 64) name the ``splitk`` tile,
+and a plan that pins any other tile times the kernel that runs it.
+
+What bounds each path on the card, and what its design does about it,
+is in the source notes of ``csrc/spm_matmul.cu``.
 """
 from __future__ import annotations
 
@@ -28,7 +51,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.gpu_mapping import H100, smem_plan
+from repro_torch.core.gpu_mapping import (H100, PATHS, WGMMA_BK,
+                                          smem_plan, splitk_rows)
 from repro_torch.kernels import _build
 from repro_torch.kernels.spm_matmul.ref import matmul_ref
 
@@ -38,6 +62,16 @@ from repro_torch.kernels.spm_matmul.ref import matmul_ref
 TILES = ((16, 64), (32, 64), (32, 128), (64, 64), (64, 128), (128, 128))
 DEFAULT_BK = 64
 _IN_DTYPES = (torch.float32, torch.bfloat16)
+MAX_SPLITS = 8            # the portable thread-block cluster size
+SPLITK_MAX_M = 16         # decode path: rows of A (the MMA tile's rows)
+SPLITK_BN = 64            # decode path: output columns of one cluster
+SPLITK_MIN_ROWS = 64      # decode path: the shortest K slice worth a split
+WGMMA_MIN_M = 64          # wgmma path: one warpgroup's 64 rows
+WGMMA_TILE = (128, 128)   # wgmma path: output tile
+WGMMA_STAGES = 4          # wgmma path: TMA ring depth
+# the (bm, bn, bk) each fixed-tile path runs; None: the wrapper's own
+PATH_TILES = {"splitk": (SPLITK_MAX_M, SPLITK_BN, None),
+              "wgmma": WGMMA_TILE + (WGMMA_BK,)}
 
 matmul_plain = matmul_ref
 
@@ -102,12 +136,117 @@ def resolve_plan(m: int, k: int, n: int, elem_bytes: int, trans_b: bool,
             "stages": stages}
 
 
-def _lib():
-    lib = _build.load("spm_matmul")
-    fn = lib.spm_matmul_launch
+def select_path(m: int, n: int, dtype: torch.dtype, trans_b: bool,
+                aligned: bool) -> str:
+    """The kernel a CUDA call launches, decided before the launch (see
+    the module note): ``splitk``, ``wgmma`` or ``tiled``.  ``aligned``:
+    every row of A and B starts on a 16-byte boundary."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "tiled"
+    if m <= SPLITK_MAX_M:
+        return "splitk" if not trans_b and n % 8 == 0 else "tiled"
+    return "wgmma" if m >= WGMMA_MIN_M else "tiled"
+
+
+def k_slices(k: int, splits: int, step: int) -> tuple:
+    """(slice, splits): K cut into ``splits`` slices of ``slice`` rows, a
+    multiple of ``step``, the last one ragged; ``splits`` shrinks so that
+    no slice is empty."""
+    size = math.ceil(math.ceil(k / splits) / step) * step
+    return size, math.ceil(k / size)
+
+
+@functools.lru_cache(maxsize=1024)
+def splitk_plan(m: int, k: int, n: int) -> Optional[dict]:
+    """The decode path's split: enough splits (at most ``MAX_SPLITS``)
+    that column tiles x splits covers the SMs, but no slice shorter than
+    ``SPLITK_MIN_ROWS`` (below that the cluster's reduction costs more
+    than the rows it spreads), K cut into slices of a multiple of 16
+    rows; more splits while a block's shared memory would not fit.
+    None when even ``MAX_SPLITS`` does not fit.  Blocks are small (256
+    threads, tens of KB), so several share an SM."""
+    tiles = math.ceil(n / SPLITK_BN)
+    want = max(1, min(MAX_SPLITS, math.ceil(H100.num_sms / tiles),
+                      k // SPLITK_MIN_ROWS))
+    for s in range(want, MAX_SPLITS + 1):
+        ks, splits = k_slices(k, s, 16)
+        if smem_plan(m, k, n, splitk_rows(m), SPLITK_BN, ks,
+                     path="splitk")["fits"]:
+            return {"splits": splits, "ks": ks}
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def wgmma_plan(m: int, k: int, n: int) -> dict:
+    """The prefill path's split: one 128 x 128 tile per block, and one
+    block per SM (its ring takes ~129 KB), so K is split over a cluster
+    only as far as the tiles leave SMs idle: splits = SMs // tiles, at
+    most ``MAX_SPLITS``, in whole 64-deep steps."""
+    tiles = math.ceil(m / WGMMA_TILE[0]) * math.ceil(n / WGMMA_TILE[1])
+    steps = math.ceil(k / WGMMA_BK)
+    want = max(1, min(MAX_SPLITS, H100.num_sms // tiles, steps))
+    per, splits = k_slices(steps, want, 1)
+    return {"splits": splits, "kb_per": per}
+
+
+def dispatch(m: int, k: int, n: int, dtype: torch.dtype, trans_b: bool,
+             aligned: bool, bm: Optional[int] = None,
+             bn: Optional[int] = None, bk: Optional[int] = None) -> dict:
+    """``{"path", "splits", ...}``: the kernel a CUDA call launches and
+    its split, decided before the launch.  A call goes to ``tiled`` when
+    its plan pins a tile other than the path's (``PATH_TILES``), when
+    no split-K slice fits shared memory, or when the ``wgmma`` ring of
+    ``WGMMA_STAGES`` does not."""
+    path = select_path(m, n, dtype, trans_b, aligned)
+    if path != "tiled" and any(
+            pin is not None and pin != tile
+            for pin, tile in zip((bm, bn, bk), PATH_TILES[path])):
+        path = "tiled"
+    if path == "splitk":
+        plan = splitk_plan(m, k, n)
+        if plan is not None:
+            return {"path": path, **plan}
+    if path == "wgmma" and smem_plan(
+            m, k, n, *WGMMA_TILE, WGMMA_BK, stages=WGMMA_STAGES,
+            path="wgmma")["fits"]:
+        return {"path": path, **wgmma_plan(m, k, n)}
+    return {"path": "tiled", "splits": 1}
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each path's C entry in csrc/spm_matmul.cu and its argument types:
+# a, b, c, m, n, k, lda, ldb, the path's own ints, the stream
+ENTRIES = {
+    "tiled": ("spm_matmul_launch",
+              [_P, _P, _P, _I, _I, _I, _LL, _LL] + [_I] * 8 + [_P]),
+    "splitk": ("spm_matmul_splitk_launch",
+               [_P, _P, _P, _I, _I, _I, _LL, _LL] + [_I] * 3 + [_P]),
+    "wgmma": ("spm_matmul_wgmma_launch",
+              [_P, _P, _P, _I, _I, _I, _LL, _LL] + [_I] * 4 + [_P]),
+}
+
+
+def route(a: torch.Tensor, b: torch.Tensor, trans_b: bool = False,
+          bm: Optional[int] = None, bn: Optional[int] = None,
+          bk: Optional[int] = None) -> dict:
+    """``dispatch`` for these CUDA operands and plan pins, with
+    ``aligned``: whether every row of A and B starts on a 16-byte
+    boundary."""
+    per_vec = 16 // a.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) % per_vec == 0
+                  for t in (a, b))
+    m, k = a.shape
+    n = b.shape[0] if trans_b else b.shape[1]
+    return {**dispatch(m, k, n, a.dtype, trans_b, aligned, bm, bn, bk),
+            "aligned": aligned}
+
+
+def _lib(path: str):
+    """The C entry of ``path``'s kernel, argument types set once."""
+    name, argtypes = ENTRIES[path]
+    fn = getattr(_build.load("spm_matmul"), name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, i, i, ll, ll, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -148,22 +287,32 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False,
     n = b.shape[0] if trans_b else b.shape[1]
     if min(m, n, k) == 0:
         raise ValueError(f"empty problem {m}x{k}x{n}")
-    plan = resolve_plan(m, k, n, a.element_size(), trans_b, bm, bn, bk)
-    per_vec = 16 // a.element_size()
-    vec = int(all(t.data_ptr() % 16 == 0 and t.stride(0) % per_vec == 0
-                  for t in (a, b)))
+    launch = route(a, b, trans_b, bm, bn, bk)
+    path = launch["path"]
+    plan = (resolve_plan(m, k, n, a.element_size(), trans_b, bm, bn, bk)
+            if path == "tiled" else None)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib()(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                 a.stride(0), b.stride(0), int(trans_b),
-                 int(a.dtype == torch.bfloat16),
-                 int(out_dtype == torch.float32), plan["bm"], plan["bn"],
-                 plan["bkc"], plan["stages"], vec, stream)
+    args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.stride(0),
+            b.stride(0))
+    out_f32 = int(out_dtype == torch.float32)
+    if path == "splitk":
+        err = _lib(path)(*args, out_f32, launch["splits"], launch["ks"],
+                         stream)
+    elif path == "wgmma":
+        err = _lib(path)(*args, int(trans_b), out_f32, launch["splits"],
+                         launch["kb_per"], stream)
+    else:
+        err = _lib(path)(*args, int(trans_b), int(a.dtype == torch.bfloat16),
+                         out_f32, plan["bm"], plan["bn"], plan["bkc"],
+                         plan["stages"], int(launch["aligned"]), stream)
     if err != 0:
         raise RuntimeError(f"spm_matmul launch failed: CUDA error {err} "
-                           f"({m}x{k}x{n}, plan {plan})")
+                           f"({m}x{k}x{n}, {launch}, plan {plan})")
     matmul.launches += 1
+    matmul.paths[path] += 1
     return c
 
 
 matmul.launches = 0
+matmul.paths = dict.fromkeys(PATHS, 0)

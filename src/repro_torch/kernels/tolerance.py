@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+LOG2E = 1.4426950408889634
 ATOL_FRAC = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -163,8 +164,10 @@ def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0, scale: Optional[float] = None,
                           tile: int = 64) -> torch.Tensor:
-    """The rounding of ``csrc/flash_attention.cu`` in plain torch: an
-    online softmax over ``tile``-key tiles in fp32, each tile's
+    """The rounding of ``csrc/flash_attention.cu``'s bf16 tensor-core
+    kernel in plain torch: fp32 scores scaled by ``scale * log2(e)``,
+    masked to -1e30 after that scaling, an online softmax over
+    ``tile``-key tiles in the log2 domain (exp2), each tile's
     unnormalised p rounded to v's dtype before the PV product, the row
     sum kept from the fp32 p, the output divided once at the end.
     q: [B,S,H,D]; k,v: [B,S,KV,D] -> [B,S,H,D] in q's dtype."""
@@ -172,7 +175,7 @@ def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
     KV = k.shape[2]
     scale = scale or 1.0 / math.sqrt(D)
     qg = q.float().reshape(B, S, KV, H // KV, D)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * scale
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * (scale * LOG2E)
     pos_q = torch.arange(S)[:, None]
     pos_k = torch.arange(S)[None, :]
     ok = torch.ones(S, S, dtype=torch.bool)
@@ -187,8 +190,8 @@ def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
     for t0 in range(0, S, tile):
         st = s[..., t0:t0 + tile]
         m_new = torch.maximum(m, st.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(st - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(st - m_new[..., None])
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
@@ -196,6 +199,34 @@ def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def matmul_split_model(a: torch.Tensor, b: torch.Tensor, rows: int, *,
+                       trans_b: bool = False,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """The summation of ``csrc/spm_matmul.cu``'s split-K paths in plain
+    torch: an fp32 partial product per ``rows``-deep slice of K (the
+    last one ragged), the partials added in rank order from zero, the
+    sum rounded once to ``out_dtype`` (A's dtype by default)."""
+    bb = (b.t() if trans_b else b).float()
+    af = a.float()
+    total = torch.zeros(a.shape[0], bb.shape[1])
+    for k0 in range(0, a.shape[1], rows):
+        total = total + af[:, k0:k0 + rows] @ bb[k0:k0 + rows]
+    return total.to(out_dtype or a.dtype)
+
+
+def kernel_split_rows(m: int, k: int, n: int, trans_b: bool = False) -> int:
+    """The K slice one block of the bf16 kernel ``ops.dispatch`` picks
+    for this shape sums (all of K when it does not split)."""
+    from repro_torch.kernels.spm_matmul import ops
+    route = ops.dispatch(m, k, n, torch.bfloat16, trans_b, True)
+    if route["path"] == "splitk":
+        return route["ks"]
+    if route["path"] == "wgmma":
+        return route["kb_per"] * ops.WGMMA_BK
+    return k
 
 
 def main() -> None:
@@ -230,12 +261,12 @@ def main() -> None:
         a = torch.randn(m, kk).to(bf)
         b = (torch.randn(kk, n) / math.sqrt(kk)).to(bf)
         want = matmul_ref(a, b)
-        h = kk // 2       # another fp32 summation order: two K halves
-        other = (a[:, :h].float() @ b[:h].float()
-                 + a[:, h:].float() @ b[h:].float()).to(bf)
+        rows = kernel_split_rows(m, kk, n)
+        split = matmul_split_model(a, b, rows)
         dropped = a.clone()
         dropped[:, -16:] = 0
-        share = {"other summation order": check(other, want, bf)[0],
+        share = {f"split-K sum ({rows}-deep slices)":
+                     check(split, want, bf)[0],
                  "one 16-deep K step dropped":
                      check(matmul_ref(dropped, b), want, bf)[0],
                  "output x1.05":

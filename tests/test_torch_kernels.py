@@ -15,6 +15,8 @@ The CUDA kernels themselves cannot run here.  The tests marked ``gpu``
 launch them on a card and skip elsewhere; ``chip_smoke.py`` holds them
 against their plain versions at the main path's shapes.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,9 +27,10 @@ from repro.kernels.flash_attention.ops import attention as jax_attention
 from repro.kernels.spm_matmul.ops import matmul as jax_matmul
 from repro.kernels.spm_matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.convert import tensor_from_numpy
+from repro_torch.core import gpu_mapping
 from repro_torch.core.gpu_mapping import H100, smem_plan, wkv_smem_plan
 from repro_torch.kernels import (CONFORMANCE_SHAPES, KERNEL_REGISTRY,
-                                 import_entry, tolerance)
+                                 _build, import_entry, tolerance)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
 from repro_torch.kernels.wkv6 import ops as wkv_ops
@@ -272,8 +275,8 @@ def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
         a = torch.randn(4, 896, generator=gen).to(bf)
         b = (torch.randn(896, 896, generator=gen) / 896 ** 0.5).to(bf)
         want = mm_ops.matmul_plain(a, b)
-        sound = (a[:, :448].float() @ b[:448].float()
-                 + a[:, 448:].float() @ b[448:].float()).to(bf)
+        sound = tolerance.matmul_split_model(
+            a, b, tolerance.kernel_split_rows(4, 896, 896))
         dropped = a.clone()
         dropped[:, -16:] = 0
         fault = mm_ops.matmul_plain(dropped, b)
@@ -302,6 +305,260 @@ def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
         return
     assert tolerance.check(sound, want, bf)[0] < 1
     assert tolerance.check(fault, want, bf)[0] > 1
+
+
+# ------------------------------------------------- spm_matmul paths
+
+# the main path's bf16 products: qwen2-0.5b's, then rwkv6-1.6b's
+DECODE_SHAPES = [(4, 896, 896), (4, 896, 128), (4, 896, 4864),
+                 (4, 4864, 896), (4, 2048, 2048), (4, 2048, 7168),
+                 (4, 7168, 2048), (4, 2048, 160), (4, 32, 2048),
+                 (4, 2048, 64), (4, 64, 2048)]
+PREFILL_SHAPES = [(1024, k, n) for _, k, n in DECODE_SHAPES]
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES + [(1, 896, 896),
+                                                   (16, 896, 896)])
+def test_splitk_count_covers_the_sms(m, k, n):
+    """At most the portable cluster of 8; column tiles x splits covers
+    the 132 SMs unless 8 splits, or slices of the shortest length worth
+    a split, run out first."""
+    plan = mm_ops.splitk_plan(m, k, n)
+    s, tiles = plan["splits"], -(-n // mm_ops.SPLITK_BN)
+    assert 1 <= s <= mm_ops.MAX_SPLITS
+    assert tiles * s >= H100.num_sms or s == mm_ops.MAX_SPLITS \
+        or (s + 1) * mm_ops.SPLITK_MIN_ROWS > k
+    assert s == 1 or plan["ks"] >= mm_ops.SPLITK_MIN_ROWS
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 100, 896, 2048, 4864, 7168,
+                               7169])
+@pytest.mark.parametrize("want", [1, 2, 3, 5, 8])
+def test_k_slices_tile_k_exactly(k, want):
+    """Each slice is a multiple of 16 rows, none is empty, and together
+    they cover K once, the last one ragged."""
+    size, splits = mm_ops.k_slices(k, want, 16)
+    assert size % 16 == 0 and 1 <= splits <= want
+    bounds = [(r * size, min(k, (r + 1) * size)) for r in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(b0 < b1 for b0, b1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_SHAPES + [(259, 896, 896),
+                                                    (128, 128, 256)])
+def test_wgmma_split_fills_one_wave_in_whole_steps(m, k, n):
+    """One 128 x 128 tile per block and one block per SM: the K split
+    keeps the grid within one wave, cuts K in whole 64-deep steps, and
+    leaves no block without a step."""
+    plan = mm_ops.wgmma_plan(m, k, n)
+    tiles = -(-m // 128) * -(-n // 128)
+    steps = -(-k // 64)
+    s = plan["splits"]
+    assert 1 <= s <= mm_ops.MAX_SPLITS
+    assert s == 1 or tiles * s <= H100.num_sms
+    assert (s - 1) * plan["kb_per"] < steps <= s * plan["kb_per"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,rows", [(4, 4864, 896, 608),
+                                        (4, 2048, 160, 256),
+                                        (64, 896, 128, 128),
+                                        (3, 100, 24, 16)])
+def test_split_k_sum_stays_within_policy(dtype, m, k, n, rows):
+    """A plain emulation of the cluster split-K sum (an fp32 partial
+    per slice, added in rank order) agrees with ``matmul_ref`` under the
+    repo's fp32 and bf16 policies and under the card's element-wise
+    check."""
+    rng = np.random.default_rng(m + k + n)
+    a = tensor_from_numpy(_np(rng.standard_normal((m, k), np.float32),
+                              dtype))
+    b = tensor_from_numpy(_np(rng.standard_normal((k, n), np.float32)
+                              / np.sqrt(k), dtype))
+    got = tolerance.matmul_split_model(a, b, rows)
+    want = mm_ops.matmul_plain(a, b)
+    assert_kernel_close(_f32(got), _f32(want), dtype)
+    assert tolerance.check(got, want, got.dtype)[0] < 1
+
+
+@pytest.mark.parametrize("m,n,dtype,trans_b,aligned,want", [
+    (4, 896, torch.bfloat16, False, True, "splitk"),       # decode
+    (1, 64, torch.bfloat16, False, True, "splitk"),
+    (16, 896, torch.bfloat16, False, True, "splitk"),
+    (4, 151_936, torch.bfloat16, True, True, "tiled"),     # decode logits
+    (4, 100, torch.bfloat16, False, True, "tiled"),        # N % 8
+    (4, 896, torch.float32, False, True, "tiled"),         # fp32
+    (4, 896, torch.bfloat16, False, False, "tiled"),       # unaligned
+    (1024, 896, torch.bfloat16, False, True, "wgmma"),     # prefill
+    (64, 896, torch.bfloat16, True, True, "wgmma"),
+    (1024, 896, torch.float32, False, True, "tiled"),
+    (1024, 896, torch.bfloat16, False, False, "tiled"),
+    (20, 896, torch.bfloat16, False, True, "tiled"),       # between
+])
+def test_dispatch_picks_the_documented_path(m, n, dtype, trans_b, aligned,
+                                            want):
+    assert mm_ops.select_path(m, n, dtype, trans_b, aligned) == want
+    route = mm_ops.dispatch(m, 896, n, dtype, trans_b, aligned)
+    assert route["path"] == want
+    assert set(route) >= {"path", "splits"}
+
+
+def test_route_reads_alignment_from_the_operands():
+    """The wrapper's own route: a contiguous bf16 decode product takes
+    the split-K path; the same product with A's rows off the 16-byte
+    grid (a column slice) takes the tiled kernel."""
+    a = torch.zeros(4, 897, dtype=torch.bfloat16)
+    b = torch.zeros(896, 896, dtype=torch.bfloat16)
+    whole = mm_ops.route(a[:, :896].contiguous(), b)
+    assert whole["aligned"] and whole["path"] == "splitk"
+    sliced = mm_ops.route(a[:, 1:], b)
+    assert not sliced["aligned"] and sliced["path"] == "tiled"
+    assert mm_ops.route(b.t().contiguous()[:4], b, trans_b=True)["path"] \
+        == "tiled"
+
+
+def test_splitk_without_a_fitting_slice_goes_tiled():
+    """A K too deep for even 8 slices of A in shared memory."""
+    assert mm_ops.splitk_plan(16, 1 << 18, 64) is None
+    assert mm_ops.dispatch(16, 1 << 18, 64, torch.bfloat16, False,
+                           True)["path"] == "tiled"
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES)
+def test_serving_plan_pins_name_the_splitk_tile(m, k, n):
+    """The decode pins the serving plan takes from ``resolve_plan``
+    (the tile its WCET bound counts) are the split-K path's tile, so
+    the decode products that carry them run that path."""
+    plan = mm_ops.resolve_plan(m, k, n, 2, False)
+    assert (plan["bm"], plan["bn"]) == mm_ops.PATH_TILES["splitk"][:2]
+    route = mm_ops.dispatch(m, k, n, torch.bfloat16, False, True,
+                            plan["bm"], plan["bn"])
+    assert route["path"] == "splitk"
+
+
+@pytest.mark.parametrize("m,k,n,pins,want", [
+    (4, 896, 896, (16, 64, None), "splitk"),
+    (4, 896, 896, (32, 128, None), "tiled"),
+    (4, 896, 896, (None, 128, None), "tiled"),
+    (4, 896, 896, (16, 64, 64), "tiled"),    # splitk picks its own slice
+    (1024, 896, 896, (128, 128, 64), "wgmma"),
+    (1024, 896, 896, (64, 128, None), "tiled"),
+    (1024, 896, 896, (None, None, 0), "tiled"),
+    (128, 128, 256, (128, 128, 0), "tiled"),  # the bf16 conformance plan
+])
+def test_pins_other_than_the_paths_tile_go_tiled(m, k, n, pins, want):
+    """A plan that pins a tile the fixed-tile path does not run goes to
+    the tiled kernel, which honours it, before the launch."""
+    assert mm_ops.dispatch(m, k, n, torch.bfloat16, False, True,
+                           *pins)["path"] == want
+    a = torch.zeros(m, k, dtype=torch.bfloat16)
+    b = torch.zeros(k, n, dtype=torch.bfloat16)
+    assert mm_ops.route(a, b, False, *pins)["path"] == want
+
+
+def test_wgmma_ring_that_does_not_fit_goes_tiled(monkeypatch):
+    """Dispatch asks the shared-memory rule for the wgmma ring: a stage
+    count the card would refuse sends the product to the tiled kernel."""
+    args = (1024, 896, 896, torch.bfloat16, False, True)
+    assert mm_ops.dispatch(*args)["path"] == "wgmma"
+    monkeypatch.setattr(mm_ops, "WGMMA_STAGES", 8)
+    assert mm_ops.dispatch(*args) == {"path": "tiled", "splits": 1}
+
+
+@pytest.mark.parametrize("flash_dtype,aligned,want", [
+    (torch.bfloat16, True, "tensor_core"),
+    (torch.bfloat16, False, "fma"),
+    (torch.float32, True, "fma"),
+])
+def test_flash_dispatch_by_dtype_and_alignment(flash_dtype, aligned, want):
+    assert fa_ops.select_path(flash_dtype, aligned) == want
+
+
+def test_smem_plan_rejects_stages_that_do_not_fit():
+    """The wgmma ring: stages x (A box + B box) + barriers + alignment
+    slack against the 232,448 bytes a block may use."""
+    def ring(stages):
+        return smem_plan(1024, 2048, 2048, 128, 128, 64, 2, stages=stages,
+                         path="wgmma")
+    assert ring(4)["fits"] and ring(7)["fits"]
+    assert not ring(8)["fits"]
+    assert ring(4)["smem_need"] == 1024 + 4 * 32768 + 4 * 16
+    # the epilogue's fp32 tile (the split-K partial) reuses the stages,
+    # unless there are too few of them
+    assert ring(2)["smem_need"] == 1024 + 128 * 136 * 4 + 2 * 16
+    # split-K decode: A's slice in fp32, the warps' and the block's sums
+    sk = smem_plan(4, 2048, 2048, 4, 64, 416, path="splitk")
+    assert sk["smem_need"] == 4 * (416 * 4 + 9 * 4 * 64) and sk["fits"]
+    assert not smem_plan(16, 8192, 64, 16, 64, 8192, path="splitk")["fits"]
+    with pytest.raises(ValueError):
+        smem_plan(4, 64, 64, 16, 64, 64, path="wgmma-typo")
+
+
+def _cu_constant(name: str) -> int:
+    text = (_build.CSRC / "spm_matmul.cu").read_text()
+    import re
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_shared_memory_rule_reads_the_kernels_constants():
+    """The wrapper's rule and plans name the sizes the kernels are
+    compiled with."""
+    assert (_cu_constant("kWgBM"), _cu_constant("kWgBN")) \
+        == mm_ops.WGMMA_TILE
+    assert _cu_constant("kWgBK") == gpu_mapping.WGMMA_BK
+    assert _cu_constant("kWgStages") == mm_ops.WGMMA_STAGES
+    assert _cu_constant("kSkBN") == mm_ops.SPLITK_BN
+    assert _cu_constant("kSkThreads") // 32 == gpu_mapping.SPLITK_WARPS
+    assert _cu_constant("kPad") == gpu_mapping.SMEM_PAD
+    text = (_build.CSRC / "spm_matmul.cu").read_text()
+    assert f"kWgPartLd = kWgBN + {gpu_mapping.WGMMA_PART_PAD};" in text
+
+
+def _c_params(source: str, entry: str) -> list:
+    """The parameter types of ``extern "C" int entry(...)`` in a csrc
+    source, as ctypes would take them."""
+    import re
+    text = (_build.CSRC / source).read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                       text).group(1)
+    kinds = []
+    for param in params.split(","):
+        param = " ".join(param.split())
+        if "*" in param:
+            kinds.append("ptr" if "long long*" not in param else "llptr")
+        else:
+            kinds.append(param.rsplit(" ", 1)[0])
+    return kinds
+
+
+_CTYPES = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+           ctypes.c_longlong: "long long", ctypes.c_float: "float"}
+
+
+@pytest.mark.parametrize("ops,source", [(mm_ops, "spm_matmul.cu"),
+                                        (fa_ops, "flash_attention.cu")])
+def test_wrapper_argtypes_match_the_c_entries(ops, source):
+    """Each path's ctypes signature has the C entry's parameters, in
+    order: a wrong count or width would pass garbage to the card."""
+    assert set(ops.ENTRIES) == set(ops.PATHS)
+    for entry, argtypes in ops.ENTRIES.values():
+        got = [_CTYPES.get(t, "llptr") for t in argtypes]
+        assert got == _c_params(source, entry), entry
+
+
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    """An edited header rebuilds every library that may include it."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build.library_path("k") != second
+    assert second.parent == _build.BUILD_DIR
 
 
 # ----------------------------------------------------- on the card only
