@@ -18,15 +18,21 @@ Phases, one result line each; any failure exits non-zero:
             allowance, which must stay under 1, and the same reading of
             planted faults, which must exceed 1 (spm_matmul: one 16-deep
             K step dropped; flash_attention: a 5 % error in the scale;
-            wkv6: the u bonus dropped, the state not carried across a
-            chunk boundary, the decay off by one position).  Each case
-            records the kernel path its wrapper launched (and the split
-            count): the main path's bf16 shapes must take the redesigned
-            paths (spm_matmul: cluster split-K for decode products but
-            the logits, wgmma for prefill; flash_attention: the
-            tensor-core kernel), fp32 and unaligned operands the older
-            kernels.  Each main-path case runs twice and must give the
-            same bits.  Then the kernel's time, the plain version's, a
+            wkv6: the u bonus dropped, the state not carried across the
+            boundary between two blocks' chunks and, where a cluster
+            walks more than one group, between two groups, the decay off
+            by one position).  Each case records the kernel path its
+            wrapper launched (and the split count, or wkv6's rows per
+            block and cluster): the main path's bf16 shapes must take
+            the redesigned paths (spm_matmul: cluster split-K for decode
+            products but the logits, wgmma for prefill; flash_attention
+            and wkv6: the tensor-core kernels), fp32 and unaligned
+            operands the older kernels.  Each main-path case runs twice
+            and must give the same bits.  wkv6's serve shape runs once
+            more through the kernel built with its per-step clock
+            counters (``WKV6_STEP_CLOCKS``), which say which step of a
+            block takes its time.  Then the kernel's time, the plain
+            version's, a
             PyTorch library call's where one computes the same function
             (a yardstick the port never calls) and the bound from the
             datasheet rates.
@@ -48,7 +54,8 @@ Phases, one result line each; any failure exits non-zero:
             zeroed with the launch counters, must show every eager
             decode product but the logits on the split-K path and every
             prefill product on the wgmma path (and, for qwen2-0.5b,
-            every flash_attention launch on the tensor-core kernel).
+            every flash_attention launch, for rwkv6-1.6b every wkv6
+            launch, on its tensor-core kernel).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -149,13 +156,16 @@ def phase_build():
     ptxas's register and spill lines."""
     from repro_torch.kernels import _build
     t0 = time.monotonic()
-    logs = _build.build(ptxas_verbose=True)
+    logs = _build.build(_build.SOURCES + tuple(_build.VARIANTS),
+                        ptxas_verbose=True)
     secs = time.monotonic() - t0
-    print(f"phase 2 build: {sorted(_build.SOURCES)} with "
-          f"{' '.join(_build.NVCC_FLAGS)} in {secs:.1f} s "
-          f"(newly built: {sorted(logs)})", flush=True)
+    print(f"phase 2 build: {sorted(_build.SOURCES)} and the variants "
+          f"{sorted(_build.VARIANTS)} with {' '.join(_build.NVCC_FLAGS)} "
+          f"in {secs:.1f} s (newly built: {sorted(logs)})", flush=True)
     usage = {}
     for name, text in logs.items():
+        if name not in _build.SOURCES:
+            continue
         entry = None
         for line in text.splitlines():
             if "Compiling entry function" in line and "'" in line:
@@ -231,9 +241,13 @@ def wkv_cases():
     bf, f32 = torch.bfloat16, torch.float32
     cases = [("serve prefill", 4, 256, 32, 64, 256, bf, "model", True),
              ("strong decay", 1, 256, 2, 64, None, f32, "strong", False),
+             ("strong decay bf16", 1, 256, 2, 64, None, bf, "strong",
+              False),
+             ("long S=2048", 1, 2048, 32, 64, 256, bf, "model", False),
              ("chunk halved, K=128", 2, 256, 4, 128, 128, bf, "model",
               False),
-             ("ragged S=100", 2, 100, 2, 64, 64, bf, "model", False)]
+             ("ragged S=100", 2, 100, 2, 64, 64, bf, "model", False),
+             ("unaligned bf16", 2, 100, 2, 64, 64, bf, "model", False)]
     for b, s, h, k, chunk, dt in CONFORMANCE_SHAPES["wkv6"]:
         cases.append(("conformance", b, s, h, k, chunk, getattr(torch, dt),
                       "reference", False))
@@ -421,6 +435,15 @@ def run_flash(dev, gen):
     return rows
 
 
+def off_grid(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def run_wkv(dev, gen):
     from repro_torch.kernels.tolerance import (allowance, check_wkv,
                                                wkv_inputs,
@@ -429,35 +452,58 @@ def run_wkv(dev, gen):
     rows = []
     for label, B, S, H, K, chunk, dt, decay, main in wkv_cases():
         args = wkv_inputs(B, S, H, K, dt, decay, gen, dev)
-        L = ops.resolve_chunk(S, K, chunk)
+        aligned = label != "unaligned bf16"
+        if not aligned:
+            args = tuple(off_grid(t) for t in args)
+        route = ops.dispatch(S, K, dt, aligned, chunk)
+        before = dict(ops.wkv.paths)
         got = ops.wkv(*args, chunk=chunk)
         torch.cuda.synchronize()
+        path = launched_path(ops.wkv.paths, before)
+        want_path = ("tensor_core" if dt == torch.bfloat16 and aligned
+                     else "fma")
+        if path != route["path"] or path != want_path:
+            fail(f"wkv6 {label}: launched {path}, dispatch says "
+                 f"{route['path']}, expected {want_path}")
+        if main:
+            again = ops.wkv(*args, chunk=chunk)
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                fail(f"wkv6 {label}: two runs differ")
         want = ops.wkv_plain(*args)
         ratio, diff = check_wkv(got, want, dt)
         if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
                 and ratio < 1):
             fail(f"wkv6 {label}: error at {ratio:.3f} of its allowance")
+        # the carry fault at the boundary between the first two blocks'
+        # chunks and, where the cluster walks groups, between two groups
+        group = (route["rows"] * route["cluster"] if route["groups"] > 1
+                 else None)
         faults = {name: check_wkv(f, want, dt)[0]
                   for name, f in wkv_planted_faults(
-                      lambda *a: ops.wkv(*a, chunk=chunk), *args, L).items()}
+                      lambda *a: ops.wkv(*a, chunk=chunk), *args,
+                      route["rows"], group).items()}
         for name, fault in faults.items():
             if not fault > 1:
                 fail(f"wkv6 {label}: the check misses '{name}' "
                      f"({fault:.3f} of its allowance)")
         atol_frac, rtol = allowance(dt, "wkv6")
         row = {"kernel": "wkv6", "case": label, "shape": [B, S, H, K],
-               "chunk_asked": chunk, "chunk": L, "dtype": str(dt),
-               "decay": decay, "err_ratio": ratio,
-               "fault_ratio": min(faults.values()), "faults": faults,
-               "max_abs_err": diff, "rtol": rtol, "atol_frac": atol_frac,
-               "main_path": main}
+               "chunk_asked": chunk, "chunk": route["rows"],
+               "path": path, "cluster": route["cluster"],
+               "groups": route["groups"], "dtype": str(dt),
+               "deterministic": main or None, "decay": decay,
+               "err_ratio": ratio, "fault_ratio": min(faults.values()),
+               "faults": faults, "max_abs_err": diff, "rtol": rtol,
+               "atol_frac": atol_frac, "main_path": main}
         # distinct copies that together exceed L2, as the main path finds
         # its inputs
         nbytes = sum(t.numel() * t.element_size() for t in args) \
             + got[0].numel() * got[0].element_size() \
             + got[1].numel() * got[1].element_size()
         copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
-        sets = [args] + [tuple(t.clone() for t in args)
+        copy = torch.clone if aligned else off_grid
+        sets = [args] + [tuple(copy(t) for t in args)
                          for _ in range(copies - 1)]
         row["ms"] = time_ms(lambda *a: ops.wkv(*a, chunk=chunk), sets)
         row["plain_ms"] = time_ms(lambda *a: ops.wkv_plain(*a), sets[:1],
@@ -465,16 +511,69 @@ def run_wkv(dev, gen):
         row["library_ms"] = None      # no one PyTorch call computes WKV6
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 4 * B * S * H * K * K, torch.float32)
+        if main:
+            row["step_shares"] = wkv_step_shares(args, route)
         del sets
         rows.append(row)
-        print(f"  wkv6 {label:20s} B{B} S{S} H{H} K{K} chunk {L} "
-              f"{str(dt)[6:]:8s} {decay} decay: err {ratio:.3f} of "
-              f"allowance (faults " + ", ".join(
+        print(f"  wkv6 {label:20s} B{B} S{S} H{H} K{K} {path}, "
+              f"{route['rows']} rows a block, cluster {route['cluster']} x "
+              f"{route['groups']} groups, {str(dt)[6:]} {decay} decay: "
+              f"err {ratio:.3f} of allowance (faults " + ", ".join(
                   f"{n} {f:.1f}" for n, f in faults.items())
               + f")  max abs {diff:.2e}  kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})", flush=True)
+        if main:
+            print("    wkv6 step shares of a block's cycles (clock64, "
+                  "WKV6_STEP_CLOCKS build): " + ", ".join(
+                      f"{n} {v:.3f}" for n, v in row["step_shares"].items()),
+                  flush=True)
     return rows
+
+
+WKV_STEPS = ("w landed", "scan, r k v landed", "exp2(total), k', diagonal",
+             "off-diagonal A", "r exp2(e), kd", "dS (warp 0)",
+             "first cluster barrier", "fold", "second cluster barrier",
+             "y")
+
+
+def wkv_step_shares(args, route):
+    """Each step's share of the cycles of the ``tensor_core`` kernel's
+    blocks on ``args``, and the cycles of a block, from the
+    ``wkv6_steps`` build (thread 0 of each block reads clock64 as each
+    step ends).  Launched through that library's own C entry: the
+    wrapper's counts do not move."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import ops
+    lib = _build.load("wkv6_steps")
+    launch = lib.wkv6_tc_launch
+    launch.argtypes = ops.ENTRIES["tensor_core"][1]
+    launch.restype = ctypes.c_int
+    read = lib.wkv6_step_clocks
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    r = args[0]
+    B, S, H, K = r.shape
+    y = torch.empty_like(r)
+    state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    counts = (ctypes.c_ulonglong * (len(WKV_STEPS) + 1))()
+    for _ in range(2):          # the first run warms up
+        if read(counts):
+            fail("wkv6 step clocks: read failed")
+        err = launch(*(t.data_ptr() for t in args), y.data_ptr(),
+                     state.data_ptr(), B, S, H, K, route["rows"],
+                     torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err:
+            fail(f"wkv6 step clocks: launch failed ({err})")
+    if read(counts):
+        fail("wkv6 step clocks: read failed")
+    total = sum(counts[:len(WKV_STEPS)])
+    shares = {n: counts[i] / total for i, n in enumerate(WKV_STEPS)}
+    shares["cycles per block"] = total / counts[len(WKV_STEPS)]
+    return shares
 
 
 def phase_kernels(dev):
@@ -600,8 +699,8 @@ def phase_serve(arch):
 def check_serve_paths(arch, launches, paths):
     """Every eager decode product but the logits took the split-K path,
     every prefill product but the logits (taken at the last position,
-    M = batch) the wgmma path, and flash_attention its tensor-core
-    kernel.  A serve makes two prefills (untimed, timed) and its eager
+    M = batch) the wgmma path, and flash_attention and wkv6 their
+    tensor-core kernels.  A serve makes two prefills (untimed, timed) and its eager
     decode steps (untimed, the capture's warm-up, the capture)."""
     want = SERVES[arch]
     per_prefill = want["per_prefill"]["spm_matmul"]
@@ -614,18 +713,21 @@ def check_serve_paths(arch, launches, paths):
     if rest or decodes < 1 or paths["spm_matmul"] != expect:
         fail(f"{arch}: spm_matmul paths {paths['spm_matmul']}, expected "
              f"{expect}")
-    fa = paths["flash_attention"]
-    if "flash_attention" in want["kernels"] and (
-            fa["fma"] or fa["tensor_core"] != launches["flash_attention"]):
-        fail(f"{arch}: flash_attention paths {fa}: every launch must take "
-             f"the tensor-core kernel")
+    for name in ("flash_attention", "wkv6"):
+        got = paths[name]
+        if name in want["kernels"] and (
+                got["fma"] or got["tensor_core"] != launches[name]):
+            fail(f"{arch}: {name} paths {got}: every launch must take "
+                 f"the tensor-core kernel")
 
 
 def path_counts():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.spm_matmul import ops as mm_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
     return {"spm_matmul": dict(mm_ops.matmul.paths),
-            "flash_attention": dict(fa_ops.attention.paths)}
+            "flash_attention": dict(fa_ops.attention.paths),
+            "wkv6": dict(wkv_ops.wkv.paths)}
 
 
 def reset_launches():
@@ -635,7 +737,8 @@ def reset_launches():
     mm_ops.matmul.launches = 0
     fa_ops.attention.launches = 0
     wkv_ops.wkv.launches = 0
-    for counts in (mm_ops.matmul.paths, fa_ops.attention.paths):
+    for counts in (mm_ops.matmul.paths, fa_ops.attention.paths,
+                   wkv_ops.wkv.paths):
         counts.update(dict.fromkeys(counts, 0))
 
 

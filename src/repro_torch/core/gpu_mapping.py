@@ -36,6 +36,9 @@ class GPUChip:
     peak_flops: float = 989e12       # bf16 dense, tensor cores
     hbm_bw: float = 3.35e12          # bytes/s
     smem_bytes: int = 232_448        # shared memory one block can use
+    sm_smem_bytes: int = 233_472     # shared memory of one SM (228 KB)
+    smem_reserved: int = 1_024       # per resident block, kept by the system
+    max_threads_per_sm: int = 2_048
     num_sms: int = 132
     # worst-case derates for WCET (assumptions, not datasheet values)
     worst_hbm_derate: float = 0.8
@@ -53,6 +56,14 @@ WGMMA_PART_PAD = 8      # wgmma path: fp32 epilogue tile row padding
 WGMMA_ALIGN = 1024      # wgmma path: swizzle-atom alignment slack
 MBARRIER_BYTES = 8
 PATHS = ("tiled", "splitk", "wgmma")
+
+# csrc/wkv6.cu's layouts (the kernels' constants; tests read them back)
+WKV_FMA_THREADS = 256   # fma path: threads of a block
+WKV_TC_THREADS = 256    # tensor-core path: threads of a block
+WKV_TC_ROWS = {32: 64, 64: 64, 128: 16}   # its compiled rows per block
+WKV_TC_PAD = 8          # its row padding, in elements
+WKV_MAX_CLUSTER = 8     # its blocks per cluster, at most
+WKV_PATHS = ("tensor_core", "fma")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -113,22 +124,53 @@ def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
             "fits": need <= chip.smem_bytes, "bkc": bkc}
 
 
-def wkv_smem_plan(chunk: int, K: int, chip: GPUChip = H100) -> dict:
+def blocks_per_sm(need: int, threads: int, chip: GPUChip = H100) -> int:
+    """Blocks of ``need`` bytes of shared memory and ``threads`` threads
+    one SM holds at once, by shared memory and threads (registers not
+    counted)."""
+    return min(chip.sm_smem_bytes // (need + chip.smem_reserved),
+               chip.max_threads_per_sm // threads)
+
+
+def wkv_smem_plan(chunk: int, K: int, chip: GPUChip = H100, *,
+                  path: str = "fma", groups: int = 1) -> dict:
     """Shared-memory feasibility of one ``csrc/wkv6.cu`` block: the
     port's stand-in for the reference's ``cost_model.py`` VMEM rule for
-    a wkv6 chunk.
+    a wkv6 chunk, and the blocks one SM holds.
 
-    The block keeps, in fp32: the [K, K] state; r, k, the anchored k
-    and the cumulative log-decay of the chunk ([chunk, K + 1] each, rows
-    padded by one against bank conflicts); v [chunk, K]; the intra-chunk
-    matrix [chunk, chunk + 1]; the u-bonus per row; u and the chunk's
-    total decay per channel.  ``smem_floats`` in ``csrc/wkv6.cu`` is the
-    same sum."""
+    ``fma``: the block keeps, in fp32: the [K, K] state; r, k, the
+    anchored k and the cumulative log-decay of the chunk ([chunk, K + 1]
+    each, rows padded by one against bank conflicts); v [chunk, K]; the
+    intra-chunk matrix [chunk, chunk + 1]; the u-bonus per row; u and
+    the chunk's total decay per channel.  ``smem_floats`` in
+    ``csrc/wkv6.cu`` is the same sum.
+
+    ``tensor_core``: ``chunk`` is the block's rows, which the kernel is
+    compiled for (``WKV_TC_ROWS[K]``; ``tc_smem_bytes`` in the source is
+    the same sum), rows padded by ``WKV_TC_PAD`` elements (P = K + pad):
+    in fp32 the cumulative log2-decay [max(rows, K), P], whose space the
+    chunk's state contribution [K, P] takes over (the cluster reads it),
+    and exp2(total) and u per channel; in bf16 r, v and the lo part of
+    the anchored keys (later of r exp2(e)) [rows, P], k and the hi part
+    of the anchored keys [max(rows, K), P] (later the hi and lo parts of
+    the state product's keys, then of the incoming state) and the hi
+    and lo parts of the intra-chunk matrix [rows, rows + pad]; with
+    ``groups`` > 1 the [K, K] fp32 carry between the cluster's groups."""
     L = chunk
-    floats = (K * K + 4 * L * (K + 1) + L * K + L * (L + 1) + L + 2 * K)
-    need = 4 * floats
+    if path == "fma":
+        need = 4 * (K * K + 4 * L * (K + 1) + L * K + L * (L + 1) + L + 2 * K)
+        threads = WKV_FMA_THREADS
+    elif path == "tensor_core":
+        P, kr = K + WKV_TC_PAD, max(L, K)
+        need = (4 * (kr * P + 2 * K)
+                + 2 * ((3 * L + 2 * kr) * P + 2 * L * (L + WKV_TC_PAD))
+                + (4 * K * K if groups > 1 else 0))
+        threads = WKV_TC_THREADS
+    else:
+        raise ValueError(f"path {path!r} not in {WKV_PATHS}")
     return {"smem_need": need, "smem_bytes": chip.smem_bytes,
-            "fits": need <= chip.smem_bytes}
+            "fits": need <= chip.smem_bytes,
+            "blocks_per_sm": blocks_per_sm(need, threads, chip)}
 
 
 def gpu_matmul_schedule(m: int, k: int, n: int, *, n_devices: int = 1,

@@ -9,7 +9,10 @@ rebuilt and a stale library is never loaded.  The sources link only the
 CUDA runtime: the one call outside it (``cuTensorMapEncodeTiled``, for
 TMA) is fetched at run time through ``cudaGetDriverEntryPoint``.
 ``build`` starts one ``nvcc`` per missing library, all at once, and
-waits for them together.
+waits for them together.  A variant (``VARIANTS``) is a source built
+again with extra flags into a library of its own, never loaded by the
+wrappers: ``wkv6_steps`` is ``csrc/wkv6.cu`` with its per-step clock
+counters compiled in (``WKV6_STEP_CLOCKS``).
 
 Importing this module touches no CUDA: the CPU tests import it.
 """
@@ -29,6 +32,8 @@ SOURCES = ("spm_matmul", "flash_attention", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 900
+# variant library -> (its source, the flags it adds)
+VARIANTS = {"wkv6_steps": ("wkv6", ("-DWKV6_STEP_CLOCKS",))}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -48,13 +53,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _source_and_flags(name: str):
+    source, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{source}.cu", NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> Path:
-    """``build/repro_torch/lib<name>-<hash>.so``: the hash covers
-    ``csrc/<name>.cu``, every ``csrc/*.cuh`` and ``NVCC_FLAGS``."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """``build/repro_torch/lib<name>-<hash>.so``: the hash covers the
+    source (``csrc/<name>.cu``, or a variant's), every ``csrc/*.cuh``
+    and the flags."""
+    source, flags = _source_and_flags(name)
+    h = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -72,9 +84,10 @@ def build(names: Iterable[str] = SOURCES,
             if out.exists():
                 continue
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [nvcc_path(), *NVCC_FLAGS,
+            source, flags = _source_and_flags(name)
+            cmd = [nvcc_path(), *flags,
                    *(("-Xptxas", "-v") if ptxas_verbose else ()),
-                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                   "-o", str(tmp), str(source)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs[name] = (proc, tmp, out)
@@ -95,7 +108,8 @@ def build(names: Iterable[str] = SOURCES,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded library ``name`` (a source of ``csrc`` or a variant),
+    built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         path = library_path(name)

@@ -28,7 +28,9 @@ the strong-decay case, and its planted faults read over 1e3 of 1e-4.
 
 Run it to print, at the serve prefill shapes on the CPU, the worst error
 of the modelled kernels and of planted faults as shares of the
-allowance (under 1 passes), and for attention that older reading:
+allowance (under 1 passes), and for attention that older reading
+(wkv6's model is the one of the kernel each dtype takes on the card,
+``wkv_kernel_model``):
 
   PYTHONPATH=src python -m repro_torch.kernels.tolerance
 """
@@ -112,31 +114,152 @@ def wkv_chunked_direct(r, k, v, w_log, u, chunk: int):
     return torch.cat(ys, 1).to(r.dtype), s
 
 
-def wkv_planted_faults(wkv_fn, r, k, v, w_log, u, boundary: int) -> dict:
-    """{name: (y, state)}: three wrong wkv6 results made by running
-    ``wkv_fn`` (the kernel on the card, a CPU model here) on altered
-    inputs.  The u bonus dropped (u = 0); the state not carried across
-    the chunk boundary at ``boundary`` (the two parts run apart); the
-    decay off by one position (the read r_t S_{t-1} decayed by the
-    step's own w_t, i.e. an inclusive cumulative sum where the kernel
-    takes the exclusive one: r exp(w) with u = 0, plus the u bonus)."""
+def wkv_cluster_model(r, k, v, w_log, u, rows: int):
+    """The rounding of ``csrc/wkv6.cu``'s bf16 ``tensor_core`` kernel in
+    plain torch, ``rows`` rows per block:
+
+    - w scaled by log2(e) (in fp32), summed down each channel in
+      ``WKV_TC_THREADS // K`` row segments, each segment offset by the sums of
+      the ones before it (cw, log2 units); e is cw one row back;
+    - A per 16-row sub-tile pair: inside each 8-row half of a diagonal
+      sub-tile in fp32 with exp2(e_t - cw_s) taken directly and the u
+      bonus r u k on the diagonal; off it, through the anchor a (the
+      last row of sub-tile j, or of the first half for the second half's
+      rows of a diagonal sub-tile), q' = r exp2(e_t - cw_a) and
+      k' = k exp2(cw_a - cw_s);
+    - every operand the kernel makes for the tensor cores (q', k', A,
+      r exp2(e), kd = k exp2(total - cw), S_in) split as a bf16 hi part
+      and the bf16 rounding of the rest, each product taken as
+      hi.hi + lo.hi + hi.lo in fp32 (hi + lo against r, k and v, which
+      are exact in bf16);
+    - the incoming state of each chunk folded in chunk order,
+      S = exp2(total) S + dS, in fp32 (the cluster's rank order and its
+      groups add in the same order);
+    - y = A v + (r exp2(e)) S_in summed in fp32, rounded to r's dtype.
+
+    Rows past S are zeros, as the kernel reads them.  Returns (y, final
+    state in fp32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.gpu_mapping import WKV_TC_THREADS
+
+    B, S, H, K = r.shape
+    f32, bf = torch.float32, torch.bfloat16
+    NC = -(-S // rows)
+    T = rows // 16
+
+    def chunks(a):
+        a = F.pad(a.to(f32), (0, 0, 0, 0, 0, NC * rows - S))
+        return a.reshape(B, NC, rows, H, K)
+
+    def split(a):
+        """a as its bf16 rounding and the bf16 rounding of the rest."""
+        hi = a.to(bf).to(f32)
+        return hi, (a - hi).to(bf).to(f32)
+
+    rc, kc, vc = chunks(r), chunks(k), chunks(v)
+    seg = WKV_TC_THREADS // K
+    parts = (chunks(w_log) * LOG2E).reshape(B, NC, seg, rows // seg, H,
+                                            K).cumsum(3)
+    lasts = parts[:, :, :, -1]
+    cw = (parts + (lasts.cumsum(2) - lasts)[:, :, :, None]).reshape(
+        B, NC, rows, H, K)
+    e = torch.cat([torch.zeros_like(cw[:, :, :1]), cw[:, :, :-1]], 2)
+    tot = cw[:, :, -1]
+    uu = u.to(f32)
+    A = torch.zeros(B, NC, H, rows, rows)
+    tri = torch.tril(torch.ones(8, 8, dtype=torch.bool), -1)[:, :, None,
+                                                               None]
+
+    def anchored(ti, tj, a):
+        """A[ti, tj] through the anchor row a, hi/lo operands."""
+        qh, ql = split(rc[:, :, ti] * torch.exp2(e[:, :, ti]
+                                                 - cw[:, :, a, None]))
+        kh, kl = split(kc[:, :, tj] * torch.exp2(cw[:, :, a, None]
+                                                 - cw[:, :, tj]))
+        return sum(torch.einsum("bnthk,bnshk->bnhts", x, z)
+                   for x, z in ((qh, kh), (ql, kh), (qh, kl)))
+
+    for h8 in range(2 * T):     # inside each 8-row half, directly
+        th = slice(8 * h8, 8 * h8 + 8)
+        expo = e[:, :, th, None] - cw[:, :, None, th]   # [B,NC,t,s,H,K]
+        P = torch.where(tri, torch.exp2(torch.where(tri, expo, 0.0)), 0.0)
+        Ad = torch.einsum("bnthk,bnshk,bntshk->bnhts", rc[:, :, th],
+                          kc[:, :, th], P)
+        bonus = torch.einsum("bnthk,hk,bnthk->bnht", rc[:, :, th], uu,
+                             kc[:, :, th])
+        A[..., th, th] = Ad + torch.diag_embed(bonus)
+    for i in range(T):
+        A[..., 16 * i + 8:16 * i + 16, 16 * i:16 * i + 8] = anchored(
+            slice(16 * i + 8, 16 * i + 16), slice(16 * i, 16 * i + 8),
+            16 * i + 7)
+        for j in range(i):
+            A[..., 16 * i:16 * i + 16, 16 * j:16 * j + 16] = anchored(
+                slice(16 * i, 16 * i + 16), slice(16 * j, 16 * j + 16),
+                16 * j + 15)
+    y = sum(torch.einsum("bnhts,bnshv->bnthv", x, vc) for x in split(A))
+    rq_hi, rq_lo = split(rc * torch.exp2(e))
+    dS = sum(torch.einsum("bnthk,bnthv->bnhkv", x, vc)
+             for x in split(kc * torch.exp2(tot[:, :, None] - cw)))
+    dec = torch.exp2(tot)
+    st = torch.zeros(B, H, K, K)
+    s_in = []
+    for c in range(NC):
+        s_in.append(st)
+        st = dec[:, c, :, :, None] * st + dS[:, c]
+    s_hi, s_lo = split(torch.stack(s_in, 1))
+    y = y + sum(torch.einsum("bnthk,bnhkv->bnthv", x, z)
+                for x, z in ((rq_hi, s_hi), (rq_hi, s_lo), (rq_lo, s_hi)))
+    return y.reshape(B, NC * rows, H, K)[:, :S].to(r.dtype), st
+
+
+def wkv_kernel_model(r, k, v, w_log, u, chunk=None):
+    """The CPU model of the kernel ``ops.wkv`` launches for these
+    operands on the card (aligned, contiguous): ``wkv_cluster_model`` at
+    the ``tensor_core`` path's rows for bf16, ``wkv_chunked_direct`` at
+    the ``fma`` path's chunk for fp32."""
+    from repro_torch.kernels.wkv6 import ops
+    S, K = r.shape[1], r.shape[3]
+    route = ops.dispatch(S, K, r.dtype, True, chunk)
+    if route["path"] == "tensor_core":
+        return wkv_cluster_model(r, k, v, w_log, u, route["rows"])
+    return wkv_chunked_direct(r, k, v, w_log, u, route["rows"])
+
+
+def wkv_planted_faults(wkv_fn, r, k, v, w_log, u, boundary: int,
+                       group_boundary: Optional[int] = None) -> dict:
+    """{name: (y, state)}: wrong wkv6 results made by running ``wkv_fn``
+    (the kernel on the card, a CPU model here) on altered inputs.  The u
+    bonus dropped (u = 0); the state not carried across the chunk
+    boundary at ``boundary`` (the two parts run apart), and, given
+    ``group_boundary``, across that one too (the boundary between two
+    groups of a cluster); the decay off by one position (the read
+    r_t S_{t-1} decayed by the step's own w_t, i.e. an inclusive
+    cumulative sum where the kernel takes the exclusive one: r exp(w)
+    with u = 0, plus the u bonus)."""
     def part(sl):
         return [a[:, sl].contiguous() for a in (r, k, v, w_log)]
 
+    def not_carried(at):
+        first = wkv_fn(*part(slice(0, at)), u)
+        second = wkv_fn(*part(slice(at, None)), u)
+        return torch.cat([first[0], second[0]], 1), second[1]
+
     zero_u = torch.zeros_like(u)
-    first = wkv_fn(*part(slice(0, boundary)), u)
-    second = wkv_fn(*part(slice(boundary, None)), u)
     late = wkv_fn((r.float() * torch.exp(w_log)).to(r.dtype), k, v, w_log,
                   zero_u)
     bonus = torch.einsum("bthk,hk,bthk->bth", r.float(), u,
                          k.float())[..., None] * v.float()
-    return {
+    faults = {
         "u bonus dropped": wkv_fn(r, k, v, w_log, zero_u),
-        "state not carried across a chunk boundary":
-            (torch.cat([first[0], second[0]], 1), second[1]),
+        "state not carried across a chunk boundary": not_carried(boundary),
         "decay off by one position":
             ((late[0].float() + bonus).to(r.dtype), late[1]),
     }
+    if group_boundary is not None:
+        faults["state not carried across a cluster group boundary"] = \
+            not_carried(group_boundary)
+    return faults
 
 
 def wkv_inputs(B, S, H, K, dtype, decay, gen, device="cpu"):
@@ -276,24 +399,30 @@ def main() -> None:
 
 
 def wkv_main() -> None:
+    from repro_torch.kernels.wkv6 import ops
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
     gen = torch.Generator().manual_seed(0)
-    for B, S, H, K, L, dt, decay in (
-            (4, 256, 32, 64, 64, torch.bfloat16, "model"),
-            (1, 256, 2, 64, 64, torch.float32, "strong"),
+    for B, S, H, K, chunk, dt, decay in (
+            (4, 256, 32, 64, 256, torch.bfloat16, "model"),
+            (1, 256, 2, 64, 256, torch.bfloat16, "strong"),
+            (1, 2048, 8, 64, 256, torch.bfloat16, "model"),
+            (2, 256, 4, 128, 128, torch.bfloat16, "model"),
+            (1, 256, 2, 64, None, torch.float32, "strong"),
             (1, 64, 2, 32, 32, torch.float32, "reference"),
             (2, 64, 2, 64, 32, torch.float32, "reference")):
         args = wkv_inputs(B, S, H, K, dt, decay, gen)
         want = wkv6_ref(*args)
+        route = ops.dispatch(S, K, dt, True, chunk)
 
         def model(*a):
-            return wkv_chunked_direct(*a, L)
+            return wkv_kernel_model(*a, chunk=chunk)
 
-        faults = wkv_planted_faults(model, *args, L)
-        print(f"wkv6 B{B} S{S} H{H} K{K} chunk {L} {str(dt)[6:]} "
-              f"{decay} decay: modelled kernel "
-              f"{check_wkv(model(*args), want, dt)[0]:.3f}, "
+        faults = wkv_planted_faults(model, *args, route["rows"])
+        print(f"wkv6 B{B} S{S} H{H} K{K} {str(dt)[6:]} {decay} decay, "
+              f"{route['path']} path, {route['rows']} rows a block, "
+              f"cluster {route['cluster']} x {route['groups']} groups: "
+              f"modelled kernel {check_wkv(model(*args), want, dt)[0]:.3f}, "
               + ", ".join(f"{name} {check_wkv(got, want, dt)[0]:.1f}"
                           for name, got in faults.items()))
 

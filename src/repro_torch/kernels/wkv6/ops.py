@@ -4,15 +4,29 @@
 
 Dispatch is by device, with no fallback: CPU tensors take the plain
 version (``ref.wkv6_ref``, the exact sequential recurrence); CUDA
-tensors launch the kernel, or the wrapper raises.  Each launch adds one
-to ``wkv.launches``.  Like the TPU kernel it takes no initial state.
+tensors launch a kernel, or the wrapper raises.  Each launch adds one
+to ``wkv.launches`` and one to its path's count in ``wkv.paths``.  Like
+the TPU kernel it takes no initial state.
+
+On CUDA, ``route`` picks one of two kernels before the launch:
+``tensor_core`` for bf16 r, k and v with every operand on a 16-byte
+boundary (the chunks of one (b, h) run in parallel as the blocks of a
+thread-block cluster, products on mma.sync), and ``fma`` (one block per
+(b, h) walking the chunks in order, fp32 FMAs) for fp32, which the
+tensor cores cannot hold to the 1e-4 fp32 allowance, and for operands
+off the 16-byte grid.
 
 The plan parameter is the reference's ``chunk``: an explicit value
-wins, else the reference's default of 128.  It is clamped to the
-sequence length, then halved while one block's working set does not fit
-the shared memory a block may use (``core.gpu_mapping.wkv_smem_plan``),
-as ``spm_matmul`` halves ``bk``.  The result depends on the chunk only
-through rounding.  The kernel masks a ragged last chunk, so the
+wins, else the reference's default of 128, clamped to the sequence
+length.  The ``fma`` kernel runs it halved while one block's working set
+does not fit the shared memory a block may use
+(``core.gpu_mapping.wkv_smem_plan``), as ``spm_matmul`` halves ``bk``.
+The ``tensor_core`` kernel picks its own parallel unit from it: a block
+takes ``tc_rows`` rows, the chunk rounded down to a multiple of 16 and
+held between 16 and the rows it is compiled for (64 at K = 32 and 64,
+16 at K = 128), so the model's chunk of 256 at S = 256 runs as four
+64-row blocks per (b, h), not one.  The result depends on the chunk
+only through rounding.  Both kernels mask a ragged last chunk, so the
 sequence length need not be a multiple of it.
 
 What bounds it on the card, and what the design does about it, is in
@@ -26,15 +40,26 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.gpu_mapping import wkv_smem_plan
+from repro_torch.core.gpu_mapping import (WKV_MAX_CLUSTER, WKV_PATHS,
+                                          WKV_TC_ROWS, wkv_smem_plan)
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 DEFAULT_CHUNK = 128
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+PATHS = WKV_PATHS
+SUBTILE = 16
 
 wkv_plain = wkv6_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each path's C entry in csrc/wkv6.cu and its argument types: r, k, v,
+# w, u, y, state, B, S, H, K, the chunk (fma) or rows per block
+# (tensor_core), (the fma kernel's dtype flag,) the stream
+ENTRIES = {"tensor_core": ("wkv6_tc_launch",
+                           [_P] * 7 + [_I] * 5 + [_P]),
+           "fma": ("wkv6_launch", [_P] * 7 + [_I] * 6 + [_P])}
 
 
 @functools.lru_cache(maxsize=256)
@@ -51,12 +76,49 @@ def resolve_chunk(S: int, K: int, chunk: Optional[int] = None) -> int:
     return c
 
 
-def _lib():
-    lib = _build.load("wkv6")
-    fn = lib.wkv6_launch
+def tc_rows(S: int, K: int, chunk: Optional[int] = None) -> int:
+    """Rows of one ``tensor_core`` block: the chunk (default 128,
+    clamped to ``S``) rounded down to a multiple of 16, at least 16 and
+    at most the rows the kernel is compiled for at this ``K``."""
+    c = min(chunk or DEFAULT_CHUNK, S)
+    if c < 1:
+        raise ValueError(f"chunk={chunk} for S={S}")
+    return max(SUBTILE, min(WKV_TC_ROWS[K], c // SUBTILE * SUBTILE))
+
+
+def select_path(dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel a CUDA call launches: ``tensor_core`` for bf16 with
+    every operand on a 16-byte boundary (``aligned``), else ``fma``."""
+    return "tensor_core" if dtype == torch.bfloat16 and aligned else "fma"
+
+
+def dispatch(S: int, K: int, dtype: torch.dtype, aligned: bool = True,
+             chunk: Optional[int] = None) -> dict:
+    """Everything the launch is decided by: the path; for ``fma`` the
+    chunk its block walks, for ``tensor_core`` the rows per block, the
+    cluster's size (blocks per (b, h) at once) and the groups of chunks
+    it walks in order."""
+    path = select_path(dtype, aligned)
+    if path == "fma":
+        return {"path": path, "rows": resolve_chunk(S, K, chunk),
+                "cluster": 1, "groups": 1}
+    rows = tc_rows(S, K, chunk)
+    chunks = -(-S // rows)
+    cluster = min(WKV_MAX_CLUSTER, chunks)
+    groups = -(-chunks // cluster)
+    if not wkv_smem_plan(WKV_TC_ROWS[K], K, path=path,
+                         groups=groups)["fits"]:
+        raise ValueError(f"no shared-memory plan for K={K}")
+    return {"path": path, "rows": rows, "cluster": cluster,
+            "groups": groups}
+
+
+def _lib(path: str):
+    """The C entry of ``path``'s kernel, argument types set once."""
+    name, argtypes = ENTRIES[path]
+    fn = getattr(_build.load("wkv6"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -85,7 +147,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, final state [B,H,K,K] fp32)."""
     _check(r, k, v, w_log, u)
     B, S, H, K = r.shape
-    L = resolve_chunk(S, K, chunk)
+    resolve_chunk(S, K, chunk)      # a bad plan fails on every device
     ts = (r, k, v, w_log, u)
     if all(t.device.type == "cpu" for t in ts):
         return wkv_plain(r, k, v, w_log, u)
@@ -96,17 +158,26 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {K} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("wkv6 needs contiguous operands")
+    aligned = all(t.data_ptr() % 16 == 0 for t in ts)
+    route = dispatch(S, K, r.dtype, aligned, chunk)
+    path = route["path"]
     y = torch.empty_like(r)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = _lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
-                 u.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, K,
-                 L, int(r.dtype == torch.bfloat16), stream)
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+            u.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, K,
+            route["rows"])
+    if path == "tensor_core":
+        err = _lib(path)(*args, stream)
+    else:
+        err = _lib(path)(*args, int(r.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {err} "
-                           f"({tuple(r.shape)}, chunk {L})")
+                           f"({tuple(r.shape)}, {route})")
     wkv.launches += 1
+    wkv.paths[path] += 1
     return y, state
 
 
 wkv.launches = 0
+wkv.paths = dict.fromkeys(PATHS, 0)

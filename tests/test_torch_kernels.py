@@ -288,8 +288,9 @@ def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
         sound = tolerance.flash_kernel_rounding(q, k, v)
         fault = tolerance.flash_kernel_rounding(q, k, v, scale=1.05 / 8)
     else:
-        # the chunked arithmetic of csrc/wkv6.cu, and its three planted
-        # faults, in bf16 (model decays) and fp32 (strong decay)
+        # the chunked arithmetic of csrc/wkv6.cu's fma kernel, and its
+        # three planted faults, in bf16 (model decays) and fp32 (strong
+        # decay)
         for dt, decay in ((bf, "model"), (torch.float32, "strong")):
             args = tolerance.wkv_inputs(2, 128, 2, 64, dt, decay, gen)
             want = wkv_ops.wkv_plain(*args)
@@ -300,6 +301,29 @@ def test_card_check_passes_rounding_and_catches_planted_faults(kernel):
             assert tolerance.check_wkv(model(*args), want, dt)[0] < 1
             faults = tolerance.wkv_planted_faults(model, *args, 32)
             assert len(faults) == 3
+            for got in faults.values():
+                assert tolerance.check_wkv(got, want, dt)[0] > 1
+        # the kernel each dtype takes on the card (bf16: the cluster
+        # kernel's sub-tiles, hi/lo operands, rank-ordered carry and
+        # exp2; fp32: the fma kernel), 16-row blocks over 160 rows: ten
+        # chunks, clusters of 8 walking two groups; the carry fault also
+        # at the boundary between the groups
+        for dt, decay in ((bf, "model"), (bf, "strong"),
+                          (torch.float32, "strong")):
+            args = tolerance.wkv_inputs(1, 160, 2, 64, dt, decay, gen)
+            want = wkv_ops.wkv_plain(*args)
+            route = wkv_ops.dispatch(160, 64, dt, True, 16)
+            assert route["rows"] == 16
+            if dt == bf:
+                assert (route["path"], route["cluster"], route["groups"]) \
+                    == ("tensor_core", 8, 2)
+
+            def kernel(*a):
+                return tolerance.wkv_kernel_model(*a, chunk=16)
+
+            assert tolerance.check_wkv(kernel(*args), want, dt)[0] < 1
+            faults = tolerance.wkv_planted_faults(kernel, *args, 16, 128)
+            assert len(faults) == 4
             for got in faults.values():
                 assert tolerance.check_wkv(got, want, dt)[0] > 1
         return
@@ -494,8 +518,8 @@ def test_smem_plan_rejects_stages_that_do_not_fit():
         smem_plan(4, 64, 64, 16, 64, 64, path="wgmma-typo")
 
 
-def _cu_constant(name: str) -> int:
-    text = (_build.CSRC / "spm_matmul.cu").read_text()
+def _cu_constant(name: str, source: str = "spm_matmul.cu") -> int:
+    text = (_build.CSRC / source).read_text()
     import re
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
@@ -512,6 +536,72 @@ def test_shared_memory_rule_reads_the_kernels_constants():
     assert _cu_constant("kPad") == gpu_mapping.SMEM_PAD
     text = (_build.CSRC / "spm_matmul.cu").read_text()
     assert f"kWgPartLd = kWgBN + {gpu_mapping.WGMMA_PART_PAD};" in text
+
+
+def test_wkv_shared_memory_rule_reads_the_kernels_constants():
+    """``wkv_smem_plan`` and the wrapper's rows rule name the sizes
+    csrc/wkv6.cu is compiled with, and the source's ``tc_smem_bytes``
+    sums the same buffers."""
+    def c(name):
+        return _cu_constant(name, "wkv6.cu")
+    assert c("kThreads") == gpu_mapping.WKV_FMA_THREADS
+    assert c("kTcThreads") == gpu_mapping.WKV_TC_THREADS
+    assert c("kTcPad") == gpu_mapping.WKV_TC_PAD
+    assert c("kMaxCluster") == gpu_mapping.WKV_MAX_CLUSTER
+    assert c("kSub") == wkv_ops.SUBTILE
+    assert gpu_mapping.WKV_TC_ROWS == {32: c("kTcRows"), 64: c("kTcRows"),
+                                       128: c("kTcRowsWide")}
+    text = (_build.CSRC / "wkv6.cu").read_text()
+    for k, rows in gpu_mapping.WKV_TC_ROWS.items():
+        assert f"launch_tc_k<{k}, " in text
+    # the shared-memory sum of the tensor-core block, buffer by buffer
+    # (K = 64, 64 rows, row pitch 72): cw/dS, exp2(total) and u in fp32;
+    # r, v, lo of k'; k, hi of k'; hi and lo of A in bf16; the carry
+    plan = wkv_smem_plan(64, 64, path="tensor_core")
+    assert plan["smem_need"] == 4 * (64 * 72 + 2 * 64) \
+        + 2 * ((3 * 64 + 2 * 64) * 72 + 2 * 64 * 72)
+    assert wkv_smem_plan(64, 64, path="tensor_core", groups=2)["smem_need"] \
+        == plan["smem_need"] + 4 * 64 * 64
+    assert plan["blocks_per_sm"] == 2
+    for k, rows in gpu_mapping.WKV_TC_ROWS.items():
+        assert wkv_smem_plan(rows, k, path="tensor_core", groups=2)["fits"]
+    with pytest.raises(ValueError):
+        wkv_smem_plan(64, 64, path="wgmma")
+
+
+@pytest.mark.parametrize("S,K,dtype,aligned,chunk,want", [
+    # the serve prefill: the model's chunk of 256 becomes four 64-row
+    # blocks per (b, h) in one cluster, not one block
+    (256, 64, torch.bfloat16, True, 256, ("tensor_core", 64, 4, 1)),
+    (256, 64, torch.bfloat16, True, None, ("tensor_core", 64, 4, 1)),
+    (2048, 64, torch.bfloat16, True, 256, ("tensor_core", 64, 8, 4)),
+    (256, 128, torch.bfloat16, True, 128, ("tensor_core", 16, 8, 2)),
+    (100, 64, torch.bfloat16, True, 40, ("tensor_core", 32, 4, 1)),
+    (7, 32, torch.bfloat16, True, None, ("tensor_core", 16, 1, 1)),
+    (256, 64, torch.bfloat16, False, 256, ("fma", 64, 1, 1)),
+    (256, 64, torch.float32, True, 256, ("fma", 64, 1, 1)),
+    (64, 32, torch.float32, True, 32, ("fma", 32, 1, 1)),
+])
+def test_wkv_dispatch_picks_the_path_and_its_rows(S, K, dtype, aligned,
+                                                  chunk, want):
+    route = wkv_ops.dispatch(S, K, dtype, aligned, chunk)
+    assert (route["path"], route["rows"], route["cluster"],
+            route["groups"]) == want
+    assert wkv_ops.select_path(dtype, aligned) == want[0]
+    if want[0] == "tensor_core":
+        assert route["rows"] == wkv_ops.tc_rows(S, K, chunk)
+        assert route["rows"] % wkv_ops.SUBTILE == 0
+        chunks = -(-S // route["rows"])
+        assert route["cluster"] * route["groups"] >= chunks
+
+
+def test_wkv_cpu_call_counts_no_launch_or_path():
+    before = (wkv_ops.wkv.launches, dict(wkv_ops.wkv.paths))
+    args = tolerance.wkv_inputs(1, 16, 2, 32, torch.bfloat16, "model",
+                                torch.Generator().manual_seed(0))
+    wkv_ops.wkv(*args)
+    assert (wkv_ops.wkv.launches, wkv_ops.wkv.paths) == before
+    assert set(wkv_ops.wkv.paths) == set(wkv_ops.PATHS)
 
 
 def _c_params(source: str, entry: str) -> list:
@@ -536,7 +626,8 @@ _CTYPES = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
 
 
 @pytest.mark.parametrize("ops,source", [(mm_ops, "spm_matmul.cu"),
-                                        (fa_ops, "flash_attention.cu")])
+                                        (fa_ops, "flash_attention.cu"),
+                                        (wkv_ops, "wkv6.cu")])
 def test_wrapper_argtypes_match_the_c_entries(ops, source):
     """Each path's ctypes signature has the C entry's parameters, in
     order: a wrong count or width would pass garbage to the card."""
