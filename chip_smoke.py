@@ -36,13 +36,19 @@ Phases, one result line each; any failure exits non-zero:
             PyTorch library call's where one computes the same function
             (a yardstick the port never calls) and the bound from the
             datasheet rates.
-4. model    reduced qwen2-0.5b and reduced rwkv6-1.6b (2 layers, fp32)
-            on the card against the same converted parameters on the
-            CPU: prefill logits within 1e-4 of the largest logit, 8
-            greedy tokens identical.
+4. model    reduced qwen2-0.5b, rwkv6-1.6b, qwen3-moe-235b-a22b and
+            llama4-maverick-400b-a17b (2 layers) and gemma3-12b (its 6
+            local and global layers, window 16 under the 64-token
+            prompt), fp32, on the card against the same converted
+            parameters on the CPU: prefill logits within 1e-4 of the
+            largest logit, 8 greedy tokens identical.  Then reduced
+            qwen3-moe-235b-a22b through ``repro_torch.launch.serve`` on
+            the card and on the CPU: the card replays its captured MoE
+            decode graph and must give the CPU's tokens.
 5. serve    the main paths: ``repro_torch.launch.serve`` at full width
-            (qwen2-0.5b, then rwkv6-1.6b; 24 layers, bf16, batch 4,
-            prompt 256, 32 new tokens).  Launch counters are zeroed just
+            and depth (qwen2-0.5b and rwkv6-1.6b: 24 layers, prompt 256;
+            gemma3-12b: 48 layers, prompt 2048, twice its local window;
+            bf16, batch 4, 32 new tokens).  Launch counters are zeroed just
             before each serve and read just after; each kernel of that
             path must have launched, one prefill must launch each kernel
             once per layer (spm_matmul once per product), and all 4x32
@@ -53,9 +59,13 @@ Phases, one result line each; any failure exits non-zero:
             products times the steps.  The wrappers' path counters,
             zeroed with the launch counters, must show every eager
             decode product but the logits on the split-K path and every
-            prefill product on the wgmma path (and, for qwen2-0.5b,
-            every flash_attention launch, for rwkv6-1.6b every wkv6
-            launch, on its tensor-core kernel).
+            prefill product on the wgmma path (and, for qwen2-0.5b and
+            gemma3-12b, every flash_attention launch, for rwkv6-1.6b
+            every wkv6 launch, on its tensor-core kernel).
+6. trace    gemma3-12b's decode step at full width and depth, captured
+            as a CUDA graph as ``serve`` captures it and replayed under
+            ``torch.profiler``: its time (CUDA events), the device's
+            busy share, and its kernels' device time by family.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -182,7 +192,9 @@ def phase_build():
 
 def matmul_cases():
     """(label, m, k, n, trans_b, dtype, out_dtype, plan, main_path);
-    the main path's shapes of qwen2-0.5b, then of rwkv6-1.6b."""
+    the main path's shapes of qwen2-0.5b, of rwkv6-1.6b and of
+    gemma3-12b (prefill M = 4 x 2048; the tied logits read the
+    262,144 x 3840 table, 2.01 GB, in place)."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
     d, ff, V, B, BP = 896, 4864, 151_936, 4, 4 * 256
@@ -204,6 +216,15 @@ def matmul_cases():
                           {}, True))
     cases.append(("rwkv logits (lm_head^T)", B, rd, rV, True, bf, f32, {},
                   True))
+    gd, gq, gkv, gff, gV, GP = 3840, 4096, 2048, 15_360, 262_144, 4 * 2048
+    for phase, m in (("decode", B), ("prefill", GP)):
+        for what, k, n in (("q proj", gd, gq), ("k/v proj", gd, gkv),
+                           ("o proj", gq, gd), ("gate/up", gd, gff),
+                           ("down", gff, gd)):
+            cases.append((f"gemma3 {phase} {what}", m, k, n, False, bf, None,
+                          {}, True))
+    cases.append(("gemma3 logits (tied embed^T)", B, gd, gV, True, bf, f32,
+                  {}, True))
     cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
     for m in (1, 2, 48, 259):
         cases.append((f"ragged M={m}", m, d, d, False, bf, None, {},
@@ -219,8 +240,18 @@ def matmul_cases():
 def flash_cases():
     """(label, B, S, H, KV, D, causal, window, dtype, main_path)."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [("serve prefill", 4, 256, 14, 2, 64, True, 0, bf, True),
+             ("gemma3 prefill, global", 4, 2048, 16, 8, 256, True, 0, bf,
+              True),
+             ("gemma3 prefill, local", 4, 2048, 16, 8, 256, True, 1024, bf,
+              True),
+             ("ragged S=100 D=256 window 24", 2, 100, 4, 2, 256, True, 24,
+              bf, False),
+             ("fp32 D=256 window 64", 1, 256, 4, 2, 256, True, 64, f32,
+              False),
+             ("unaligned bf16 D=256", 1, 128, 4, 2, 256, True, 0, bf,
+              False),
              ("windowed", 4, 256, 14, 2, 64, True, 64, bf, False),
              ("non-causal", 4, 256, 14, 2, 64, False, 0, bf, False),
              ("ragged S=100", 2, 100, 14, 2, 64, True, 0, bf, False),
@@ -374,7 +405,7 @@ def run_flash(dev, gen):
     rows = []
     for label, B, S, H, KV, D, causal, w, dt, main in flash_cases():
         # "unaligned": each head's row one element off the 16-byte grid
-        off = int(label == "unaligned bf16")
+        off = int(label.startswith("unaligned"))
         q, k, v = (torch.randn(B, S, n, D + off, generator=gen,
                                device=dev).to(dt)[..., off:]
                    for n in (H, KV, KV))
@@ -414,13 +445,8 @@ def run_flash(dev, gen):
         row["plain_ms"] = time_ms(lambda x, y, z: ops.attention_plain(
             x, y, z, causal=causal, window=w), sets)
         mask = mask_of(S, causal, w, dev)
-        # the fused causal path where no window asks for an explicit mask
-        kw = ({"is_causal": True} if causal and not w
-              else {"attn_mask": mask})
-        row["library_ms"] = time_ms(
-            lambda x, y, z: F.scaled_dot_product_attention(
-                x, y, z, enable_gqa=True, **kw),
-            [tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))])
+        row["library_ms"], row["library_backend"] = library_attention_ms(
+            q, k, v, causal, w, mask)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * D * int(mask.sum()) * B * H
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
@@ -430,9 +456,46 @@ def run_flash(dev, gen):
               f"{ratio:.3f} of allowance (scale x1.05 {fault:.1f})  max abs "
               f"{diff:.2e}  kernel {row['ms']:.4f} ms  "
               f"plain {row['plain_ms']:.4f} ms  library "
-              f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
+              f"{row['library_ms']} ms (SDPA {row['library_backend']})  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
     return rows
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def library_attention_ms(q, k, v, causal, window, mask):
+    """The yardstick: ``scaled_dot_product_attention`` on the same
+    inputs (the fused causal form where no window asks for a mask), run
+    by the first of ``SDPA_BACKENDS`` that takes the call; returns its
+    ms and that backend's name."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    args = [tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))]
+    kw = ({"is_causal": True} if causal and not window
+          else {"attn_mask": mask})
+
+    def call(x, y, z):
+        return F.scaled_dot_product_attention(x, y, z, enable_gqa=True, **kw)
+
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel(backend):
+                    call(*args[0])
+                    torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with sdpa_kernel(backend):
+                return time_ms(call, args), name.lower()
+    return None, None
 
 
 def off_grid(t):
@@ -587,6 +650,13 @@ def phase_kernels(dev):
 
 # ------------------------------------------------------------- model
 
+# the reduced models of phase 4: arch -> layers (gemma3: one unit of its
+# five local and one global layer, its window cut below the prompt)
+MODELS = {"qwen2-0.5b": 2, "rwkv6-1.6b": 2, "gemma3-12b": 6,
+          "qwen3-moe-235b-a22b": 2, "llama4-maverick-400b-a17b": 2}
+REDUCED_WINDOW = 16
+
+
 def phase_model(dev, arch):
     import dataclasses
 
@@ -595,9 +665,12 @@ def phase_model(dev, arch):
     from repro_torch.models import lm
     from repro_torch.models.spec import tree_items, tree_map
 
-    cfg = reduce_config(get_config(arch), layers=2, d_model=128,
+    cfg = reduce_config(get_config(arch), layers=MODELS[arch], d_model=128,
                         vocab=512)
     cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.attention and cfg.attention.sliding_window:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, sliding_window=REDUCED_WINDOW))
     B, P, G = 2, 64, 8
     opts = lm.RunOptions(chunk_q=32, chunk_kv=32, cache_len=P + G,
                          remat=False)
@@ -638,20 +711,55 @@ def phase_model(dev, arch):
              f"cpu {runs['cpu'][1].tolist()}")
 
 
+MOE_SERVE = ["--arch", "qwen3-moe-235b-a22b", "--dtype", "float32",
+             "--gen", "8", "--deadline-ms", "10000"]
+
+
+def phase_moe_serve():
+    """Reduced qwen3-moe-235b-a22b (2 layers of 4 experts, top 2, fp32)
+    through ``serve.main`` on the card and on the CPU: a reduced serve
+    draws its weights and prompt on the CPU, so both serve the same
+    model.  The card's decode steps replay one captured CUDA graph with
+    the MoE routing in it; the tokens must be the CPU's."""
+    from repro_torch.launch import serve
+    res = {}
+    for device in ("cuda", "cpu"):
+        res[device] = serve.main(MOE_SERVE + ["--device", device])
+    card, cpu = (np.stack(res[d]["tokens"], 1) for d in ("cuda", "cpu"))
+    replayed = res["cuda"]["replayed_launches"]["spm_matmul"]
+    print(f"phase 4 moe serve: repro_torch.launch.serve "
+          f"{' '.join(MOE_SERVE)}: card tokens {card.tolist()}, CPU "
+          f"{cpu.tolist()}; spm_matmul launched by the decode graph's "
+          f"replays {replayed}", flush=True)
+    if card.shape != cpu.shape or not np.array_equal(card, cpu):
+        fail("the reduced MoE serve's tokens differ between card and CPU")
+    if replayed != (2 * 4 + 1) * card.shape[1]:
+        fail(f"the MoE decode graph's replays launched {replayed} "
+             f"spm_matmul, expected 9 per step")
+
+
 # ------------------------------------------------------------- serve
 
-# per served arch: its vocabulary, the kernels its path must launch, the
-# wrapper launches one prefill must make (24 layers) and the spm_matmul
-# launches one decode step must make (products per layer x 24 + logits)
+# per served arch: its prompt, its vocabulary, the kernels its path must
+# launch, the wrapper launches one prefill must make (one per layer, for
+# spm_matmul one per product) and the spm_matmul launches one decode step
+# must make (products per layer x layers + logits)
 SERVES = {
-    "qwen2-0.5b": {"vocab": 151_936,
+    "qwen2-0.5b": {"prompt": 256, "vocab": 151_936,
                    "kernels": ("spm_matmul", "flash_attention"),
                    "per_prefill": {"spm_matmul": 7 * 24 + 1,
                                    "flash_attention": 24},
                    "mm_per_step": 7 * 24 + 1},
-    "rwkv6-1.6b": {"vocab": 65_536, "kernels": ("spm_matmul", "wkv6"),
+    "rwkv6-1.6b": {"prompt": 256, "vocab": 65_536,
+                   "kernels": ("spm_matmul", "wkv6"),
                    "per_prefill": {"spm_matmul": 16 * 24 + 1, "wkv6": 24},
                    "mm_per_step": 16 * 24 + 1},
+    # prompt 2048: twice the local layers' window of 1024
+    "gemma3-12b": {"prompt": 2048, "vocab": 262_144,
+                   "kernels": ("spm_matmul", "flash_attention"),
+                   "per_prefill": {"spm_matmul": 7 * 48 + 1,
+                                   "flash_attention": 48},
+                   "mm_per_step": 7 * 48 + 1},
 }
 
 
@@ -660,8 +768,8 @@ def phase_serve(arch):
 
     want = SERVES[arch]
     G = 32
-    argv = ["--arch", arch, "--full", "--batch", "4", "--prompt-len", "256",
-            "--gen", str(G), "--device", "cuda"]
+    argv = ["--arch", arch, "--full", "--batch", "4", "--prompt-len",
+            str(want["prompt"]), "--gen", str(G), "--device", "cuda"]
     print(f"phase 5 serve: repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     reset_launches()
@@ -694,6 +802,89 @@ def phase_serve(arch):
     print(f"phase 5 serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
           f"tokens in [0, {want['vocab']})", flush=True)
     return launches, dict(res, paths=paths)
+
+
+# kernel families of a decode step's trace: the first pattern a kernel's
+# name contains names its family
+TRACE_FAMILIES = (
+    ("spm_matmul", ("splitk_decode_kernel", "wgmma_gemm_kernel",
+                    "spm_matmul_kernel")),
+    ("decode attention products (cuBLAS)", ("gemm", "gemv", "cutlass",
+                                            "xmma", "nvjet")),
+    ("copies (contiguous, index_copy, cat)", ("copy", "index", "cat",
+                                              "Cat")),
+    ("softmax", ("softmax", "Softmax", "SoftMax")),
+    ("norms", ("rms", "norm", "Norm")),
+    ("elementwise and reductions", ("elementwise", "reduce", "Reduce")),
+)
+
+
+def phase_trace(dev, arch="gemma3-12b", steps=3):
+    """Where a decode step's device time goes: the full-width model's
+    decode step, captured as a CUDA graph the way ``serve`` captures it,
+    replayed ``steps`` times under ``torch.profiler``; each kernel's
+    device time summed by family (``TRACE_FAMILIES``), per step.  The
+    step's time comes from CUDA events around ``steps`` replays outside
+    the profiler; the device's busy share is the kernels' time over it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    B, P, G = 4, SERVES[arch]["prompt"], 32
+    # the serve's cache buffers (prompt + 32 new tokens), so decode
+    # attention's products have the serve's shapes
+    opts = lm.RunOptions(cache_len=P + G, remat=False, decode_scan=True,
+                         mm_tiles=(16, 64))
+    params = lm.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    logits, cache = lm.prefill(cfg, params, {"tokens": tokens}, opts)
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    step = serve.decode_stepper(cfg, params, cache, tok, P, opts)
+    step(tok, P)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        step(tok, P + 1 + i)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            step(tok, P + 1 + steps + i)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / steps)
+    families = dict.fromkeys([f for f, _ in TRACE_FAMILIES] + ["other"],
+                             0.0)
+    for name, ms in by_name.items():
+        fam = next((f for f, pats in TRACE_FAMILIES
+                    if any(p in name for p in pats)), "other")
+        families[fam] += ms
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase 6 trace: {arch} decode step (graph replay, batch {B}, "
+          f"{P}-token prompt): {step_ms:.3f} ms a step, kernels "
+          f"{busy:.3f} ms (device busy {busy / step_ms:.3f}); by family: "
+          + ", ".join(f"{f} {ms:.3f}" for f, ms in families.items()),
+          flush=True)
+    for name, ms in top:
+        print(f"    {ms:8.4f} ms  {name[:110]}")
+    if busy == 0:
+        fail("the profiler saw no kernel of the decode graph's replays")
+    return {"arch": arch, "step_ms": step_ms, "kernel_ms": busy,
+            "busy_share": busy / step_ms, "families_ms": families,
+            "top_kernels_ms": dict(top)}
 
 
 def check_serve_paths(arch, launches, paths):
@@ -744,7 +935,7 @@ def reset_launches():
 
 def kernel_summary(rows, launches, replayed):
     """One entry per kernel; times and bounds summed over its main-path
-    cases (each shape once, both served models), errors the largest of
+    cases (each shape once, every served model), errors the largest of
     those cases.  ``launches`` is the wrappers' count over the serve
     runs (summed), ``replayed_launches`` what the decode graphs'
     replays launched."""
@@ -780,9 +971,11 @@ def main():
     dev, smi = phase_device()
     build_s, registers = phase_build()
     rows = phase_kernels(dev)
-    for arch in SERVES:
+    for arch in MODELS:
         phase_model(dev, arch)
+    phase_moe_serve()
     serves = {arch: phase_serve(arch) for arch in SERVES}
+    trace = phase_trace(dev)
     launches = {k: sum(l[k] for l, _ in serves.values())
                 for k in serves["qwen2-0.5b"][0]}
     replayed = {k: sum(r["replayed_launches"][k] for _, r in serves.values())
@@ -793,7 +986,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "registers": registers, "cases": rows,
-        "kernels": kernels,
+        "kernels": kernels, "trace": trace,
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],
                          "wcet_ms": res["wcet_s"] * 1e3,

@@ -65,6 +65,15 @@ WKV_TC_PAD = 8          # its row padding, in elements
 WKV_MAX_CLUSTER = 8     # its blocks per cluster, at most
 WKV_PATHS = ("tensor_core", "fma")
 
+# csrc/flash_attention.cu's layouts (the kernels' constants; tests read
+# them back)
+FLASH_THREADS = 128     # both paths: threads of a block
+FLASH_BQ = 64           # queries of a block
+FLASH_BK = 64           # keys of a K/V tile
+FLASH_TC_PAD = 8        # tensor-core path: row padding, in elements
+FLASH_HEAD_DIMS = (32, 64, 128, 256)   # the compiled head dims
+FLASH_PATHS = ("tensor_core", "fma")
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -171,6 +180,30 @@ def wkv_smem_plan(chunk: int, K: int, chip: GPUChip = H100, *,
     return {"smem_need": need, "smem_bytes": chip.smem_bytes,
             "fits": need <= chip.smem_bytes,
             "blocks_per_sm": blocks_per_sm(need, threads, chip)}
+
+
+def flash_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
+    """Shared-memory feasibility of one ``csrc/flash_attention.cu``
+    block at head dim ``D``, and the blocks one SM holds; the wrapper
+    checks it before each launch.
+
+    ``tensor_core``: bf16 Q [FLASH_BQ, D + FLASH_TC_PAD] and two buffers
+    each of K and V [FLASH_BK, D + FLASH_TC_PAD] (``launch_tc`` in the
+    source sizes the same sum).  ``fma``: fp32 Q, K and V with rows
+    padded by one [rows, D + 1], and p [FLASH_BQ, FLASH_BK + 1]
+    (``launch_d``)."""
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
+    if path == "tensor_core":
+        need = (FLASH_BQ + 4 * FLASH_BK) * (D + FLASH_TC_PAD) * 2
+    elif path == "fma":
+        need = ((FLASH_BQ + 2 * FLASH_BK) * (D + 1)
+                + FLASH_BQ * (FLASH_BK + 1)) * 4
+    else:
+        raise ValueError(f"path {path!r} not in {FLASH_PATHS}")
+    return {"smem_need": need, "smem_bytes": chip.smem_bytes,
+            "fits": need <= chip.smem_bytes,
+            "blocks_per_sm": blocks_per_sm(need, FLASH_THREADS, chip)}
 
 
 def gpu_matmul_schedule(m: int, k: int, n: int, *, n_devices: int = 1,

@@ -17,8 +17,12 @@
 //     VMEM scratch carried (m, l, acc), becomes that loop with the
 //     statistics in registers.
 //   * Q.K^T and P.V are mma.sync m16n8k16 bf16 products with fp32
-//     accumulators.  Q's fragments are loaded once (ldmatrix); K and V
-//     tiles stay bf16 in shared memory, rows padded by 16 bytes so the
+//     accumulators.  Q's fragments are loaded once (ldmatrix) up to
+//     D = 128; at D = 256 the output accumulator alone takes 128
+//     registers a thread, so each k16 fragment of Q is reloaded from
+//     shared memory (where Q stays for the whole block) as the Q.K^T
+//     product reaches it, which keeps the kernel under the 255-register
+//     cap of 128 threads.  K and V tiles stay bf16 in shared memory, rows padded by 16 bytes so the
 //     ldmatrix reads of eight rows hit eight distinct bank groups, and
 //     the next tile is loaded by cp.async into a second buffer while the
 //     current one is multiplied.
@@ -49,7 +53,12 @@
 // What bounds it on an H100 SXM: at the serve prefill shape (B 4, S 256,
 // H 14, KV 2, D 64, causal) the causal pairs need ~0.47 GFLOP (0.48 us at
 // the bf16 tensor-core rate) and the inputs and output ~4.2 MB (1.25 us
-// at 3.35 TB/s), so bytes bound it.  Both designs read each K/V tile once
+// at 3.35 TB/s), so bytes bound it.  At gemma3-12b's (B 4, S 2048,
+// H 16, KV 8, D 256) the operations bound it: 137 GFLOP for a causal
+// layer (0.139 ms) and 103 GFLOP for a local layer of window 1024
+// (0.104 ms), against 0.060 ms for its 201 MB.  A block's 168,960 bytes
+// of shared memory (Q and two K and V buffers of 64 rows of 264) leave
+// one block of 4 warps an SM at D = 256.  Both designs read each K/V tile once
 // per 64-query tile and keep scores, p and the output accumulator out of
 // device memory.  The 224 blocks of that shape do 1 to 4 tiles each, so
 // the time is a few tile latencies, which the double buffer overlaps.
@@ -223,6 +232,9 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
     case 128:
       return launch_d<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
                               window, scale, s);
+    case 256:
+      return launch_d<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+                              window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -264,6 +276,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int DK = D / 16;   // k16 steps of Q.K^T over the head dim
   constexpr int DN = D / 8;    // n8 chunks of the output
   constexpr int NK = kBK / 8;  // n8 chunks of a score tile
+  constexpr bool kQInRegs = D <= 128;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
@@ -304,11 +317,16 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
 
-  uint32_t qa[DK][4];
+  // Q's A fragments: kept in registers for the whole key loop up to
+  // D = 128; at D = 256 they would take 64 registers beside the 128 of
+  // the output accumulator, so each k16 fragment is reloaded from Qs
+  // (resident for the whole block) as the Q.K^T product reaches it.
+  const bf16* qrow = Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qa[kQInRegs ? DK : 1][4];
+  if constexpr (kQInRegs) {
 #pragma unroll
-  for (int kc = 0; kc < DK; ++kc)
-    ldmatrix_x4(qa[kc], Qs + (warp * 16 + (lane & 15)) * LD + kc * 16 +
-                            (lane >> 4) * 8);
+    for (int kc = 0; kc < DK; ++kc) ldmatrix_x4(qa[kc], qrow + kc * 16);
+  }
 
   const int row_lo = q0 + warp * 16 + g;
   const int row_hi = row_lo + 8;
@@ -343,13 +361,20 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < DK; ++kc) {
+      uint32_t qk[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qk[e] = qa[kc][e];
+      } else {
+        ldmatrix_x4(qk, qrow + kc * 16);
+      }
 #pragma unroll
       for (int j = 0; j < NK; j += 2) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kt + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LD +
                             kc * 16 + (mi & 1) * 8);
-        mma_bf16(s[j], qa[kc], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qa[kc], kf[2], kf[3]);
+        mma_bf16(s[j], qk, kf[0], kf[1]);
+        mma_bf16(s[j + 1], qk, kf[2], kf[3]);
       }
     }
 
@@ -506,6 +531,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
       break;
     case 128:
       err = launch_tc<128>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+                           window, scale, s);
+      break;
+    case 256:
+      err = launch_tc<256>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
                            window, scale, s);
       break;
     default:

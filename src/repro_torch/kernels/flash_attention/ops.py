@@ -15,8 +15,10 @@ FMAs) for fp32, which the tensor cores cannot hold to the 1e-5 fp32
 policy, and for bf16 rows that are not 16-byte aligned.
 
 Both kernels are compiled for 64-query by 64-key tiles and head dims
-32, 64 and 128.  ``bq``/``bk`` keep the reference's plan parameters but
-accept only that compiled tile for now; tile tuning comes with the
+32, 64, 128 and 256 (gemma3); the wrapper checks each launch's shared
+memory against ``core.gpu_mapping.flash_smem_plan`` first.
+``bq``/``bk`` keep the reference's plan parameters but accept only
+that compiled tile for now; tile tuning comes with the
 port's tuning work.  q, k and v are read in place through their
 strides (the head dim must be contiguous).
 
@@ -31,14 +33,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, FLASH_PATHS,
+                                          flash_smem_plan)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-TILE = 64
-HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65_535
-PATHS = ("tensor_core", "fma")
+PATHS = FLASH_PATHS
 
 attention_plain = attention_ref
 
@@ -99,12 +101,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or v.device != q.device:
         raise ValueError("flash_attention runs on one CUDA device or the "
                          f"CPU: {q.device}, {k.device}, {v.device}")
-    for name, tile in (("bq", bq), ("bk", bk)):
-        if tile not in (None, TILE):
+    for name, tile, compiled in (("bq", bq, FLASH_BQ), ("bk", bk, FLASH_BK)):
+        if tile not in (None, compiled):
             raise ValueError(f"{name}={tile}: the kernel is compiled for "
-                             f"{TILE}-row tiles")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+                             f"{compiled}-row tiles")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim")
     if B * H > _MAX_GRID_Y or min(B, Sq, Sk) == 0:
@@ -113,6 +113,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   and all(s % 8 == 0 for s in t.stride()[:3])
                   for t in (q, k, v))
     path = select_path(q.dtype, aligned)
+    plan = flash_smem_plan(D, path)
+    if not plan["fits"]:
+        raise ValueError(f"flash_attention {path} at head dim {D} needs "
+                         f"{plan['smem_need']} bytes of shared memory, "
+                         f"over {plan['smem_bytes']}")
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))

@@ -379,6 +379,18 @@ def main() -> None:
               + ", ".join(f"{name} {check(g, want, bf)[0]:.3f} (max err / "
                           f"max |want| {check(g, want, bf)[1] / top:.2e})"
                           for name, g in got.items()))
+    # gemma3's head dim at its serve length, global and local layers
+    q = torch.randn(1, 2048, 2, 256).to(bf)
+    k = torch.randn(1, 2048, 1, 256).to(bf)
+    v = torch.randn(1, 2048, 1, 256).to(bf)
+    for window in (0, 1024):
+        want = attention_ref(q, k, v, window=window)
+        share = {name: check(flash_kernel_rounding(q, k, v, window=window,
+                                                   scale=sc), want, bf)[0]
+                 for name, sc in (("modelled kernel", None),
+                                  ("scale x1.05", 1.05 / 16))}
+        print(f"flash_attention B1 S2048 H2 KV1 D256 window {window}: "
+              + ", ".join(f"{name} {r:.3f}" for name, r in share.items()))
     for m, kk, n in ((4, 4864, 896), (4, 896, 896), (1024, 896, 896),
                      (4, 896, 4864)):
         a = torch.randn(m, kk).to(bf)

@@ -13,8 +13,9 @@ shed halves the batch.
 
 On CUDA the weight-pass products run the hand-written ``spm_matmul``
 kernel, prefill attention the hand-written ``flash_attention`` kernel
-and an RWKV model's prefill WKV the hand-written ``wkv6`` kernel.  The
-kernels are built, and one prefill and one decode step run, before the
+and an RWKV model's prefill WKV the hand-written ``wkv6`` kernel; an
+MoE layer's expert products are batched einsums, as in the reference.
+The kernels are built, and one prefill and one decode step run, before the
 timed region, so no build or first-launch cost lands in a sample (the
 counterpart of the reference's AOT compilation).  The cache (KV, or
 RWKV state) is preallocated by prefill and updated in place by every
@@ -32,6 +33,10 @@ timed on the host clock around work that ends in
       --full --batch 4 --prompt-len 256 --gen 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --full --batch 4 --prompt-len 256 --gen 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
+      --full --batch 4 --prompt-len 2048 --gen 32         # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-235b-a22b --dtype float32          # reduced MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 The reference's ``REPRO_TRACE`` spans come with the port's
@@ -214,11 +219,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       decode_scan=bool(plan["decode_scan"]),
                       mm_tiles=(int(plan["mm_bm"]), int(plan["mm_bn"])))
 
-    params = lm_mod.init_params(cfg, seed=0, device=dev)
-    gen = torch.Generator(device=dev)
+    # a reduced model draws its weights and prompt on the CPU and moves
+    # them to the device, so that the same command serves the same model
+    # and prompt on the card and on the CPU; a full-width one draws them
+    # on the device
+    init_dev = dev if args.full else torch.device("cpu")
+    params = lm_mod.init_params(cfg, seed=0, device=init_dev)
+    gen = torch.Generator(device=init_dev)
     gen.manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
-                           device=dev)
+                           device=init_dev)
+    if init_dev != dev:
+        params = tree_map(lambda t: t.to(dev), params)
+        tokens = tokens.to(dev)
     batch = {"tokens": tokens, "targets": tokens}
 
     # static-schedule WCET bound for the decode weight pass, built from

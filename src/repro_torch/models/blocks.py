@@ -7,9 +7,10 @@ are stacked along a leading "stack" axis, one entry per unit, as in the
 reference, so converted reference parameters keep their layout.
 
 The port carries the dense/vlm families (including gemma3-style
-``layer_pattern`` units of local and global layers) and the RWKV
-family.  The other families' stages raise ``NotImplementedError``
-until their slices land.
+``layer_pattern`` units of local and global layers), the MoE family
+(every layer MoE, or llama4's alternating MoE and dense layers) and
+the RWKV family.  The other families' stages raise
+``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 
@@ -63,6 +64,16 @@ def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
             return (StageDescr(cfg.num_layers // len(unit), unit),)
         unit = (LayerDescr("attn", theta=a.rope_theta),)
         return (StageDescr(cfg.num_layers, unit),)
+    if cfg.family == "moe":
+        m = cfg.moe
+        if m.moe_every == 1:
+            unit = (LayerDescr("attn", theta=a.rope_theta, use_moe=True),)
+            return (StageDescr(cfg.num_layers, unit),)
+        unit = tuple(
+            LayerDescr("attn", theta=a.rope_theta,
+                       use_moe=(i % m.moe_every == 0))
+            for i in range(m.moe_every))
+        return (StageDescr(cfg.num_layers // m.moe_every, unit),)
     if cfg.family == "rwkv":
         return (StageDescr(cfg.num_layers, (LayerDescr("rwkv"),)),)
     raise _not_ported(f"the {cfg.family!r} family")
@@ -75,14 +86,16 @@ def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
 def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
     d, dt = cfg.d_model, cfg.dtype
     if dsc.kind in ("attn", "enc_attn"):
-        if dsc.use_moe:
-            raise _not_ported("the MoE feed-forward layer")
         p = {
             "ln_attn": rmsnorm_spec(d),
             "attn": attn_mod.attn_spec(d, cfg.attention, dt),
             "ln_ffn": rmsnorm_spec(d),
-            "ffn": ffn_mod.dense_ffn_spec(d, cfg.d_ff, cfg.activation, dt),
         }
+        if dsc.use_moe:
+            p["moe"] = ffn_mod.moe_spec(d, cfg.moe, cfg.activation, dt)
+        else:
+            p["ffn"] = ffn_mod.dense_ffn_spec(d, cfg.d_ff, cfg.activation,
+                                              dt)
         if cfg.use_post_norm:
             p["ln_attn_post"] = rmsnorm_spec(d)
             p["ln_ffn_post"] = rmsnorm_spec(d)

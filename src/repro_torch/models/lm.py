@@ -1,5 +1,6 @@
-"""Language model of the port: the dense decoder and RWKV paths of
-the reference's ``models/lm.py``, in PyTorch.
+"""Language model of the port: the dense decoder (gemma3's local and
+global layers among them), MoE and RWKV paths of the reference's
+``models/lm.py``, in PyTorch.
 
 Public API (the reference's, with an explicit ``device`` and seed):
   model_spec(cfg)                        -> Par tree
@@ -19,8 +20,8 @@ attention through ``flash_attention`` and prefill WKV through
 versions for CPU tensors.
 
 Entry points default to ``device="cuda"`` and take the CPU only when
-asked.  Training (``lm_loss``/``train_loss``) and the MoE, SSM, hybrid
-and encoder-decoder families come with later slices.
+asked.  Training (``lm_loss``/``train_loss``) and the SSM, hybrid and
+encoder-decoder families come with later slices.
 """
 from __future__ import annotations
 
@@ -203,10 +204,21 @@ def _rwkv_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + cm, ({"tm": st, "cm": st2} if collect else None)
 
 
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, use_moe: bool,
+         opts: RunOptions, tile: Optional[Tuple[int, int]] = None):
+    """The layer's feed-forward part: (output, MoE aux loss or None)."""
+    if not use_moe:
+        return ffn_mod.dense_ffn(p["ffn"], h, cfg.activation, tile), None
+    return ffn_mod.moe_ffn(
+        p["moe"], h, cfg.moe, cfg.activation, opts.moe_impl,
+        opts.shardings.get("x") if opts.shardings else None, tile)
+
+
 def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                      positions: torch.Tensor, opts: RunOptions,
                      collect: bool, cache_len: int):
     cache = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     a = cfg.attention
     for i, dsc in enumerate(unit):
         p = up[f"pos{i}"]
@@ -215,7 +227,7 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             if collect:
                 cache[f"pos{i}"] = c
             continue
-        if dsc.kind not in ("attn", "enc_attn") or dsc.use_moe:
+        if dsc.kind not in ("attn", "enc_attn"):
             raise NotImplementedError(f"{dsc.kind} layers come with their "
                                       "family's slice")
         h = rmsnorm(x, p["ln_attn"])
@@ -228,7 +240,9 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             att = rmsnorm(att, p["ln_attn_post"])
         x = x + att
         h = rmsnorm(x, p["ln_ffn"])
-        f = ffn_mod.dense_ffn(p["ffn"], h, cfg.activation)
+        f, al = _ffn(cfg, p, h, dsc.use_moe, opts)
+        if al is not None:
+            aux = aux + al
         if cfg.use_post_norm:
             f = rmsnorm(f, p["ln_ffn_post"])
         x = x + f
@@ -236,28 +250,31 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             cache[f"pos{i}"] = {
                 "k": _to_cache_buf(kv[0], cache_len, opts, dsc.window),
                 "v": _to_cache_buf(kv[1], cache_len, opts, dsc.window)}
-    return x, (cache if collect else None)
+    return x, aux, (cache if collect else None)
 
 
 def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
                     x: torch.Tensor, positions: torch.Tensor,
                     opts: RunOptions, collect: bool, cache_len: int):
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(stage.n_units):
-        x, c = _apply_unit_full(cfg, blk.tree_index(sp, i), stage.unit, x,
-                                positions, opts, collect, cache_len)
+        x, d_aux, c = _apply_unit_full(cfg, blk.tree_index(sp, i),
+                                       stage.unit, x, positions, opts,
+                                       collect, cache_len)
+        aux = aux + d_aux
         caches.append(c)
     if not collect:
-        return x, None
+        return x, aux, None
     stacked = tree_map(lambda *xs: torch.stack(xs), *caches)
-    return x, stacked
+    return x, aux, stacked
 
 
 def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
                    opts: RunOptions = DEFAULT_OPTS, collect: bool = False,
                    cache_len: int = 0):
     """Run embeddings + all stages.  Returns (x, aux, caches); ``aux``
-    (the MoE balance loss of the reference) is 0 on the dense path."""
+    is the sum of the MoE layers' balance losses (0 without MoE)."""
     if cfg.family == "encdec":
         raise NotImplementedError("encoder-decoder comes with the whisper "
                                   "slice")
@@ -268,8 +285,9 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for si, st in enumerate(blk.build_stages(cfg)):
-        x, c_i = _run_stage_full(cfg, params[f"stage{si}"], st, x,
-                                 positions, opts, collect, cache_len)
+        x, a_i, c_i = _run_stage_full(cfg, params[f"stage{si}"], st, x,
+                                      positions, opts, collect, cache_len)
+        aux = aux + a_i
         caches[f"stage{si}"] = c_i
     x = rmsnorm(x, params["final_norm"])
     return x, aux, (caches if collect else None)
@@ -313,7 +331,8 @@ def _rwkv_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                        pos: Union[int, torch.Tensor], cache_unit: dict,
-                       tile: Optional[Tuple[int, int]]) -> torch.Tensor:
+                       opts: RunOptions) -> torch.Tensor:
+    tile = opts.mm_tiles
     a = cfg.attention
     for i, dsc in enumerate(unit):
         p = up[f"pos{i}"]
@@ -321,7 +340,7 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
         if dsc.kind == "rwkv":
             x = _rwkv_layer_decode(cfg, p, x, c, tile)
             continue
-        if dsc.kind not in ("attn", "enc_attn") or dsc.use_moe:
+        if dsc.kind not in ("attn", "enc_attn"):
             raise NotImplementedError(f"{dsc.kind} layers come with their "
                                       "family's slice")
         h = rmsnorm(x, p["ln_attn"])
@@ -332,7 +351,7 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             att = rmsnorm(att, p["ln_attn_post"])
         x = x + att
         h = rmsnorm(x, p["ln_ffn"])
-        f = ffn_mod.dense_ffn(p["ffn"], h, cfg.activation, tile)
+        f, _ = _ffn(cfg, p, h, dsc.use_moe, opts, tile)
         if cfg.use_post_norm:
             f = rmsnorm(f, p["ln_ffn_post"])
         x = x + f
@@ -360,14 +379,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         if scan_units:
             for i in range(st.n_units):
                 x = _apply_unit_decode(cfg, blk.tree_index(sp, i), st.unit,
-                                       x, pos, blk.tree_index(sc, i),
-                                       opts.mm_tiles)
+                                       x, pos, blk.tree_index(sc, i), opts)
         else:
             views = [(blk.tree_index(sp, i), blk.tree_index(sc, i))
                      for i in range(st.n_units)]
             for up, cu in views:
-                x = _apply_unit_decode(cfg, up, st.unit, x, pos, cu,
-                                       opts.mm_tiles)
+                x = _apply_unit_decode(cfg, up, st.unit, x, pos, cu, opts)
     x = rmsnorm(x, params["final_norm"])
     logits = compute_logits(cfg, params, x[:, 0], opts.mm_tiles)
     return logits, cache

@@ -569,6 +569,33 @@ def test_wkv_shared_memory_rule_reads_the_kernels_constants():
         wkv_smem_plan(64, 64, path="wgmma")
 
 
+def test_flash_shared_memory_rule_reads_the_kernels_constants():
+    """``flash_smem_plan`` names the sizes csrc/flash_attention.cu is
+    compiled with, and gives each path's launcher's sum: at gemma3's
+    head dim 256, 168,960 bytes on ``tensor_core`` and 214,016 on
+    ``fma``, both under the 232,448 a block may use, one block an SM."""
+    def c(name):
+        return _cu_constant(name, "flash_attention.cu")
+    assert c("kThreads") == gpu_mapping.FLASH_THREADS
+    assert c("kBQ") == gpu_mapping.FLASH_BQ
+    assert c("kBK") == gpu_mapping.FLASH_BK
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    assert f"constexpr int LD = D + {gpu_mapping.FLASH_TC_PAD};" in text
+    for d in gpu_mapping.FLASH_HEAD_DIMS:
+        assert f"launch_tc<{d}>(" in text and f"launch_d<T, {d}>(" in text
+    tc = gpu_mapping.flash_smem_plan(256, "tensor_core")
+    fma = gpu_mapping.flash_smem_plan(256, "fma")
+    assert (tc["smem_need"], fma["smem_need"]) == (168_960, 214_016)
+    assert tc["fits"] and fma["fits"]
+    assert tc["blocks_per_sm"] == fma["blocks_per_sm"] == 1
+    assert gpu_mapping.flash_smem_plan(64, "tensor_core")["smem_need"] \
+        == (64 + 4 * 64) * 72 * 2
+    with pytest.raises(ValueError, match="head dim"):
+        gpu_mapping.flash_smem_plan(96, "tensor_core")
+    with pytest.raises(ValueError, match="path"):
+        gpu_mapping.flash_smem_plan(64, "wgmma")
+
+
 @pytest.mark.parametrize("S,K,dtype,aligned,chunk,want", [
     # the serve prefill: the model's chunk of 256 becomes four 64-row
     # blocks per (b, h) in one cluster, not one block

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import assert_kernel_close, tiny_cfg
+from conftest import TINY_LAYERS, assert_kernel_close, tiny_cfg
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jattn
 from repro.models import common as jcommon
@@ -71,7 +71,10 @@ def _rand(rng, shape, dtype, scale=1.0):
 
 # ------------------------------------------------------------- configs
 
-PARAMS = {"qwen2-0.5b": 494_032_768, "rwkv6-1.6b": 1_599_719_424}
+PARAMS = {"qwen2-0.5b": 494_032_768, "rwkv6-1.6b": 1_599_719_424,
+          "gemma3-12b": 11_765_788_416,
+          "qwen3-moe-235b-a22b": 235_093_634_560,
+          "llama4-maverick-400b-a17b": 400_712_504_320}
 
 
 @pytest.mark.parametrize("arch", sorted(PARAMS))
@@ -87,7 +90,7 @@ def test_config_copy_matches_reference_field_for_field(arch):
 def test_model_and_cache_specs_match_reference(full, arch):
     ref = jax_get_config(arch)
     if not full:
-        ref = tiny_cfg(arch, num_layers=2)
+        ref = tiny_cfg(arch, num_layers=TINY_LAYERS[arch])
     cfg = port_cfg(ref)
 
     def ref_items(tree):
@@ -303,9 +306,11 @@ def slice_setup():
     return jcfg, cfg, jparams, params, tokens, jopts, opts
 
 
-@pytest.fixture(scope="module")
-def jax_run(slice_setup):
-    jcfg, _, jparams, _, tokens, jopts, _ = slice_setup
+def jax_greedy(jcfg, jparams, tokens, jopts, steps=GEN):
+    """The reference's prefill of ``tokens`` [B, S] and ``steps`` greedy
+    decode steps, jitted: (prefill logits, prefill cache, tokens
+    [B, steps], last logits), as numpy."""
+    P = tokens.shape[1]
     logits, cache = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b, jopts))(
         jparams, {"tokens": jnp.asarray(tokens)})
     step = jax.jit(lambda p, c, t, i: jlm.decode_step(jcfg, p, c, t, i,
@@ -314,17 +319,18 @@ def jax_run(slice_setup):
         jax.tree.map(np.asarray, cache)
     toks = []
     tok = jnp.argmax(logits[:, :jcfg.vocab_size], axis=-1)
-    for i in range(GEN):
-        logits, cache = step(jparams, cache, tok, S + i)
+    for i in range(steps):
+        logits, cache = step(jparams, cache, tok, P + i)
         tok = jnp.argmax(logits[:, :jcfg.vocab_size], axis=-1)
         toks.append(np.asarray(tok))
     return prefill_logits, prefill_cache, np.stack(toks, 1), \
         np.asarray(logits)
 
 
-def _port_run(slice_setup, decode_scan):
-    _, cfg, _, params, tokens, _, opts = slice_setup
-    opts = dataclasses.replace(opts, decode_scan=decode_scan)
+def port_greedy(cfg, params, tokens, opts, steps=GEN):
+    """The port's counterpart of ``jax_greedy``: ((prefill logits, the
+    prefill cache's leaves by path), tokens [B, steps], last logits)."""
+    P = tokens.shape[1]
     logits, cache = plm.prefill(cfg, params,
                                 {"tokens": torch.from_numpy(tokens).long()},
                                 opts)
@@ -332,24 +338,43 @@ def _port_run(slice_setup, decode_scan):
                               tree_items(cache)})
     toks = []
     tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
-    for i in range(GEN):
-        logits, cache = plm.decode_step(cfg, params, cache, tok, S + i,
+    for i in range(steps):
+        logits, cache = plm.decode_step(cfg, params, cache, tok, P + i,
                                         opts)
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
         toks.append(tok.numpy())
     return first, np.stack(toks, 1), logits
 
 
-def test_slice_prefill_matches_reference(slice_setup, jax_run):
-    (logits, cache), _, _ = _port_run(slice_setup, None)
-    ref_logits, ref_cache, _, _ = jax_run
-    V = slice_setup[1].vocab_size
+def assert_prefill_matches(port_first, ref_logits, ref_cache, V):
+    """Prefill logits (padding masked) and every cache leaf within the
+    fp32 tolerance of the reference's."""
+    logits, cache = port_first
     assert_kernel_close(_f32(logits)[:, :V], ref_logits[:, :V], "float32")
     assert np.all(_f32(logits)[:, V:] == -1e30)
     ref_flat = {k: v for k, v in tree_items(ref_cache)}
     assert set(ref_flat) == set(cache)
     for k, v in cache.items():
         assert_kernel_close(_f32(v), ref_flat[k], "float32")
+
+
+@pytest.fixture(scope="module")
+def jax_run(slice_setup):
+    jcfg, _, jparams, _, tokens, jopts, _ = slice_setup
+    return jax_greedy(jcfg, jparams, tokens, jopts)
+
+
+def _port_run(slice_setup, decode_scan):
+    _, cfg, _, params, tokens, _, opts = slice_setup
+    opts = dataclasses.replace(opts, decode_scan=decode_scan)
+    return port_greedy(cfg, params, tokens, opts)
+
+
+def test_slice_prefill_matches_reference(slice_setup, jax_run):
+    first, _, _ = _port_run(slice_setup, None)
+    ref_logits, ref_cache, _, _ = jax_run
+    assert_prefill_matches(first, ref_logits, ref_cache,
+                           slice_setup[1].vocab_size)
 
 
 def test_slice_greedy_tokens_identical_to_reference(slice_setup, jax_run):
