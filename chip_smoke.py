@@ -44,36 +44,55 @@ Phases, one result line each; any failure exits non-zero:
             largest logit, 8 greedy tokens identical.  Then reduced
             qwen3-moe-235b-a22b through ``repro_torch.launch.serve`` on
             the card and on the CPU: the card replays its captured MoE
-            decode graph and must give the CPU's tokens.
+            prefill and decode graphs and must give the CPU's tokens.
 5. serve    the main paths: ``repro_torch.launch.serve`` at full width
             and depth (qwen2-0.5b and rwkv6-1.6b: 24 layers, prompt 256;
             gemma3-12b: 48 layers, prompt 2048, twice its local window;
-            bf16, batch 4, 32 new tokens).  Launch counters are zeroed just
-            before each serve and read just after; each kernel of that
-            path must have launched, one prefill must launch each kernel
-            once per layer (spm_matmul once per product), and all 4x32
-            tokens must come out (a deadline shed fails) in range.  The
-            timed decode steps replay a captured CUDA graph, which
-            passes no wrapper: the launches those replays made are read
-            from ``serve.main`` and must be the step's spm_matmul
-            products times the steps.  The wrappers' path counters,
-            zeroed with the launch counters, must show every eager
-            decode product but the logits on the split-K path and every
-            prefill product on the wgmma path (and, for qwen2-0.5b and
-            gemma3-12b, every flash_attention launch, for rwkv6-1.6b
-            every wkv6 launch, on its tensor-core kernel).
-6. trace    gemma3-12b's decode step at full width and depth, captured
-            as a CUDA graph as ``serve`` captures it and replayed under
-            ``torch.profiler``: its time (CUDA events), the device's
-            busy share, and its kernels' device time by family.
+            bf16, batch 4, 32 new tokens), qwen2-0.5b's with
+            ``REPRO_TRACE`` set.  Launch counters are zeroed just before
+            each serve and read just after; each kernel of that path
+            must have launched, and all 4x32 tokens must come out (a
+            deadline shed fails) in range.  The timed prefill and decode
+            steps replay CUDA graphs captured before the timing, which
+            pass no wrapper: the launches those replays made are read
+            from ``serve.main``, and one prefill replay must launch each
+            kernel once per layer (spm_matmul once per product), one
+            decode replay the step's spm_matmul products.  The wrappers
+            themselves must have launched for exactly two prefills and
+            two decode steps (each graph's eager warm-up and its
+            capture), so nothing timed ran eagerly; their path counters
+            must show every decode product but the logits on the
+            split-K path and every prefill product but the logits on the
+            wgmma path (and, for qwen2-0.5b and gemma3-12b, every
+            flash_attention launch, for rwkv6-1.6b every wkv6 launch, on
+            its tensor-core kernel).  Then the same model, weights and
+            prompt again through ``serve.compile_step_fns``: the prefill
+            graph's logits must be bit-identical to an eager
+            ``lm.prefill``'s, and 8 greedy tokens through the graphs
+            identical to 8 through eager calls.
+6. trace    each served model's decode graph, and gemma3-12b's prefill
+            graph, replayed under ``torch.profiler``: the replay's time
+            (CUDA events), the device's busy share, and its kernels'
+            device time by family.
+7. predictability  the jitter statistics (median, p99, spread, CoV,
+            WCET margin) of each serve's 32 decode steps and of its
+            prefill graph's replays timed by CUDA events (10 for qwen2
+            and rwkv6, 3 for gemma3), as a schema-v1 report
+            (``repro_torch.obs.make_report``) that
+            ``repro_torch.obs.validate_report`` must accept, written to
+            ``chiprun_out/chip_smoke_report.json``; and qwen2's
+            ``REPRO_TRACE`` file must hold 1 ``prefill`` span, 32
+            ``decode*`` spans and 32 ``step_ms`` counters.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
 any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 """
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -736,6 +755,12 @@ def phase_moe_serve():
     if replayed != (2 * 4 + 1) * card.shape[1]:
         fail(f"the MoE decode graph's replays launched {replayed} "
              f"spm_matmul, expected 9 per step")
+    prefill = res["cuda"]["prefill_launches"]["spm_matmul"]
+    print(f"phase 4 moe serve: spm_matmul launched by the prefill graph's "
+          f"replay {prefill}", flush=True)
+    if prefill != 2 * 4 + 1:
+        fail(f"the MoE prefill graph's replay launched {prefill} "
+             f"spm_matmul, expected 9")
 
 
 # ------------------------------------------------------------- serve
@@ -763,30 +788,57 @@ SERVES = {
 }
 
 
+OUT_DIR = ROOT / "chiprun_out"
+# qwen2-0.5b's serve writes its REPRO_TRACE here
+SERVE_TRACE = OUT_DIR / "serve_trace_qwen2-0.5b.json"
+G = 32
+# prefill graph replays timed per served arch, greedy tokens compared
+# between the graphs and eager calls
+PREFILL_REPLAYS = {"qwen2-0.5b": 10, "rwkv6-1.6b": 10, "gemma3-12b": 3}
+PARITY_TOKENS = 8
+
+
+def serve_argv(arch):
+    return ["--arch", arch, "--full", "--batch", "4", "--prompt-len",
+            str(SERVES[arch]["prompt"]), "--gen", str(G), "--device",
+            "cuda"]
+
+
+def release():
+    """Hand the last phase's device memory back before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve(arch):
     from repro_torch.launch import serve
 
     want = SERVES[arch]
-    G = 32
-    argv = ["--arch", arch, "--full", "--batch", "4", "--prompt-len",
-            str(want["prompt"]), "--gen", str(G), "--device", "cuda"]
-    print(f"phase 5 serve: repro_torch.launch.serve {' '.join(argv)}",
-          flush=True)
+    argv = serve_argv(arch)
+    env = f"REPRO_TRACE={SERVE_TRACE} " if arch == "qwen2-0.5b" else ""
+    print(f"phase 5 serve: {env}repro_torch.launch.serve "
+          f"{' '.join(argv)}", flush=True)
+    if env:
+        SERVE_TRACE.unlink(missing_ok=True)
+        os.environ["REPRO_TRACE"] = str(SERVE_TRACE)
     reset_launches()
-    res = serve.main(argv)
+    try:
+        res = serve.main(argv)
+    finally:
+        os.environ.pop("REPRO_TRACE", None)
     launches = serve.launch_counts()
     paths = path_counts()
     replayed = res["replayed_launches"]
-    print(f"phase 5 serve {arch}: wrapper launches {launches}; in the "
-          f"timed prefill {res['prefill_launches']}; launched by the timed "
-          f"decode graph's replays {replayed}", flush=True)
+    print(f"phase 5 serve {arch}: wrapper launches {launches}; launched "
+          f"by the timed prefill graph's replay {res['prefill_launches']}; "
+          f"by the timed decode graph's replays {replayed}", flush=True)
     for name in want["kernels"]:
         if launches[name] == 0:
             fail(f"{name} never launched on the {arch} path")
     for name, n in want["per_prefill"].items():
         if res["prefill_launches"][name] != n:
-            fail(f"{arch}: {res['prefill_launches'][name]} {name} launches "
-                 f"in one prefill, expected {n}")
+            fail(f"{arch}: the timed prefill's replay launched "
+                 f"{res['prefill_launches'][name]} {name}, expected {n}")
     if replayed["spm_matmul"] != want["mm_per_step"] * G:
         fail(f"{arch}: the timed decode steps' replays launched "
              f"{replayed['spm_matmul']} spm_matmul, expected "
@@ -800,15 +852,83 @@ def phase_serve(arch):
     if not ((toks >= 0) & (toks < want["vocab"])).all():
         fail(f"a generated token is outside [0, {want['vocab']})")
     print(f"phase 5 serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
-          f"tokens in [0, {want['vocab']})", flush=True)
+          f"tokens in [0, {want['vocab']}), prefill "
+          f"{res['prefill_s'] * 1e3:.3f} ms (one graph replay)", flush=True)
     return launches, dict(res, paths=paths)
 
 
-# kernel families of a decode step's trace: the first pattern a kernel's
-# name contains names its family
+def phase_capture(dev, arch):
+    """The serve's model, weights and prompt again (``serve.setup``,
+    seed 0) through ``serve.compile_step_fns``: the prefill graph's
+    logits against an eager ``lm.prefill``'s (bit for bit), greedy
+    tokens through the two graphs against eager calls, the prefill
+    graph's replays timed by CUDA events, and the traces of phase 6."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = serve.build_parser().parse_args(serve_argv(arch))
+    cfg, _, _, opts, params, batch = serve.setup(args, dev)
+    P, V = args.prompt_len, cfg.vocab_size
+
+    def greedy(logits, stepper):
+        toks = [torch.argmax(logits[:, :V], dim=-1)]
+        for i in range(PARITY_TOKENS - 1):
+            toks.append(torch.argmax(stepper(toks[-1], P + i)[:, :V],
+                                     dim=-1))
+        return torch.stack(toks, 1).cpu()
+
+    prefill_fn, step = serve.compile_step_fns(cfg, params, batch, opts, P)
+    logits, _ = prefill_fn(batch)
+    captured = logits.clone()
+    graph_toks = greedy(captured, step)
+    eager, cache = lm.prefill(cfg, params, batch, opts)
+    eager_toks = greedy(eager, lambda t, p: lm.decode_step(
+        cfg, params, cache, t, p, opts)[0])
+    same = torch.equal(captured, eager)
+    diff = (captured - eager).abs().max().item()
+    print(f"phase 5 capture {arch}: prefill graph ({prefill_fn.captured} "
+          f"launches a replay) against eager lm.prefill: logits "
+          f"bit-identical {same} (max abs diff {diff:.3e}); "
+          f"{PARITY_TOKENS} greedy tokens through the graphs "
+          f"{graph_toks.tolist()}, eager {eager_toks.tolist()}",
+          flush=True)
+    if not same:
+        fail(f"{arch}: the captured prefill's logits differ from the "
+             f"eager prefill's")
+    if not torch.equal(graph_toks, eager_toks):
+        fail(f"{arch}: greedy tokens through the graphs differ from "
+             f"eager ones")
+    del eager, cache
+    release()
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    replay_ms = []
+    for _ in range(PREFILL_REPLAYS[arch]):
+        start.record()
+        prefill_fn(batch)
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms.append(start.elapsed_time(end))
+    tok = graph_toks[:, -1].to(dev)
+    out = {"prefill_replay_ms": replay_ms,
+           "decode_trace": trace_replays(
+               f"{arch} decode step (graph replay, batch 4, {P}-token "
+               f"prompt)", lambda i: step(tok, P + PARITY_TOKENS + i), 3)}
+    if arch == "gemma3-12b":
+        out["prefill_trace"] = trace_replays(
+            f"{arch} prefill (graph replay, 4 x {P} tokens)",
+            lambda i: prefill_fn(batch), 1)
+    return out
+
+
+# kernel families of a trace: the first pattern a kernel's name contains
+# names its family
 TRACE_FAMILIES = (
     ("spm_matmul", ("splitk_decode_kernel", "wgmma_gemm_kernel",
                     "spm_matmul_kernel")),
+    ("flash_attention", ("flash_fwd",)),
+    ("wkv6", ("wkv6",)),
     ("decode attention products (cuBLAS)", ("gemm", "gemv", "cutlass",
                                             "xmma", "nvjet")),
     ("copies (contiguous, index_copy, cat)", ("copy", "index", "cat",
@@ -819,52 +939,34 @@ TRACE_FAMILIES = (
 )
 
 
-def phase_trace(dev, arch="gemma3-12b", steps=3):
-    """Where a decode step's device time goes: the full-width model's
-    decode step, captured as a CUDA graph the way ``serve`` captures it,
-    replayed ``steps`` times under ``torch.profiler``; each kernel's
-    device time summed by family (``TRACE_FAMILIES``), per step.  The
-    step's time comes from CUDA events around ``steps`` replays outside
-    the profiler; the device's busy share is the kernels' time over it."""
+def trace_replays(what, run, n):
+    """Where a graph replay's device time goes: ``run(i)`` replays it.
+    After one warm-up call, ``n`` calls between CUDA events give the
+    replay's time; ``n`` more under ``torch.profiler`` give each
+    kernel's device time, summed by family (``TRACE_FAMILIES``), per
+    replay.  The device's busy share is the kernels' time over the
+    replay's."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve
-    from repro_torch.models import lm
-
-    cfg = get_config(arch)
-    B, P, G = 4, SERVES[arch]["prompt"], 32
-    # the serve's cache buffers (prompt + 32 new tokens), so decode
-    # attention's products have the serve's shapes
-    opts = lm.RunOptions(cache_len=P + G, remat=False, decode_scan=True,
-                         mm_tiles=(16, 64))
-    params = lm.init_params(cfg, seed=0, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
-                           device=dev)
-    logits, cache = lm.prefill(cfg, params, {"tokens": tokens}, opts)
-    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
-    step = serve.decode_stepper(cfg, params, cache, tok, P, opts)
-    step(tok, P)
+    run(0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(steps):
-        step(tok, P + 1 + i)
+    for i in range(n):
+        run(1 + i)
     end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / steps
+    replay_ms = start.elapsed_time(end) / n
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            step(tok, P + 1 + steps + i)
+        for i in range(n):
+            run(1 + n + i)
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / steps)
+                               + e.time_range.elapsed_us() / 1e3 / n)
     families = dict.fromkeys([f for f, _ in TRACE_FAMILIES] + ["other"],
                              0.0)
     for name, ms in by_name.items():
@@ -873,37 +975,98 @@ def phase_trace(dev, arch="gemma3-12b", steps=3):
         families[fam] += ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(f"phase 6 trace: {arch} decode step (graph replay, batch {B}, "
-          f"{P}-token prompt): {step_ms:.3f} ms a step, kernels "
-          f"{busy:.3f} ms (device busy {busy / step_ms:.3f}); by family: "
-          + ", ".join(f"{f} {ms:.3f}" for f, ms in families.items()),
-          flush=True)
+    print(f"phase 6 trace: {what}: {replay_ms:.3f} ms a replay, kernels "
+          f"{busy:.3f} ms (device busy {busy / replay_ms:.3f}); by family: "
+          + ", ".join(f"{f} {ms:.3f}" for f, ms in families.items()
+                      if ms), flush=True)
     for name, ms in top:
         print(f"    {ms:8.4f} ms  {name[:110]}")
     if busy == 0:
-        fail("the profiler saw no kernel of the decode graph's replays")
-    return {"arch": arch, "step_ms": step_ms, "kernel_ms": busy,
-            "busy_share": busy / step_ms, "families_ms": families,
+        fail(f"the profiler saw no kernel of the {what}")
+    return {"replay_ms": replay_ms, "kernel_ms": busy,
+            "busy_share": busy / replay_ms, "families_ms": families,
             "top_kernels_ms": dict(top)}
 
 
+def phase_predictability(serves, captures):
+    """The jitter statistics of every serve's decode steps (host clock,
+    with the WCET margin) and prefill graph replays (CUDA events), as a
+    schema-v1 report the port's validator must accept; then the qwen2
+    serve's REPRO_TRACE file."""
+    from repro_torch.obs import jitter_stats, make_report, validate_report
+
+    rows = []
+    for arch, (_, res) in serves.items():
+        P = SERVES[arch]["prompt"]
+        decode = jitter_stats([t * 1e6 for t in res["decode_s"]],
+                              wcet_bound=res["wcet_s"] * 1e6)
+        prefill = jitter_stats([ms * 1e3 for ms in
+                                captures[arch]["prefill_replay_ms"]])
+        for what, st, src in (("decode", decode,
+                               f"{G} steps, host clock"),
+                              ("prefill", prefill,
+                               f"{prefill.n} graph replays, CUDA events")):
+            margin = ("" if st.wcet_margin is None
+                      else f" wcet_margin {st.wcet_margin:.4f} (bound "
+                           f"{res['wcet_s'] * 1e3:.4f} ms)")
+            print(f"phase 7 predictability {arch} {what} ({src}): median "
+                  f"{st.median / 1e3:.4f} ms p99 {st.p99 / 1e3:.4f} ms "
+                  f"spread {st.spread / 1e3:.4f} ms cov {st.cov:.4f}"
+                  + margin, flush=True)
+            rows.append({"name": f"serve/{arch}/{what}",
+                         "us_per_call": st.median,
+                         "derived": f"batch=4 prompt={P} gen={G} bf16 "
+                                    f"{src}",
+                         "jitter": st.as_dict()})
+    report = make_report(rows)
+    errs = validate_report(report)
+    path = OUT_DIR / "chip_smoke_report.json"
+    path.write_text(json.dumps(report, indent=1))
+    print(f"phase 7 predictability: schema-v{report['schema_version']} "
+          f"report of {len(rows)} rows -> {path.relative_to(ROOT)} "
+          f"(fingerprint gpu {report['hw_fingerprint']['gpu']!r}, power "
+          f"limit {report['hw_fingerprint']['power_limit_w']} W); "
+          f"validate_report: {errs}", flush=True)
+    if errs:
+        fail(f"the report does not validate: {errs}")
+    doc = json.loads(SERVE_TRACE.read_text())
+    names = [(e["ph"], e["name"]) for e in doc["traceEvents"]]
+    counts = {"prefill spans": names.count(("X", "prefill")),
+              "decode spans": sum(ph == "X" and n.startswith("decode")
+                                  for ph, n in names),
+              "step_ms counters": names.count(("C", "step_ms"))}
+    print(f"phase 7 predictability: {SERVE_TRACE.relative_to(ROOT)} holds "
+          f"{counts}", flush=True)
+    if counts != {"prefill spans": 1, "decode spans": G,
+                  "step_ms counters": G}:
+        fail(f"qwen2's REPRO_TRACE file holds {counts}, expected 1 "
+             f"prefill span, {G} decode spans and {G} step_ms counters")
+    return report
+
+
 def check_serve_paths(arch, launches, paths):
-    """Every eager decode product but the logits took the split-K path,
+    """A serve's wrappers launch for exactly two prefills and two decode
+    steps: the eager warm-up before each graph's capture and the
+    capture; the timed prefill and steps are replays and pass no
+    wrapper.  Every decode product but the logits took the split-K path,
     every prefill product but the logits (taken at the last position,
     M = batch) the wgmma path, and flash_attention and wkv6 their
-    tensor-core kernels.  A serve makes two prefills (untimed, timed) and its eager
-    decode steps (untimed, the capture's warm-up, the capture)."""
+    tensor-core kernels."""
     want = SERVES[arch]
     per_prefill = want["per_prefill"]["spm_matmul"]
-    decodes, rest = divmod(launches["spm_matmul"] - 2 * per_prefill,
-                           want["mm_per_step"])
-    expect = {"splitk": decodes * (want["mm_per_step"] - 1),
-              "wgmma": 2 * (per_prefill - 1), "tiled": decodes + 2}
-    print(f"phase 5 serve {arch}: kernel paths {paths} ({decodes} eager "
-          f"decode steps, 2 prefills)", flush=True)
-    if rest or decodes < 1 or paths["spm_matmul"] != expect:
+    expect = {"flash_attention": 0, "wkv6": 0}
+    expect.update({k: 2 * n for k, n in want["per_prefill"].items()})
+    expect["spm_matmul"] += 2 * want["mm_per_step"]
+    expect_paths = {"splitk": 2 * (want["mm_per_step"] - 1),
+                    "wgmma": 2 * (per_prefill - 1), "tiled": 2 + 2}
+    print(f"phase 5 serve {arch}: kernel paths {paths} (2 prefills and 2 "
+          f"decode steps through the wrappers)", flush=True)
+    if launches != expect:
+        fail(f"{arch}: wrapper launches {launches}, expected {expect}: "
+             f"something timed ran eagerly")
+    if paths["spm_matmul"] != expect_paths:
         fail(f"{arch}: spm_matmul paths {paths['spm_matmul']}, expected "
-             f"{expect}")
+             f"{expect_paths}")
     for name in ("flash_attention", "wkv6"):
         got = paths[name]
         if name in want["kernels"] and (
@@ -937,8 +1100,8 @@ def kernel_summary(rows, launches, replayed):
     """One entry per kernel; times and bounds summed over its main-path
     cases (each shape once, every served model), errors the largest of
     those cases.  ``launches`` is the wrappers' count over the serve
-    runs (summed), ``replayed_launches`` what the decode graphs'
-    replays launched."""
+    runs (summed), ``replayed_launches`` what the timed prefill and
+    decode graphs' replays launched."""
     from repro_torch.kernels import _build
     replaced = {
         "spm_matmul": "src/repro/kernels/spm_matmul/spm_matmul.py:50",
@@ -974,26 +1137,33 @@ def main():
     for arch in MODELS:
         phase_model(dev, arch)
     phase_moe_serve()
-    serves = {arch: phase_serve(arch) for arch in SERVES}
-    trace = phase_trace(dev)
+    OUT_DIR.mkdir(exist_ok=True)
+    serves, captures = {}, {}
+    for arch in SERVES:
+        serves[arch] = phase_serve(arch)
+        release()
+        captures[arch] = phase_capture(dev, arch)
+        release()
+    report = phase_predictability(serves, captures)
     launches = {k: sum(l[k] for l, _ in serves.values())
                 for k in serves["qwen2-0.5b"][0]}
-    replayed = {k: sum(r["replayed_launches"][k] for _, r in serves.values())
+    replayed = {k: sum(r["replayed_launches"][k] + r["prefill_launches"][k]
+                       for _, r in serves.values())
                 for k in launches}
     kernels = kernel_summary(rows, launches, replayed)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps({
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "registers": registers, "cases": rows,
-        "kernels": kernels, "trace": trace,
+        "kernels": kernels, "report": report,
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],
+                         "jitter": res["jitter"],
                          "wcet_ms": res["wcet_s"] * 1e3,
                          "deadline": res["deadline"], "plan": res["plan"],
                          "launches": l, "paths": res["paths"],
                          "prefill_launches": res["prefill_launches"],
-                         "replayed_launches": res["replayed_launches"]}
+                         "replayed_launches": res["replayed_launches"],
+                         **captures[arch]}
                   for arch, (l, res) in serves.items()}},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -16,12 +16,13 @@ hardware itself.  The rules it enforces:
 """
 from __future__ import annotations
 
-from typing import Union
+import subprocess
+from typing import Optional, Union
 
 import torch
 
 __all__ = ["HOPPER_CAPABILITY", "DTYPES", "resolve_device", "torch_dtype",
-           "require_hopper"]
+           "require_hopper", "device_identity"]
 
 HOPPER_CAPABILITY = (9, 0)
 
@@ -73,3 +74,30 @@ def resolve_device(device: Union[str, torch.device] = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def _power_limit_w() -> Optional[float]:
+    """Card 0's power limit in watts, as ``nvidia-smi`` reads it."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout
+        return float(out.splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def device_identity() -> dict:
+    """What a report's fingerprint records of the card: the CUDA
+    version, card 0's name, capability and power limit.  All ``None``
+    without a card (a limit ``nvidia-smi`` cannot read is ``None``
+    too)."""
+    if not torch.cuda.is_available():
+        return dict.fromkeys(("cuda", "gpu", "capability",
+                              "power_limit_w"))
+    major, minor = torch.cuda.get_device_capability(0)
+    return {"cuda": torch.version.cuda,
+            "gpu": torch.cuda.get_device_name(0),
+            "capability": f"{major}.{minor}",
+            "power_limit_w": _power_limit_w()}

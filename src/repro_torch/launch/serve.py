@@ -15,19 +15,22 @@ On CUDA the weight-pass products run the hand-written ``spm_matmul``
 kernel, prefill attention the hand-written ``flash_attention`` kernel
 and an RWKV model's prefill WKV the hand-written ``wkv6`` kernel; an
 MoE layer's expert products are batched einsums, as in the reference.
-The kernels are built, and one prefill and one decode step run, before the
-timed region, so no build or first-launch cost lands in a sample (the
-counterpart of the reference's AOT compilation).  The cache (KV, or
-RWKV state) is preallocated by prefill and updated in place by every
-decode step.  On CUDA the decode step is captured once as a CUDA graph
-on that cache (outside the timed region, and again after a shed) and
-replayed each step: eager, the host's ~70 launches per layer, not the
-card, set the step time.  A replay relaunches the captured kernels
-without passing through their wrappers, so the wrappers' launch counters
-count each captured launch once; ``main`` reports the launches its
-replays made (captured per replay x replays) beside them.  Steps are
-timed on the host clock around work that ends in
-``torch.cuda.synchronize()``.
+Before anything is timed, the kernels are built and
+``compile_step_fns`` (the counterpart of the reference's AOT
+compilation) captures one prefill and one decode step as CUDA graphs:
+the prefill on a static token buffer of the served (batch, prompt
+length), whose outputs (the fp32 last-token logits and the whole
+cache, KV or RWKV state) are the graph's static buffers, and the decode
+step over that same cache, which it updates in place.  The timed
+prefill is one replay, and each decode step one replay (the decode
+graph is captured again after a shed; prefill is not re-run).  Eager,
+the host's launches, not the card, would set both times.  If capture
+fails, serve raises: nothing timed runs eagerly on the card.  A replay
+relaunches the captured kernels without passing through their
+wrappers, so the wrappers' launch counters count each captured launch
+once; ``main`` reports the launches its replays made (captured per
+replay x replays) beside them.  Prefill and steps are timed on the
+host clock around work that ends in ``torch.cuda.synchronize()``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --full --batch 4 --prompt-len 256 --gen 32          # on the card
@@ -39,13 +42,16 @@ timed on the host clock around work that ends in
       --arch qwen3-moe-235b-a22b --dtype float32          # reduced MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-The reference's ``REPRO_TRACE`` spans come with the port's
-observability slice.
+Set ``REPRO_TRACE=/path/serve.json`` to record the prefill and every
+decode step as spans on the ``serve`` track (plus a per-step latency
+counter and the ``deadline_*`` instants) and dump a Chrome trace at
+exit, as the reference's serve does.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence
 
@@ -62,6 +68,7 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.lm import RunOptions
 from repro_torch.models.spec import tree_map
+from repro_torch.obs import TraceRecorder, jitter_stats, write_chrome_trace
 from repro_torch.resilience.deadline import DeadlineMonitor
 from repro_torch.tuning.model import (ModelProblem, default_model_plan,
                                       plan_sig)
@@ -166,6 +173,71 @@ def decode_stepper(cfg, params, cache, tok, pos: int, opts: RunOptions):
     return step
 
 
+def compile_step_fns(cfg, params, batch: dict, opts: RunOptions,
+                     prompt_len: int):
+    """``(prefill_fn, step_fn)`` for the shapes of ``batch`` (the
+    counterpart of the reference's ``compile_step_fns``).
+
+    ``prefill_fn(batch) -> (logits, cache)`` runs the prompt;
+    ``step_fn(tok, pos) -> logits`` runs one decode step over the cache
+    the last ``prefill_fn`` call wrote.  On the CPU they are the plain
+    ``lm.prefill`` and ``lm.decode_step`` calls.  On CUDA the prefill is
+    captured as a CUDA graph on a static copy of ``batch``: its fp32
+    logits and cache are the graph's static outputs (they live in its
+    memory pool, which ``prefill_fn`` keeps alive), every call copies
+    the batch in and replays it, and ``step_fn`` is ``decode_stepper``'s
+    graph over that same cache.  As ``decode_stepper`` does, the
+    prefill runs once eagerly on a side stream before the capture, so
+    each kernel's first launch (function attributes, tensor maps) lands
+    outside it.  A failed capture raises.  One untimed prefill and
+    decode step run here on both devices, so no first-call cost lands
+    in the caller's samples.  ``prefill_fn.captured`` holds the kernel
+    launches one replay makes, ``prefill_fn.replays`` the caller's replays
+    so far, as ``step_fn``'s do (zeros on the CPU)."""
+    dev = batch["tokens"].device
+    if dev.type != "cuda":
+        held = {}
+
+        def prefill_fn(b):
+            logits, held["cache"] = lm_mod.prefill(cfg, params, b, opts)
+            return logits, held["cache"]
+
+        def step(t, p):
+            return lm_mod.decode_step(cfg, params, held["cache"], t, p,
+                                      opts)[0]
+        prefill_fn.captured = dict.fromkeys(launch_counts(), 0)
+        step.captured = dict.fromkeys(launch_counts(), 0)
+        step.replays = prefill_fn.replays = 0
+        logits, _ = prefill_fn(batch)
+        step(torch.argmax(logits[:, :cfg.vocab_size], dim=-1), prompt_len)
+        return prefill_fn, step
+    static = {k: v.clone() for k, v in batch.items()}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        lm_mod.prefill(cfg, params, static, opts)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        logits, cache = lm_mod.prefill(cfg, params, static, opts)
+    captured = {k: n - before[k] for k, n in launch_counts().items()}
+    graph.replay()
+    step = decode_stepper(cfg, params, cache,
+                          torch.argmax(logits[:, :cfg.vocab_size], dim=-1),
+                          prompt_len, opts)
+
+    def prefill_fn(b):
+        for k, v in static.items():
+            v.copy_(b[k])
+        graph.replay()
+        prefill_fn.replays += 1
+        return logits, cache
+    prefill_fn.captured = captured
+    prefill_fn.replays = 0
+    return prefill_fn, step
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -195,10 +267,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    args = build_parser().parse_args(argv)
-    dev = compat.resolve_device(args.device)
-
+def setup(args: argparse.Namespace, dev: torch.device):
+    """The model, plan and prompt ``args`` serve on ``dev``: ``(cfg,
+    plan, plan_source, opts, params, batch)``.  Weights and prompt are
+    drawn from seed 0."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced_config(cfg, args)
@@ -206,7 +278,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         compat.torch_dtype(args.dtype)
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     B, P, G = args.batch, args.prompt_len, args.gen
-    total = P + G
 
     problem = ModelProblem(
         args.arch, B, P, G, layers=0 if args.full else args.layers,
@@ -215,7 +286,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                      args.chunk_kv)
     opts = RunOptions(chunk_q=int(plan["chunk_q"]),
                       chunk_kv=int(plan["chunk_kv"]),
-                      cache_len=total, remat=False,
+                      cache_len=P + G, remat=False,
                       decode_scan=bool(plan["decode_scan"]),
                       mm_tiles=(int(plan["mm_bm"]), int(plan["mm_bn"])))
 
@@ -232,7 +303,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if init_dev != dev:
         params = tree_map(lambda t: t.to(dev), params)
         tokens = tokens.to(dev)
-    batch = {"tokens": tokens, "targets": tokens}
+    return cfg, plan, plan_source, opts, params, {"tokens": tokens,
+                                                  "targets": tokens}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = build_parser().parse_args(argv)
+    dev = compat.resolve_device(args.device)
+    cfg, plan, plan_source, opts, params, batch = setup(args, dev)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    total = P + G
 
     # static-schedule WCET bound for the decode weight pass, built from
     # the SAME plan the steps execute; it sets the step deadline
@@ -240,27 +320,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     wcet_s = plan_wcet_s(cfg, plan, B, n_p)
     deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms > 0
                   else wcet_s * args.deadline_slack)
-    dmon = DeadlineMonitor(deadline_s=deadline_s)
+    trace_path = os.environ.get("REPRO_TRACE")
+    rec = TraceRecorder(time_unit="us") if trace_path else None
+    dmon = DeadlineMonitor(deadline_s=deadline_s, trace=rec)
 
-    # untimed: kernel builds, first launches, one prefill + one step
+    # untimed: kernel builds, then the prefill and decode graphs
     if dev.type == "cuda":
         _build.build()
-    logits, cache = lm_mod.prefill(cfg, params, batch, opts)
-    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
-    lm_mod.decode_step(cfg, params, cache, tok, P, opts)
-    _sync(dev)
+    prefill_fn, step = compile_step_fns(cfg, params, batch, opts, P)
 
-    before = launch_counts()
     t0 = time.monotonic()
-    logits, cache = lm_mod.prefill(cfg, params, batch, opts)
+    logits, cache = prefill_fn(batch)
     _sync(dev)
     t_prefill = time.monotonic() - t0
-    prefill_launches = {k: n - before[k] for k, n in launch_counts().items()}
+    prefill_launches = {k: n * prefill_fn.replays
+                        for k, n in prefill_fn.captured.items()}
+    if rec is not None:
+        rec.add_span("prefill", "serve", t0 * 1e6,
+                     (t0 + t_prefill) * 1e6, cat="serve",
+                     batch=B, prompt_len=P)
 
     out = []
     times = []
     tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
-    step = decode_stepper(cfg, params, cache, tok, P, opts)
     steppers = [step]
     for i in range(G):
         t1 = time.monotonic()
@@ -268,6 +350,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         _sync(dev)
         t2 = time.monotonic()
         times.append(t2 - t1)
+        if rec is not None:
+            rec.add_span(f"decode{i}", "serve", t1 * 1e6, t2 * 1e6,
+                         cat="serve", pos=P + i)
+            rec.counter("step_ms", (t2 - t1) * 1e3, track="serve")
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
         out.append(tok.cpu().numpy())
         action = dmon.observe(i, t2 - t1)
@@ -305,6 +391,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"generated: {len(out)} steps, batch shed to "
               f"{out[-1].shape[0]} (started at {B})")
     if dev.type == "cuda":
+        print(f"prefill graph: kernel launches per replay "
+              f"{prefill_fn.captured}")
         print(f"decode graph: {sum(s.replays for s in steppers)} replays, "
               f"kernel launches per replay {steppers[-1].captured}, "
               f"replayed in all {replayed}")
@@ -317,7 +405,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"ladder record/warn/shed "
           f"{s['n_record']}/{s['n_warn']}/{s['n_shed']}  "
           f"worst overrun {s['worst_overrun_s']*1e3:.3f} ms")
+    if rec is not None and rec.spans:
+        write_chrome_trace(rec, trace_path)
+        print(f"trace: {len(rec.spans)} spans -> {trace_path}")
     return {"tokens": out, "prefill_s": t_prefill, "decode_s": times,
+            "jitter": jitter_stats(times, wcet_bound=wcet_s).as_dict(),
             "wcet_s": wcet_s, "deadline": s, "plan": plan,
             "replayed_launches": replayed,
             "prefill_launches": prefill_launches,

@@ -33,8 +33,7 @@ class DeadlineMonitor:
     deadline_s: float
     warn_after: int = 2         # consecutive overruns before "warn"
     shed_after: int = 4         # consecutive overruns before "shed"
-    trace: Optional[Any] = None  # a recorder with .instant(); unused until
-    #                             the port's observability slice
+    trace: Optional[Any] = None  # a recorder with .instant()
     overruns: int = 0
     consecutive: int = 0
     worst_overrun_s: float = 0.0
