@@ -84,6 +84,32 @@ Phases, one result line each; any failure exits non-zero:
             ``REPRO_TRACE`` file must hold 1 ``prefill`` span, 32
             ``decode*`` spans and 32 ``step_ms`` counters.
 
+8. tune    the jitter-aware autotuner (``repro_torch.tuning``) on the
+            card, with a fresh plan cache at
+            ``chiprun_out/tuning_plans.json`` (phases 1-7 run with
+            ``REPRO_AUTOTUNE=0``, so they read no cache and launch what
+            they launched before tuning existed).  Cold: each of
+            ``tune_cases()`` (main-path shapes, bf16) enumerated, pruned and
+            measured; every measured candidate is first held to its plain
+            version by phase 3's element-wise rule (a candidate over its
+            allowance fails the run); per shape the candidates, how many
+            are feasible and measured, the winner with the path and split
+            it launches, and the winner's and the default's p99 and CoV
+            in us (CUDA events over graph replays of launches cycling
+            through input copies that exceed L2).  Warm: the same again
+            must make 0 measurement spans and return the same plans.
+            An unpinned call must follow a tiled plan put in a cache
+            for it, and launch split-K again with ``REPRO_AUTOTUNE=0``.
+            Then ``python -m repro_torch.launch.tune --model qwen2-0.5b
+            --layers 0 --shape 4x256x32 --dtype bfloat16``: its two
+            decode programs measured as full captured serve passes, tuned
+            and default us/token, p99 and CoV.  Last, phase 5's qwen2
+            serve on the tuned cache: its plan source must say ``cache``,
+            its wrappers' path counters must be those the cached plans
+            give each product (``ops.launch_plan``), its wrappers must
+            have launched for two prefills and two decode steps, and its
+            captured prefill's logits must equal an eager prefill's.
+
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
@@ -843,7 +869,7 @@ def phase_serve(arch):
         fail(f"{arch}: the timed decode steps' replays launched "
              f"{replayed['spm_matmul']} spm_matmul, expected "
              f"{want['mm_per_step']} x {G}")
-    check_serve_paths(arch, launches, paths)
+    check_serve_paths(arch, launches, paths, res["plan"])
     toks = res["tokens"]
     if [t.shape for t in toks] != [(4,)] * G:
         fail(f"expected 4x{G} generated tokens, got steps of "
@@ -857,12 +883,13 @@ def phase_serve(arch):
     return launches, dict(res, paths=paths)
 
 
-def phase_capture(dev, arch):
+def phase_capture(dev, arch, timing=True, phase=5):
     """The serve's model, weights and prompt again (``serve.setup``,
-    seed 0) through ``serve.compile_step_fns``: the prefill graph's
-    logits against an eager ``lm.prefill``'s (bit for bit), greedy
-    tokens through the two graphs against eager calls, the prefill
-    graph's replays timed by CUDA events, and the traces of phase 6."""
+    seed 0, the plan the serve resolves) through
+    ``serve.compile_step_fns``: the prefill graph's logits against an
+    eager ``lm.prefill``'s (bit for bit), greedy tokens through the two
+    graphs against eager calls, then (``timing``) the prefill graph's
+    replays timed by CUDA events, and the traces of phase 6."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
@@ -886,7 +913,8 @@ def phase_capture(dev, arch):
         cfg, params, cache, t, p, opts)[0])
     same = torch.equal(captured, eager)
     diff = (captured - eager).abs().max().item()
-    print(f"phase 5 capture {arch}: prefill graph ({prefill_fn.captured} "
+    print(f"phase {phase} capture {arch}: prefill graph "
+          f"({prefill_fn.captured} "
           f"launches a replay) against eager lm.prefill: logits "
           f"bit-identical {same} (max abs diff {diff:.3e}); "
           f"{PARITY_TOKENS} greedy tokens through the graphs "
@@ -900,6 +928,8 @@ def phase_capture(dev, arch):
              f"eager ones")
     del eager, cache
     release()
+    if not timing:
+        return {}
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1044,23 +1074,235 @@ def phase_predictability(serves, captures):
     return report
 
 
-def check_serve_paths(arch, launches, paths):
+# ------------------------------------------------------------- tune
+
+TUNE_CACHE = OUT_DIR / "tuning_plans.json"
+TUNE_MODEL = ["--model", "qwen2-0.5b", "--layers", "0", "--shape",
+              "4x256x32", "--dtype", "bfloat16"]
+TUNE_REPS = 5
+# plans measured per kernel shape after the analytic pruning: every
+# decode candidate (the model cannot tell their K staging apart)
+TUNE_MAX_CANDIDATES = 6
+
+
+def tune_cases():
+    """(label, kernel, problem): main-path shapes, bf16."""
+    from repro_torch.tuning import (AttentionProblem, MatmulProblem,
+                                    WkvProblem)
+    bf = "bfloat16"
+    return (
+        ("qwen2 decode gate/up", "spm_matmul",
+         MatmulProblem(4, 896, 4864, bf)),
+        ("gemma3 decode down", "spm_matmul",
+         MatmulProblem(4, 15360, 3840, bf)),
+        ("qwen2 prefill gate/up", "spm_matmul",
+         MatmulProblem(1024, 896, 4864, bf)),
+        ("gemma3 logits", "spm_matmul",
+         MatmulProblem(4, 3840, 262_144, bf, trans_b=True)),
+        ("qwen2 flash prefill", "flash_attention",
+         AttentionProblem(4, 256, 256, 14, 2, 64, dtype=bf)),
+        ("rwkv6 wkv6 prefill", "wkv6", WkvProblem(4, 256, 32, 64, bf)),
+    )
+
+
+def launch_text(kernel, problem, plan):
+    """The path (and split, or rows per block) a plan launches."""
+    from repro_torch.tuning.candidates import matmul_launch, wkv_launch
+    if kernel == "spm_matmul":
+        launch = matmul_launch(problem, plan)
+        t = launch["tile"]
+        return (f"{launch['path']} x{launch['splits']} tile "
+                f"{t['bm']}x{t['bn']} K staged {t['bkc']}")
+    if kernel == "wkv6":
+        launch = wkv_launch(problem, plan)
+        return (f"{launch['path']}, {launch['rows']} rows a block, "
+                f"cluster {launch['cluster']} x {launch['groups']} groups")
+    return "tensor_core 64x64"
+
+
+def steer_check(dev):
+    """The wrapper on the card takes a cached plan: a cache holding a
+    tiled plan for qwen2's decode gate/up moves an unpinned call there
+    from split-K (and the result stays within its allowance); with
+    ``REPRO_AUTOTUNE=0`` the same call launches split-K again."""
+    from repro_torch import tuning
+    from repro_torch.kernels.spm_matmul import ops
+    from repro_torch.kernels.tolerance import check
+    tuned = tuning.active_cache()
+    problem = tuning.MatmulProblem(4, 896, 4864, "bfloat16")
+    steer = tuning.PlanCache(str(OUT_DIR / "steer_plans.json"))
+    steer.put(tuning.cache_key("spm_matmul", problem),
+              {"bm": 16, "bn": 64, "bk": 256})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn(4, 896, generator=gen, device=dev).bfloat16()
+    b = torch.randn(896, 4864, generator=gen, device=dev).bfloat16()
+    want = ops.matmul_plain(a, b, torch.bfloat16)
+    paths = []
+    for autotune in ("1", "0"):
+        os.environ["REPRO_AUTOTUNE"] = autotune
+        tuning.reset(steer)
+        before = dict(ops.matmul.paths)
+        got = ops.matmul(a, b)
+        torch.cuda.synchronize()
+        paths.append(launched_path(ops.matmul.paths, before))
+        ratio, _ = check(got, want, torch.bfloat16)
+        if not ratio < 1:
+            fail(f"steered spm_matmul: error at {ratio:.3f} of its "
+                 f"allowance")
+    os.environ["REPRO_AUTOTUNE"] = "1"
+    tuning.reset(tuned)
+    print(f"phase 8 tune: an unpinned 4x896x4864 call with a cached "
+          f"tiled plan launched {paths[0]}, with REPRO_AUTOTUNE=0 "
+          f"{paths[1]}", flush=True)
+    if paths != ["tiled", "splitk"]:
+        fail(f"the wrapper did not follow the cache: {paths}")
+
+
+def phase_tune(dev, smi):
+    """Phase 8 (see the module note); returns its numbers."""
+    from repro_torch import tuning
+    from repro_torch.launch import serve
+    from repro_torch.launch import tune as tune_cli
+    from repro_torch.obs import TraceRecorder
+
+    TUNE_CACHE.unlink(missing_ok=True)
+    os.environ["REPRO_PLAN_CACHE"] = str(TUNE_CACHE)
+    os.environ["REPRO_AUTOTUNE"] = "1"
+    tuning.reset()
+    t0 = time.monotonic()
+    cold = TraceRecorder()
+    rows = []
+    for label, kernel, problem in tune_cases():
+        res = tuning.tune(kernel, problem, reps=TUNE_REPS,
+                          max_candidates=TUNE_MAX_CANDIDATES, trace=cold)
+        errs = res.err_ratios
+        if len(errs) != res.pruned_to or not all(r < 1 for r in
+                                                 errs.values()):
+            fail(f"tune {label}: measured {res.pruned_to} plans, held "
+                 f"{errs} to the plain version")
+        w, d = res.stats, res.default_stats
+        print(f"phase 8 tune {label} ({kernel} {problem.sig}): "
+              f"{res.candidates} candidates, {res.feasible} feasible, "
+              f"{res.pruned_to} measured (errors as shares of the "
+              f"allowance {', '.join(f'{k} {v:.3f}' for k, v in errs.items())}"
+              f"); winner {tuning.plan_sig(res.plan)}: "
+              f"{launch_text(kernel, problem, res.plan)}, p99 {w.p99:.2f} "
+              f"us cov {w.cov:.4f}; default "
+              f"{tuning.plan_sig(res.default_plan)}: "
+              f"{launch_text(kernel, problem, res.default_plan)}, p99 "
+              f"{d.p99:.2f} us cov {d.cov:.4f} ({smi})", flush=True)
+        for sig, st in res.results.items():
+            print(f"    {sig:24s} median {st.median:10.2f} us  p99 "
+                  f"{st.p99:10.2f} us  cov {st.cov:.4f}")
+        rows.append({"case": label, "kernel": kernel, "shape": problem.sig,
+                     "candidates": res.candidates, "feasible": res.feasible,
+                     "measured": res.pruned_to, "plan": res.plan,
+                     "launch": launch_text(kernel, problem, res.plan),
+                     "default_plan": res.default_plan,
+                     "stats": w.as_dict(), "default_stats": d.as_dict(),
+                     "results": {k: v.as_dict()
+                                 for k, v in res.results.items()},
+                     "err_ratios": errs})
+    spans = tuning.measurement_count(cold)
+    cold_s = time.monotonic() - t0
+    warm = TraceRecorder()
+    for (label, kernel, problem), row in zip(tune_cases(), rows):
+        res = tuning.tune(kernel, problem, trace=warm)
+        if res.source != "cache" or res.plan != row["plan"]:
+            fail(f"tune {label}: the warm run gave {res.plan} from "
+                 f"{res.source}, the cold one {row['plan']}")
+    print(f"phase 8 tune: cold {spans} measurement spans in {cold_s:.1f} "
+          f"s; warm {tuning.measurement_count(warm)} spans, same plans",
+          flush=True)
+    if tuning.measurement_count(warm):
+        fail("the warm tuning run measured again")
+    steer_check(dev)
+
+    print(f"phase 8 tune: python -m repro_torch.launch.tune "
+          f"{' '.join(TUNE_MODEL)}", flush=True)
+    out = tune_cli.run(TUNE_MODEL)
+    mres = out["results"][0]
+    if mres.source != "measured" or mres.pruned_to != 2 \
+            or out["spans"] != 2 * TUNE_REPS:
+        fail(f"model tuning measured {mres.pruned_to} plans in "
+             f"{out['spans']} spans ({mres.source}), expected the two "
+             f"decode programs")
+    release()
+
+    print(f"phase 8 serve on the tuned cache: repro_torch.launch.serve "
+          f"{' '.join(serve_argv('qwen2-0.5b'))}", flush=True)
+    reset_launches()
+    res = serve.main(serve_argv("qwen2-0.5b"))
+    launches, paths = serve.launch_counts(), path_counts()
+    want = SERVES["qwen2-0.5b"]
+    print(f"phase 8 serve qwen2-0.5b: plan [{res['plan_source']}] "
+          f"{res['plan']} (tuned {mres.plan}); wrapper launches "
+          f"{launches}", flush=True)
+    if "cache" not in res["plan_source"] or res["plan"] != mres.plan:
+        fail(f"the serve ran {res['plan']} from {res['plan_source']}, "
+             f"not the tuned plan {mres.plan} from the cache")
+    if res["prefill_launches"] != {**dict.fromkeys(launches, 0),
+                                   **want["per_prefill"]} \
+            or res["replayed_launches"]["spm_matmul"] \
+            != want["mm_per_step"] * G:
+        fail(f"the tuned serve's replays launched "
+             f"{res['prefill_launches']} and {res['replayed_launches']}")
+    check_serve_paths("qwen2-0.5b", launches, paths, res["plan"],
+                      tuned=True)
+    if len(res["tokens"]) != G:
+        fail("the tuned serve did not generate every token")
+    release()
+    phase_capture(dev, "qwen2-0.5b", timing=False, phase=8)
+    m_def, m_tuned = mres.default_stats, mres.stats
+    return {"kernels": rows, "cold_spans": spans, "cold_s": cold_s,
+            "model": {"plan": mres.plan, "default_plan": mres.default_plan,
+                      "candidates": mres.candidates,
+                      "measured": mres.pruned_to,
+                      "results": {k: dict(v.as_dict(),
+                                          us_per_token=tuning.us_per_token(
+                                              v, mres.problem))
+                                  for k, v in mres.results.items()},
+                      "us_per_token": tuning.us_per_token(m_tuned,
+                                                          mres.problem),
+                      "default_us_per_token": tuning.us_per_token(
+                          m_def, mres.problem),
+                      "stats": m_tuned.as_dict(),
+                      "default_stats": m_def.as_dict()},
+            "serve": {"plan_source": res["plan_source"], "plan": res["plan"],
+                      "paths": paths, "launches": launches,
+                      "decode_ms": [t * 1e3 for t in res["decode_s"]],
+                      "prefill_ms": res["prefill_s"] * 1e3,
+                      "jitter": res["jitter"]}}
+
+
+def check_serve_paths(arch, launches, paths, plan, tuned=False):
     """A serve's wrappers launch for exactly two prefills and two decode
     steps: the eager warm-up before each graph's capture and the
     capture; the timed prefill and steps are replays and pass no
-    wrapper.  Every decode product but the logits took the split-K path,
-    every prefill product but the logits (taken at the last position,
-    M = batch) the wgmma path, and flash_attention and wkv6 their
-    tensor-core kernels."""
+    wrapper.  Untuned, every decode product but the logits took the
+    split-K path, every prefill product but the logits (taken at the
+    last position, M = batch) the wgmma path, and flash_attention and
+    wkv6 their tensor-core kernels; the paths ``ops.launch_plan`` gives
+    each product under the served plan's pins must say the same.  On a
+    tuned cache (``tuned``) the paths must be those ``launch_plan``
+    gives, the cached plans' pins in them."""
     want = SERVES[arch]
     per_prefill = want["per_prefill"]["spm_matmul"]
     expect = {"flash_attention": 0, "wkv6": 0}
     expect.update({k: 2 * n for k, n in want["per_prefill"].items()})
     expect["spm_matmul"] += 2 * want["mm_per_step"]
+    planned = serve_paths(arch, plan)
     expect_paths = {"splitk": 2 * (want["mm_per_step"] - 1),
                     "wgmma": 2 * (per_prefill - 1), "tiled": 2 + 2}
-    print(f"phase 5 serve {arch}: kernel paths {paths} (2 prefills and 2 "
-          f"decode steps through the wrappers)", flush=True)
+    if tuned:
+        expect_paths = planned
+    elif planned != expect_paths:
+        fail(f"{arch}: launch_plan with no cache gives the paths "
+             f"{planned}, not {expect_paths}")
+    phase = 8 if tuned else 5
+    print(f"phase {phase} serve {arch}: kernel paths {paths} (2 prefills "
+          f"and 2 decode steps through the wrappers; launch_plan gives "
+          f"{planned})", flush=True)
     if launches != expect:
         fail(f"{arch}: wrapper launches {launches}, expected {expect}: "
              f"something timed ran eagerly")
@@ -1073,6 +1315,38 @@ def check_serve_paths(arch, launches, paths):
                 got["fma"] or got["tensor_core"] != launches[name]):
             fail(f"{arch}: {name} paths {got}: every launch must take "
                  f"the tensor-core kernel")
+
+
+def serve_products(cfg, B, P):
+    """(m, k, n, trans_b, count, pinned) of a serve's spm_matmul calls
+    for one prefill and one decode step: the decode step's products
+    (``tuning.model.decode_products``) carry the serving plan's pins;
+    the prefill's run them at M = B x P without pins, but its logits,
+    taken at the last position (M = B)."""
+    from repro_torch.tuning.model import decode_products
+    decode = decode_products(cfg, B)
+    prefill = [(B * P, k, n, tb, c) for _, k, n, tb, c in decode if not tb]
+    prefill += [(B, k, n, tb, c) for _, k, n, tb, c in decode if tb]
+    return ([p + (True,) for p in decode]
+            + [p + (False,) for p in prefill])
+
+
+def serve_paths(arch, plan):
+    """The spm_matmul launches by path that two prefills and two decode
+    steps of ``arch``'s serve make under ``plan``, as
+    ``ops.launch_plan`` resolves each product (pins, then the active
+    plan cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.spm_matmul import ops
+    cfg = get_config(arch)
+    counts = dict.fromkeys(ops.matmul.paths, 0)
+    for m, k, n, tb, c, pinned in serve_products(
+            cfg, 4, SERVES[arch]["prompt"]):
+        pins = (plan["mm_bm"], plan["mm_bn"]) if pinned else (None, None)
+        path = ops.launch_plan(m, k, n, torch.bfloat16, tb, True,
+                               *pins)["path"]
+        counts[path] += 2 * c
+    return counts
 
 
 def path_counts():
@@ -1131,6 +1405,9 @@ def kernel_summary(rows, launches, replayed):
 
 
 def main():
+    # phases 1-7 read no plan cache: they launch what they launched
+    # before tuning existed (phase 8 turns it on)
+    os.environ["REPRO_AUTOTUNE"] = "0"
     dev, smi = phase_device()
     build_s, registers = phase_build()
     rows = phase_kernels(dev)
@@ -1150,11 +1427,12 @@ def main():
     replayed = {k: sum(r["replayed_launches"][k] + r["prefill_launches"][k]
                        for _, r in serves.values())
                 for k in launches}
+    tuned = phase_tune(dev, smi)
     kernels = kernel_summary(rows, launches, replayed)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "registers": registers, "cases": rows,
-        "kernels": kernels, "report": report,
+        "kernels": kernels, "report": report, "tune": tuned,
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],
                          "jitter": res["jitter"],

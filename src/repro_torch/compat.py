@@ -22,7 +22,7 @@ from typing import Optional, Union
 import torch
 
 __all__ = ["HOPPER_CAPABILITY", "DTYPES", "resolve_device", "torch_dtype",
-           "require_hopper", "device_identity"]
+           "dtype_name", "require_hopper", "device_identity"]
 
 HOPPER_CAPABILITY = (9, 0)
 
@@ -41,6 +41,12 @@ def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; have "
                          f"{sorted(DTYPES)}") from None
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The config string of a torch dtype (``torch.bfloat16`` ->
+    ``"bfloat16"``), as plan signatures spell it."""
+    return str(dtype).rsplit(".", 1)[-1]
 
 
 def require_hopper(device: torch.device) -> None:

@@ -2,7 +2,8 @@
 copied as data.
 
 ``KERNEL_REGISTRY`` names each public kernel wrapper and the block
-parameters its plans own, as in the reference.
+parameters its plans own, as in the reference; ``registered_kernels``
+lists their names (the tuning CLI's choices).
 
 ``CONFORMANCE_SHAPES`` are the shapes of the reference's
 ``conformance_cases()`` for the three kernels; the tests and
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,10 @@ KERNEL_REGISTRY: Dict[str, KernelEntry] = {
     "wkv6": KernelEntry("wkv6", "repro_torch.kernels.wkv6.ops", "wkv",
                         ("chunk",)),
 }
+
+
+def registered_kernels() -> List[str]:
+    return sorted(KERNEL_REGISTRY)
 
 
 def import_entry(name: str) -> Callable[..., Any]:

@@ -18,9 +18,10 @@ Both kernels are compiled for 64-query by 64-key tiles and head dims
 32, 64, 128 and 256 (gemma3); the wrapper checks each launch's shared
 memory against ``core.gpu_mapping.flash_smem_plan`` first.
 ``bq``/``bk`` keep the reference's plan parameters but accept only
-that compiled tile for now; tile tuning comes with the
-port's tuning work.  q, k and v are read in place through their
-strides (the head dim must be contiguous).
+that compiled tile: a call that passes neither takes the tuned plan
+cache's (``launch_plan``), which can only name that tile too.  q, k and
+v are read in place through their strides (the head dim must be
+contiguous).
 
 What bounds it on the card, and what the design does about it, is in
 the source note of ``csrc/flash_attention.cu``.
@@ -62,6 +63,26 @@ ENTRIES = {"tensor_core": ("flash_attention_tc_launch", _COMMON + [_P]),
            "fma": ("flash_attention_launch", _COMMON + [_I, _P])}
 
 
+def launch_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
+                causal: bool, window: int, dtype: torch.dtype,
+                bq: Optional[int] = None, bk: Optional[int] = None) -> dict:
+    """The tile a CUDA call runs: ``bq``/``bk`` as passed, else the
+    tuned plan cache's for this problem (``tuning.runtime.cached_pins``),
+    else the compiled tile; anything but the compiled tile raises."""
+    from repro_torch.compat import dtype_name
+    from repro_torch.tuning.plan import AttentionProblem
+    from repro_torch.tuning.runtime import cached_pins
+    problem = AttentionProblem(B, Sq, Sk, H, KV, D, causal, window,
+                               dtype_name(dtype))
+    plan = {"bq": FLASH_BQ, "bk": FLASH_BK,
+            **cached_pins("flash_attention", problem, {"bq": bq, "bk": bk})}
+    for name, compiled in (("bq", FLASH_BQ), ("bk", FLASH_BK)):
+        if plan[name] != compiled:
+            raise ValueError(f"{name}={plan[name]}: the kernel is compiled "
+                             f"for {compiled}-row tiles")
+    return plan
+
+
 def _lib(path: str):
     """The C entry of ``path``'s kernel, argument types set once."""
     name, argtypes = ENTRIES[path]
@@ -101,10 +122,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or v.device != q.device:
         raise ValueError("flash_attention runs on one CUDA device or the "
                          f"CPU: {q.device}, {k.device}, {v.device}")
-    for name, tile, compiled in (("bq", bq, FLASH_BQ), ("bk", bk, FLASH_BK)):
-        if tile not in (None, compiled):
-            raise ValueError(f"{name}={tile}: the kernel is compiled for "
-                             f"{compiled}-row tiles")
+    launch_plan(B, Sq, Sk, H, KV, D, causal, window, q.dtype, bq, bk)
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim")
     if B * H > _MAX_GRID_Y or min(B, Sq, Sk) == 0:

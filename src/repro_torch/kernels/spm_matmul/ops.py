@@ -39,6 +39,13 @@ another ``bm``, ``bn`` or ``bk`` runs on ``tiled``, which honours it.
 So the serving plan's decode pins (16 x 64) name the ``splitk`` tile,
 and a plan that pins any other tile times the kernel that runs it.
 
+A pin a CUDA call does not pass comes from the tuned plan cache
+(``launch_plan``, through ``tuning.runtime.cached_pins``) where the
+cache holds a plan for the call's problem; otherwise it stays unpinned.
+The lookup sits in front of the cached ``resolve_plan`` and
+``splitk_plan``, so a new cache, or ``tuning.reset()``, is seen at the
+next call.
+
 What bounds each path on the card, and what its design does about it,
 is in the source notes of ``csrc/spm_matmul.cu``.
 """
@@ -226,10 +233,48 @@ ENTRIES = {
 }
 
 
+def launch_of(m: int, k: int, n: int, dtype: torch.dtype, trans_b: bool,
+              aligned: bool, bm: Optional[int] = None,
+              bn: Optional[int] = None, bk: Optional[int] = None) -> dict:
+    """``dispatch`` for exactly these pins, with ``tile``: what the
+    launched kernel runs, ``bm``, ``bn`` and ``bkc`` (the K extent a
+    block stages per step: the K slice on ``splitk``) and, on ``tiled``,
+    ``resolve_plan``'s whole plan (``bk``, ``stages``).  Do not mutate
+    ``tile``."""
+    launch = dispatch(m, k, n, dtype, trans_b, aligned, bm, bn, bk)
+    if launch["path"] == "tiled":
+        tile = resolve_plan(m, k, n, torch.finfo(dtype).bits // 8, trans_b,
+                            bm, bn, bk)
+    elif launch["path"] == "splitk":
+        tile = {"bm": SPLITK_MAX_M, "bn": SPLITK_BN, "bkc": launch["ks"]}
+    else:
+        tile = {"bm": WGMMA_TILE[0], "bn": WGMMA_TILE[1], "bkc": WGMMA_BK}
+    return {**launch, "tile": tile}
+
+
+def launch_plan(m: int, k: int, n: int, dtype: torch.dtype, trans_b: bool,
+                aligned: bool, bm: Optional[int] = None,
+                bn: Optional[int] = None, bk: Optional[int] = None) -> dict:
+    """What a CUDA call with these pins launches (``launch_of``): the
+    pins it passes, and for each one it leaves None the tuned plan
+    cache's value where the cache holds a plan for this problem
+    (``tuning.runtime.cached_pins``).  With no entry, or with
+    ``REPRO_AUTOTUNE=0``, nothing is added: the launch of a call that
+    passes no pins is the one it was before tuning existed.  Pure
+    Python, so the CPU tests can say what a card would launch."""
+    from repro_torch.compat import dtype_name
+    from repro_torch.tuning.plan import MatmulProblem
+    from repro_torch.tuning.runtime import cached_pins
+    pins = cached_pins("spm_matmul",
+                       MatmulProblem(m, k, n, dtype_name(dtype), trans_b),
+                       {"bm": bm, "bn": bn, "bk": bk})
+    return launch_of(m, k, n, dtype, trans_b, aligned, **pins)
+
+
 def route(a: torch.Tensor, b: torch.Tensor, trans_b: bool = False,
           bm: Optional[int] = None, bn: Optional[int] = None,
           bk: Optional[int] = None) -> dict:
-    """``dispatch`` for these CUDA operands and plan pins, with
+    """``launch_plan`` for these CUDA operands and plan pins, with
     ``aligned``: whether every row of A and B starts on a 16-byte
     boundary."""
     per_vec = 16 // a.element_size()
@@ -237,7 +282,7 @@ def route(a: torch.Tensor, b: torch.Tensor, trans_b: bool = False,
                   for t in (a, b))
     m, k = a.shape
     n = b.shape[0] if trans_b else b.shape[1]
-    return {**dispatch(m, k, n, a.dtype, trans_b, aligned, bm, bn, bk),
+    return {**launch_plan(m, k, n, a.dtype, trans_b, aligned, bm, bn, bk),
             "aligned": aligned}
 
 
@@ -288,9 +333,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False,
     if min(m, n, k) == 0:
         raise ValueError(f"empty problem {m}x{k}x{n}")
     launch = route(a, b, trans_b, bm, bn, bk)
-    path = launch["path"]
-    plan = (resolve_plan(m, k, n, a.element_size(), trans_b, bm, bn, bk)
-            if path == "tiled" else None)
+    path, plan = launch["path"], launch["tile"]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.stride(0),
@@ -308,7 +351,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False,
                          plan["stages"], int(launch["aligned"]), stream)
     if err != 0:
         raise RuntimeError(f"spm_matmul launch failed: CUDA error {err} "
-                           f"({m}x{k}x{n}, {launch}, plan {plan})")
+                           f"({m}x{k}x{n}, {launch})")
     matmul.launches += 1
     matmul.paths[path] += 1
     return c

@@ -17,9 +17,10 @@ tensor cores cannot hold to the 1e-4 fp32 allowance, and for operands
 off the 16-byte grid.
 
 The plan parameter is the reference's ``chunk``: an explicit value
-wins, else the reference's default of 128, clamped to the sequence
-length.  The ``fma`` kernel runs it halved while one block's working set
-does not fit the shared memory a block may use
+wins, then on CUDA the tuned plan cache's (``launch_plan``), else the
+reference's default of 128, clamped to the sequence length.  The
+``fma`` kernel runs it halved while one block's working set does not
+fit the shared memory a block may use
 (``core.gpu_mapping.wkv_smem_plan``), as ``spm_matmul`` halves ``bk``.
 The ``tensor_core`` kernel picks its own parallel unit from it: a block
 takes ``tc_rows`` rows, the chunk rounded down to a multiple of 16 and
@@ -113,6 +114,20 @@ def dispatch(S: int, K: int, dtype: torch.dtype, aligned: bool = True,
             "groups": groups}
 
 
+def launch_plan(B: int, S: int, H: int, K: int, dtype: torch.dtype,
+                aligned: bool = True, chunk: Optional[int] = None) -> dict:
+    """``dispatch`` for the chunk a CUDA call runs: ``chunk`` as passed,
+    else the tuned plan cache's for this problem
+    (``tuning.runtime.cached_pins``), else the default.  Pure Python, so
+    the CPU tests can say what a card would launch."""
+    from repro_torch.compat import dtype_name
+    from repro_torch.tuning.plan import WkvProblem
+    from repro_torch.tuning.runtime import cached_pins
+    pins = cached_pins("wkv6", WkvProblem(B, S, H, K, dtype_name(dtype)),
+                       {"chunk": chunk})
+    return dispatch(S, K, dtype, aligned, pins.get("chunk"))
+
+
 def _lib(path: str):
     """The C entry of ``path``'s kernel, argument types set once."""
     name, argtypes = ENTRIES[path]
@@ -159,7 +174,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("wkv6 needs contiguous operands")
     aligned = all(t.data_ptr() % 16 == 0 for t in ts)
-    route = dispatch(S, K, r.dtype, aligned, chunk)
+    route = launch_plan(B, S, H, K, r.dtype, aligned, chunk)
     path = route["path"]
     y = torch.empty_like(r)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)

@@ -4,9 +4,11 @@ step bound (port of the reference's ``launch/serve.py``).
 Each decode step runs the same program, so the driver prints the H100
 WCET bound per step (``core.gpu_mapping``) next to the measured step
 times and their jitter.  The step program follows a serving plan
-(``tuning.model.default_model_plan``; explicit ``--chunk-q``/
-``--chunk-kv`` override it), and the WCET bound and the step deadline
-are built from that same plan.  The bound becomes a deadline
+(``tuning.model.resolve_model_plan``: explicit ``--chunk-q``/
+``--chunk-kv`` over a tuned plan cached for this configuration and
+card, over the defaults; the banner and ``main``'s ``plan_source`` say
+which), and the WCET bound and the step deadline are built from that
+same plan.  The bound becomes a deadline
 (``wcet * --deadline-slack`` or ``--deadline-ms``); overruns walk the
 record -> warn -> shed ladder (``resilience.DeadlineMonitor``), and a
 shed halves the batch.
@@ -70,8 +72,8 @@ from repro_torch.models.lm import RunOptions
 from repro_torch.models.spec import tree_map
 from repro_torch.obs import TraceRecorder, jitter_stats, write_chrome_trace
 from repro_torch.resilience.deadline import DeadlineMonitor
-from repro_torch.tuning.model import (ModelProblem, default_model_plan,
-                                      plan_sig)
+from repro_torch.tuning.model import (ModelProblem, plan_sig,
+                                      resolve_model_plan)
 
 
 def reduced_config(cfg, args):
@@ -109,17 +111,6 @@ def plan_wcet_s(cfg, plan: dict, batch: int, n_params: int) -> float:
     and the derived deadline."""
     sched = serve_step_schedule(batch, cfg.d_model, n_params, plan=plan)
     return gpu_wcet(sched)
-
-
-def serving_plan(cfg, problem: ModelProblem, chunk_q: Optional[int],
-                 chunk_kv: Optional[int]):
-    """Explicit flags over the default plan; returns (plan, source)."""
-    plan = default_model_plan(cfg, problem)
-    explicit = {k: int(v) for k, v in (("chunk_q", chunk_q),
-                                       ("chunk_kv", chunk_kv))
-                if v is not None}
-    plan.update(explicit)
-    return plan, ("explicit+defaults" if explicit else "defaults")
 
 
 def launch_counts() -> dict:
@@ -282,8 +273,10 @@ def setup(args: argparse.Namespace, dev: torch.device):
     problem = ModelProblem(
         args.arch, B, P, G, layers=0 if args.full else args.layers,
         d_model=args.d_model, vocab=args.vocab, dtype=cfg.dtype)
-    plan, plan_source = serving_plan(cfg, problem, args.chunk_q,
-                                     args.chunk_kv)
+    # serving plan: explicit flags > tuned cache entry > defaults
+    resolved = resolve_model_plan(cfg, problem, {
+        "chunk_q": args.chunk_q, "chunk_kv": args.chunk_kv})
+    plan, plan_source = resolved["plan"], resolved["source"]
     opts = RunOptions(chunk_q=int(plan["chunk_q"]),
                       chunk_kv=int(plan["chunk_kv"]),
                       cache_len=P + G, remat=False,
