@@ -37,8 +37,11 @@ Phases, one result line each; any failure exits non-zero:
             (a yardstick the port never calls) and the bound from the
             datasheet rates.
 4. model    reduced qwen2-0.5b, rwkv6-1.6b, qwen3-moe-235b-a22b and
-            llama4-maverick-400b-a17b (2 layers) and gemma3-12b (its 6
+            llama4-maverick-400b-a17b (2 layers), gemma3-12b (its 6
             local and global layers, window 16 under the 64-token
+            prompt) and zamba2-7b (15 layers: two units of a tied
+            shared-attention block and six Mamba2 layers, so both tied
+            blocks run, and a tail of three; two SSD chunks of 32 in the
             prompt), fp32, on the card against the same converted
             parameters on the CPU: prefill logits within 1e-4 of the
             largest logit, 8 greedy tokens identical.  Then reduced
@@ -48,7 +51,9 @@ Phases, one result line each; any failure exits non-zero:
 5. serve    the main paths: ``repro_torch.launch.serve`` at full width
             and depth (qwen2-0.5b and rwkv6-1.6b: 24 layers, prompt 256;
             gemma3-12b: 48 layers, prompt 2048, twice its local window;
-            bf16, batch 4, 32 new tokens), qwen2-0.5b's with
+            zamba2-7b: 81 Mamba2 layers and 13 tied-block applications,
+            prompt 512, two SSD chunks of 256; bf16, batch 4, 32 new
+            tokens), qwen2-0.5b's with
             ``REPRO_TRACE`` set.  Launch counters are zeroed just before
             each serve and read just after; each kernel of that path
             must have launched, and all 4x32 tokens must come out (a
@@ -57,27 +62,29 @@ Phases, one result line each; any failure exits non-zero:
             pass no wrapper: the launches those replays made are read
             from ``serve.main``, and one prefill replay must launch each
             kernel once per layer (spm_matmul once per product), one
-            decode replay the step's spm_matmul products.  The wrappers
+            decode replay the step's spm_matmul products (zamba2: 241
+            spm_matmul and 13 flash_attention, at head dim 112, a prefill
+            replay; 241 spm_matmul a decode replay).  The wrappers
             themselves must have launched for exactly two prefills and
             two decode steps (each graph's eager warm-up and its
             capture), so nothing timed ran eagerly; their path counters
             must show every decode product but the logits on the
             split-K path and every prefill product but the logits on the
-            wgmma path (and, for qwen2-0.5b and gemma3-12b, every
-            flash_attention launch, for rwkv6-1.6b every wkv6 launch, on
-            its tensor-core kernel).  Then the same model, weights and
-            prompt again through ``serve.compile_step_fns``: the prefill
-            graph's logits must be bit-identical to an eager
+            wgmma path (and, for qwen2-0.5b, gemma3-12b and zamba2-7b,
+            every flash_attention launch, for rwkv6-1.6b every wkv6
+            launch, on its tensor-core kernel).  Then the same model,
+            weights and prompt again through ``serve.compile_step_fns``:
+            the prefill graph's logits must be bit-identical to an eager
             ``lm.prefill``'s, and 8 greedy tokens through the graphs
             identical to 8 through eager calls.
-6. trace    each served model's decode graph, and gemma3-12b's prefill
-            graph, replayed under ``torch.profiler``: the replay's time
-            (CUDA events), the device's busy share, and its kernels'
-            device time by family.
+6. trace    each served model's decode graph, and gemma3-12b's and
+            zamba2-7b's prefill graphs, replayed under
+            ``torch.profiler``: the replay's time (CUDA events), the
+            device's busy share, and its kernels' device time by family.
 7. predictability  the jitter statistics (median, p99, spread, CoV,
             WCET margin) of each serve's 32 decode steps and of its
             prefill graph's replays timed by CUDA events (10 for qwen2
-            and rwkv6, 3 for gemma3), as a schema-v1 report
+            and rwkv6, 3 for gemma3 and zamba2), as a schema-v1 report
             (``repro_torch.obs.make_report``) that
             ``repro_torch.obs.validate_report`` must accept, written to
             ``chiprun_out/chip_smoke_report.json``; and qwen2's
@@ -134,8 +141,8 @@ import torch.nn.functional as F  # noqa: E402
 # H100 SXM datasheet rates (dense): the bound of each kernel case
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# card vs CPU through two fp32 layers: differently ordered sums in every
-# product, and CUDA's and the CPU's exp/rsqrt
+# card vs CPU through the reduced fp32 layers: differently ordered sums
+# in every product, and CUDA's and the CPU's exp/rsqrt
 MODEL_TOL = 1e-4
 L2_BYTES = 50 * 2 ** 20
 
@@ -237,9 +244,11 @@ def phase_build():
 
 def matmul_cases():
     """(label, m, k, n, trans_b, dtype, out_dtype, plan, main_path);
-    the main path's shapes of qwen2-0.5b, of rwkv6-1.6b and of
-    gemma3-12b (prefill M = 4 x 2048; the tied logits read the
-    262,144 x 3840 table, 2.01 GB, in place)."""
+    the main path's shapes of qwen2-0.5b, of rwkv6-1.6b, of gemma3-12b
+    (prefill M = 4 x 2048; the tied logits read the 262,144 x 3840
+    table, 2.01 GB, in place) and of zamba2-7b (prefill M = 4 x 512;
+    in_proj's N = 14,576 leaves 48 columns past the split-K tiles and
+    112 past the wgmma tiles)."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
     d, ff, V, B, BP = 896, 4864, 151_936, 4, 4 * 256
@@ -270,6 +279,16 @@ def matmul_cases():
                           {}, True))
     cases.append(("gemma3 logits (tied embed^T)", B, gd, gV, True, bf, f32,
                   {}, True))
+    zd, zi, zp, zff, zV, ZP = 3584, 7168, 14_576, 14_336, 32_000, 4 * 512
+    for phase, m in (("decode", B), ("prefill", ZP)):
+        for what, k, n in (("in_proj", zd, zp),
+                           ("out_proj, shared q/k/v", zi, zd),
+                           ("shared o", zd, zd), ("shared ffn up", zd, zff),
+                           ("shared ffn down", zff, zd)):
+            cases.append((f"zamba2 {phase} {what}", m, k, n, False, bf, None,
+                          {}, True))
+    cases.append(("zamba2 logits (lm_head^T)", B, zd, zV, True, bf, f32, {},
+                  True))
     cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
     for m in (1, 2, 48, 259):
         cases.append((f"ragged M={m}", m, d, d, False, bf, None, {},
@@ -291,6 +310,12 @@ def flash_cases():
               True),
              ("gemma3 prefill, local", 4, 2048, 16, 8, 256, True, 1024, bf,
               True),
+             ("zamba2 shared-attention prefill", 4, 512, 32, 32, 112, True,
+              0, bf, True),
+             ("ragged S=100 D=112", 2, 100, 8, 8, 112, True, 0, bf, False),
+             ("fp32 D=112", 1, 256, 4, 4, 112, True, 0, f32, False),
+             ("unaligned bf16 D=112", 1, 128, 4, 4, 112, True, 0, bf,
+              False),
              ("ragged S=100 D=256 window 24", 2, 100, 4, 2, 256, True, 24,
               bf, False),
              ("fp32 D=256 window 64", 1, 256, 4, 2, 256, True, 64, f32,
@@ -696,9 +721,11 @@ def phase_kernels(dev):
 # ------------------------------------------------------------- model
 
 # the reduced models of phase 4: arch -> layers (gemma3: one unit of its
-# five local and one global layer, its window cut below the prompt)
+# five local and one global layer, its window cut below the prompt;
+# zamba2: two units, so both tied blocks run, and a tail of three)
 MODELS = {"qwen2-0.5b": 2, "rwkv6-1.6b": 2, "gemma3-12b": 6,
-          "qwen3-moe-235b-a22b": 2, "llama4-maverick-400b-a17b": 2}
+          "qwen3-moe-235b-a22b": 2, "llama4-maverick-400b-a17b": 2,
+          "zamba2-7b": 15}
 REDUCED_WINDOW = 16
 
 
@@ -726,6 +753,14 @@ def phase_model(dev, arch):
         if path.rsplit("/", 1)[-1] in ("u", "maa_x", "maa_rkvwg", "maa_k",
                                        "maa_r"):
             leaf.copy_(0.3 * torch.randn(leaf.shape, generator=gen))
+    if "shared" in cpu_params:
+        # the init rule takes the head count as the tied blocks' q/k
+        # fan-in; at the fan-in of their 2d inputs their softmax is not
+        # one-hot up to near ties, which fp32 rounding would decide
+        a = cfg.attention
+        for name in ("wq", "wk"):
+            cpu_params["shared"]["attn"][name].mul_(
+                math.sqrt(a.num_heads / (2 * cfg.d_model)))
     np_params = tree_map(lambda t: t.numpy(), cpu_params)
     runs = {}
     for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
@@ -811,6 +846,14 @@ SERVES = {
                    "per_prefill": {"spm_matmul": 7 * 48 + 1,
                                    "flash_attention": 48},
                    "mm_per_step": 7 * 48 + 1},
+    # prompt 512: two SSD chunks of 256, so the inter-chunk state carry
+    # runs; 81 mamba layers of 2 products, 13 tied-block applications of
+    # 6 (and one flash launch each)
+    "zamba2-7b": {"prompt": 512, "vocab": 32_000,
+                  "kernels": ("spm_matmul", "flash_attention"),
+                  "per_prefill": {"spm_matmul": 81 * 2 + 13 * 6 + 1,
+                                  "flash_attention": 13},
+                  "mm_per_step": 81 * 2 + 13 * 6 + 1},
 }
 
 
@@ -820,7 +863,8 @@ SERVE_TRACE = OUT_DIR / "serve_trace_qwen2-0.5b.json"
 G = 32
 # prefill graph replays timed per served arch, greedy tokens compared
 # between the graphs and eager calls
-PREFILL_REPLAYS = {"qwen2-0.5b": 10, "rwkv6-1.6b": 10, "gemma3-12b": 3}
+PREFILL_REPLAYS = {"qwen2-0.5b": 10, "rwkv6-1.6b": 10, "gemma3-12b": 3,
+                   "zamba2-7b": 3}
 PARITY_TOKENS = 8
 
 
@@ -945,7 +989,7 @@ def phase_capture(dev, arch, timing=True, phase=5):
            "decode_trace": trace_replays(
                f"{arch} decode step (graph replay, batch 4, {P}-token "
                f"prompt)", lambda i: step(tok, P + PARITY_TOKENS + i), 3)}
-    if arch == "gemma3-12b":
+    if arch in ("gemma3-12b", "zamba2-7b"):
         out["prefill_trace"] = trace_replays(
             f"{arch} prefill (graph replay, 4 x {P} tokens)",
             lambda i: prefill_fn(batch), 1)
@@ -959,8 +1003,8 @@ TRACE_FAMILIES = (
                     "spm_matmul_kernel")),
     ("flash_attention", ("flash_fwd",)),
     ("wkv6", ("wkv6",)),
-    ("decode attention products (cuBLAS)", ("gemm", "gemv", "cutlass",
-                                            "xmma", "nvjet")),
+    ("cuBLAS products (decode attention, SSD einsums)",
+     ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("copies (contiguous, index_copy, cat)", ("copy", "index", "cat",
                                               "Cat")),
     ("softmax", ("softmax", "Softmax", "SoftMax")),

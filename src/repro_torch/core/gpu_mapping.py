@@ -71,7 +71,7 @@ FLASH_THREADS = 128     # both paths: threads of a block
 FLASH_BQ = 64           # queries of a block
 FLASH_BK = 64           # keys of a K/V tile
 FLASH_TC_PAD = 8        # tensor-core path: row padding, in elements
-FLASH_HEAD_DIMS = (32, 64, 128, 256)   # the compiled head dims
+FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)   # the compiled head dims
 FLASH_PATHS = ("tensor_core", "fma")
 
 

@@ -40,6 +40,13 @@
 // scores half of the tile's keys, the pair reduces the row max and sum
 // with one shuffle, and each keeps half of the row's output dims.
 //
+// Head dims 32, 64, 112, 128 and 256 are compiled, one instantiation
+// each.  D = 112 (zamba2-7b's shared attention blocks, 3584 / 32) is
+// 7 k16 steps of Q.K^T and 14 n8 output chunks, which the PV loop takes
+// in pairs; its padded row of 120 bf16 (240 bytes) is an odd number of
+// 16-byte pieces, as at every other D, so the ldmatrix reads of eight
+// rows still hit eight distinct bank groups.
+//
 // Both kernels:
 //   * GQA: head h reads KV head h / (H / KV) through strides, so q, k
 //     and v are read in their [B, S, heads, D] layout without copies.
@@ -229,6 +236,9 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
     case 64:
       return launch_d<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
                              scale, s);
+    case 112:
+      return launch_d<T, 112>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+                              window, scale, s);
     case 128:
       return launch_d<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
                               window, scale, s);
@@ -528,6 +538,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
     case 64:
       err = launch_tc<64>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
                           window, scale, s);
+      break;
+    case 112:
+      err = launch_tc<112>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+                           window, scale, s);
       break;
     case 128:
       err = launch_tc<128>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,

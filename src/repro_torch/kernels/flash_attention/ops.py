@@ -15,8 +15,9 @@ FMAs) for fp32, which the tensor cores cannot hold to the 1e-5 fp32
 policy, and for bf16 rows that are not 16-byte aligned.
 
 Both kernels are compiled for 64-query by 64-key tiles and head dims
-32, 64, 128 and 256 (gemma3); the wrapper checks each launch's shared
-memory against ``core.gpu_mapping.flash_smem_plan`` first.
+32, 64, 112 (zamba2's shared blocks), 128 and 256 (gemma3); the
+wrapper checks each launch's shared memory against
+``core.gpu_mapping.flash_smem_plan`` first.
 ``bq``/``bk`` keep the reference's plan parameters but accept only
 that compiled tile: a call that passes neither takes the tuned plan
 cache's (``launch_plan``), which can only name that tile too.  q, k and

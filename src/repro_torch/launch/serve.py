@@ -14,15 +14,17 @@ record -> warn -> shed ladder (``resilience.DeadlineMonitor``), and a
 shed halves the batch.
 
 On CUDA the weight-pass products run the hand-written ``spm_matmul``
-kernel, prefill attention the hand-written ``flash_attention`` kernel
-and an RWKV model's prefill WKV the hand-written ``wkv6`` kernel; an
-MoE layer's expert products are batched einsums, as in the reference.
+kernel, prefill attention (zamba2's tied blocks' too) the hand-written
+``flash_attention`` kernel and an RWKV model's prefill WKV the
+hand-written ``wkv6`` kernel; an MoE layer's expert products are
+batched einsums and zamba2's SSD scan is torch ops, as in the
+reference.
 Before anything is timed, the kernels are built and
 ``compile_step_fns`` (the counterpart of the reference's AOT
 compilation) captures one prefill and one decode step as CUDA graphs:
 the prefill on a static token buffer of the served (batch, prompt
 length), whose outputs (the fp32 last-token logits and the whole
-cache, KV or RWKV state) are the graph's static buffers, and the decode
+cache: KV, RWKV or Mamba2 state) are the graph's static buffers, and the decode
 step over that same cache, which it updates in place.  The timed
 prefill is one replay, and each decode step one replay (the decode
 graph is captured again after a shed; prefill is not re-run).  Eager,
@@ -40,6 +42,8 @@ host clock around work that ends in ``torch.cuda.synchronize()``.
       --full --batch 4 --prompt-len 256 --gen 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --full --batch 4 --prompt-len 2048 --gen 32         # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --full --batch 4 --prompt-len 512 --gen 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-235b-a22b --dtype float32          # reduced MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu

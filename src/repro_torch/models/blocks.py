@@ -8,9 +8,16 @@ reference, so converted reference parameters keep their layout.
 
 The port carries the dense/vlm families (including gemma3-style
 ``layer_pattern`` units of local and global layers), the MoE family
-(every layer MoE, or llama4's alternating MoE and dense layers) and
-the RWKV family.  The other families' stages raise
-``NotImplementedError`` until their slices land.
+(every layer MoE, or llama4's alternating MoE and dense layers), the
+RWKV family and the hybrid family:
+
+  zamba2 : stage0: 13 units x [shared_attn+mamba, mamba x5],
+           stage1: 1 unit   x [mamba x3]     (81 = 13*6 + 3)
+
+A stage may hold 0 units (zamba2 cut to fewer layers than one unit):
+its parameters and caches are stacked leaves with a leading 0, as the
+reference's scan over no units gives.  The encoder-decoder family's
+stages raise ``NotImplementedError`` until its slice lands.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rmsnorm_spec
 from repro_torch.models.spec import Par, stack, tree_map
 
@@ -74,6 +82,18 @@ def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
                        use_moe=(i % m.moe_every == 0))
             for i in range(m.moe_every))
         return (StageDescr(cfg.num_layers // m.moe_every, unit),)
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        per = s.shared_attn_every
+        n_full = cfg.num_layers // per
+        tail = cfg.num_layers - n_full * per
+        unit = tuple(
+            LayerDescr("mamba", shared_attn=(i == 0)) for i in range(per))
+        stages = [StageDescr(n_full, unit)]
+        if tail:
+            stages.append(StageDescr(
+                1, tuple(LayerDescr("mamba") for _ in range(tail))))
+        return tuple(stages)
     if cfg.family == "rwkv":
         return (StageDescr(cfg.num_layers, (LayerDescr("rwkv"),)),)
     raise _not_ported(f"the {cfg.family!r} family")
@@ -100,6 +120,11 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
             p["ln_attn_post"] = rmsnorm_spec(d)
             p["ln_ffn_post"] = rmsnorm_spec(d)
         return p
+    if dsc.kind == "mamba":
+        return {
+            "ln": rmsnorm_spec(d),
+            "mamba": ssm_mod.mamba_spec(d, cfg.ssm, dt),
+        }
     if dsc.kind == "rwkv":
         return {
             "ln_tm": rmsnorm_spec(d),
@@ -108,6 +133,17 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
             "cm": rwkv_mod.channelmix_spec(d, cfg.d_ff, dt),
         }
     raise _not_ported(f"the {dsc.kind!r} layer")
+
+
+def shared_block_spec(cfg: ModelConfig) -> dict:
+    """zamba2's weight-tied attention block operating on concat(x, x0)."""
+    d, dt = cfg.d_model, cfg.dtype
+    return {
+        "ln_in": rmsnorm_spec(2 * d),
+        "attn": attn_mod.attn_spec(2 * d, cfg.attention, dt, d_out=d),
+        "ln_ffn": rmsnorm_spec(d),
+        "ffn": ffn_mod.dense_ffn_spec(d, cfg.d_ff, cfg.activation, dt),
+    }
 
 
 def stage_spec(cfg: ModelConfig, stage: StageDescr) -> dict:
@@ -138,6 +174,15 @@ def layer_cache_spec(cfg: ModelConfig, dsc: LayerDescr, batch: int,
                      ("batch", "kv_seq", "kv_heads", None), init="zeros",
                      dtype=dt),
         }
+    if dsc.kind == "mamba":
+        c = ssm_mod.mamba_state_spec(batch, cfg.d_model, cfg.ssm, dt)
+        if dsc.shared_attn:
+            for name in ("shared_k", "shared_v"):
+                c[name] = Par(
+                    (batch, cache_len, a.num_kv_heads, a.head_dim),
+                    ("batch", "kv_seq", "kv_heads", None), init="zeros",
+                    dtype=dt)
+        return c
     if dsc.kind == "rwkv":
         return rwkv_mod.rwkv_state_spec(batch, cfg.d_model, cfg.rwkv, dt)
     raise _not_ported(f"the {dsc.kind!r} layer cache")

@@ -1,5 +1,6 @@
 """Language model of the port: the dense decoder (gemma3's local and
-global layers among them), MoE and RWKV paths of the reference's
+global layers among them), MoE, RWKV and hybrid (zamba2: Mamba2 layers
+with weight-tied shared attention blocks) paths of the reference's
 ``models/lm.py``, in PyTorch.
 
 Public API (the reference's, with an explicit ``device`` and seed):
@@ -15,13 +16,21 @@ Parameters, caches and activations keep the reference's layouts
 [stack, B, L, KV, hd]), so converted reference parameters
 (``repro_torch.convert``) run unchanged and the tests compare like with
 like.  Weight-pass products run through ``spm_matmul``, prefill
-attention through ``flash_attention`` and prefill WKV through
-``wkv6``: their hand-written kernels for CUDA tensors, their plain
-versions for CPU tensors.
+attention (the shared blocks' too) through ``flash_attention`` and
+prefill WKV through ``wkv6``: their hand-written kernels for CUDA
+tensors, their plain versions for CPU tensors.  The Mamba2 layers' SSD
+scan is torch ops, as the reference's is jnp.
+
+A zamba2 shared block attends over concat(x, x0), x0 the embedding
+output, and selects tied block ``unit index % n_shared_blocks``; the
+unit loops carry both.  Decode updates every cache buffer in place: the
+new K/V rows (the shared blocks' included) and the recurrent states
+(RWKV's, Mamba2's conv and SSM), so a captured decode graph's next
+replay reads them.
 
 Entry points default to ``device="cuda"`` and take the CPU only when
-asked.  Training (``lm_loss``/``train_loss``) and the SSM, hybrid and
-encoder-decoder families come with later slices.
+asked.  Training (``lm_loss``/``train_loss``) and the encoder-decoder
+family come with later slices.
 """
 from __future__ import annotations
 
@@ -37,8 +46,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rmsnorm, rmsnorm_spec
-from repro_torch.models.spec import Par, init_tree
+from repro_torch.models.spec import Par, init_tree, stack
 from repro_torch.models.spec import param_count as spec_param_count
 from repro_torch.models.spec import tree_map
 
@@ -90,6 +100,9 @@ def model_spec(cfg: ModelConfig) -> dict:
                               init="normal", dtype=cfg.dtype)
     for si, st in enumerate(blk.build_stages(cfg)):
         spec[f"stage{si}"] = blk.stage_spec(cfg, st)
+    if cfg.family == "hybrid":
+        spec["shared"] = stack(blk.shared_block_spec(cfg),
+                               cfg.ssm.n_shared_blocks)
     return spec
 
 
@@ -118,13 +131,16 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
     return spec
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: Device = "cuda") -> dict:
-    dev = compat.resolve_device(device)
+def _zeros(spec, device: torch.device) -> dict:
     return tree_map(lambda p: torch.zeros(p.shape,
                                           dtype=compat.torch_dtype(p.dtype),
-                                          device=dev),
-                    cache_spec(cfg, batch, cache_len))
+                                          device=device), spec)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: Device = "cuda") -> dict:
+    return _zeros(cache_spec(cfg, batch, cache_len),
+                  compat.resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -214,16 +230,65 @@ def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, use_moe: bool,
         opts.shardings.get("x") if opts.shardings else None, tile)
 
 
+def _shared_block_full(cfg: ModelConfig, sp: dict, x: torch.Tensor,
+                       x0: torch.Tensor, positions: torch.Tensor,
+                       opts: RunOptions, collect: bool):
+    """zamba2's tied attention block over the whole sequence: attention
+    over concat(x, x0) (d_in 2 x d_model) back to d_model, then the
+    dense FFN.  Returns (x, (k, v) when ``collect``)."""
+    h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
+    res = attn_mod.self_attention(
+        sp["attn"], h, cfg.attention, positions,
+        theta=cfg.attention.rope_theta, window=0, chunk_q=opts.chunk_q,
+        chunk_kv=opts.chunk_kv, return_kv=collect)
+    att, kv = res if collect else (res, None)
+    x = x + att
+    h2 = rmsnorm(x, sp["ln_ffn"])
+    return x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation), kv
+
+
+def _mamba_layer_full(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
+                      x: torch.Tensor, x0: torch.Tensor,
+                      positions: torch.Tensor, opts: RunOptions,
+                      collect: bool, shared: Optional[dict], unit_idx: int,
+                      cache_len: int):
+    """One hybrid layer over the whole sequence (the unit's first also
+    runs its tied shared block); with ``collect``, its decode state
+    ``{"conv", "ssm"}`` (and the shared block's ``shared_k``/``_v``)."""
+    c = {}
+    if dsc.shared_attn:
+        sp = blk.tree_index(shared, unit_idx % cfg.ssm.n_shared_blocks)
+        x, skv = _shared_block_full(cfg, sp, x, x0, positions, opts,
+                                    collect)
+        if collect:
+            c["shared_k"] = _to_cache_buf(skv[0], cache_len, opts)
+            c["shared_v"] = _to_cache_buf(skv[1], cache_len, opts)
+    h = rmsnorm(x, p["ln"])
+    res = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
+                                return_state=collect)
+    m, st = res if collect else (res, None)
+    if collect:
+        c["conv"], c["ssm"] = st["conv"], st["ssm"]
+    return x + m, (c if collect else None)
+
+
 def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
-                     positions: torch.Tensor, opts: RunOptions,
-                     collect: bool, cache_len: int):
+                     x0: torch.Tensor, positions: torch.Tensor,
+                     opts: RunOptions, collect: bool,
+                     shared: Optional[dict], unit_idx: int,
+                     cache_len: int):
     cache = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     a = cfg.attention
     for i, dsc in enumerate(unit):
         p = up[f"pos{i}"]
-        if dsc.kind == "rwkv":
-            x, c = _rwkv_layer_full(cfg, p, x, collect)
+        if dsc.kind in ("rwkv", "mamba"):
+            if dsc.kind == "rwkv":
+                x, c = _rwkv_layer_full(cfg, p, x, collect)
+            else:
+                x, c = _mamba_layer_full(cfg, p, dsc, x, x0, positions,
+                                         opts, collect, shared, unit_idx,
+                                         cache_len)
             if collect:
                 cache[f"pos{i}"] = c
             continue
@@ -254,18 +319,25 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
 
 
 def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
-                    x: torch.Tensor, positions: torch.Tensor,
-                    opts: RunOptions, collect: bool, cache_len: int):
+                    x: torch.Tensor, x0: torch.Tensor,
+                    positions: torch.Tensor, opts: RunOptions,
+                    collect: bool, shared: Optional[dict], cache_len: int):
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(stage.n_units):
         x, d_aux, c = _apply_unit_full(cfg, blk.tree_index(sp, i),
-                                       stage.unit, x, positions, opts,
-                                       collect, cache_len)
+                                       stage.unit, x, x0, positions, opts,
+                                       collect, shared, i, cache_len)
         aux = aux + d_aux
         caches.append(c)
     if not collect:
         return x, aux, None
+    if not caches:
+        # a stage of no units: leaves with a leading 0, as the
+        # reference's scan over no units stacks them
+        return x, aux, _zeros(blk.stage_cache_spec(
+            cfg, stage, x.shape[0], cache_len, opts.windowed_cache),
+            x.device)
     stacked = tree_map(lambda *xs: torch.stack(xs), *caches)
     return x, aux, stacked
 
@@ -280,13 +352,16 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
                                   "slice")
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens, batch)
+    x0 = x
     positions = torch.arange(tokens.shape[1], dtype=torch.long,
                              device=tokens.device)
+    shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for si, st in enumerate(blk.build_stages(cfg)):
-        x, a_i, c_i = _run_stage_full(cfg, params[f"stage{si}"], st, x,
-                                      positions, opts, collect, cache_len)
+        x, a_i, c_i = _run_stage_full(cfg, params[f"stage{si}"], st, x, x0,
+                                      positions, opts, collect, shared,
+                                      cache_len)
         aux = aux + a_i
         caches[f"stage{si}"] = c_i
     x = rmsnorm(x, params["final_norm"])
@@ -329,9 +404,39 @@ def _rwkv_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + cm
 
 
+def _mamba_layer_decode(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
+                        x: torch.Tensor, x0: torch.Tensor,
+                        pos: Union[int, torch.Tensor], c: dict,
+                        shared: Optional[dict], unit_idx: int,
+                        tile: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """One hybrid decode step.  The shared block's new K/V row is
+    written into its cache in place (``decode_attention``); the new
+    conv and SSM states are copied into the cache's buffers (``c``,
+    views of the stacked cache), so a captured graph's next replay
+    reads them."""
+    if dsc.shared_attn:
+        a = cfg.attention
+        sp = blk.tree_index(shared, unit_idx % cfg.ssm.n_shared_blocks)
+        h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
+        att, _, _ = attn_mod.decode_attention(
+            sp["attn"], h, a, c["shared_k"], c["shared_v"], pos,
+            theta=a.rope_theta, window=0, tile=tile)
+        x = x + att
+        h2 = rmsnorm(x, sp["ln_ffn"])
+        x = x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation, tile)
+    h = rmsnorm(x, p["ln"])
+    m, st = ssm_mod.mamba_decode(p["mamba"], h, cfg.ssm,
+                                 {"conv": c["conv"], "ssm": c["ssm"]},
+                                 tile)
+    c["conv"].copy_(st["conv"])
+    c["ssm"].copy_(st["ssm"])
+    return x + m
+
+
 def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
-                       pos: Union[int, torch.Tensor], cache_unit: dict,
-                       opts: RunOptions) -> torch.Tensor:
+                       x0: torch.Tensor, pos: Union[int, torch.Tensor],
+                       cache_unit: dict, shared: Optional[dict],
+                       unit_idx: int, opts: RunOptions) -> torch.Tensor:
     tile = opts.mm_tiles
     a = cfg.attention
     for i, dsc in enumerate(unit):
@@ -339,6 +444,10 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
         c = cache_unit[f"pos{i}"]
         if dsc.kind == "rwkv":
             x = _rwkv_layer_decode(cfg, p, x, c, tile)
+            continue
+        if dsc.kind == "mamba":
+            x = _mamba_layer_decode(cfg, p, dsc, x, x0, pos, c, shared,
+                                    unit_idx, tile)
             continue
         if dsc.kind not in ("attn", "enc_attn"):
             raise NotImplementedError(f"{dsc.kind} layers come with their "
@@ -369,9 +478,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     The cache is preallocated and updated in place: the returned cache
     is the same buffers as ``cache``, holding the new token's K/V at
     ``pos`` (RWKV: the new token-shift and WKV states; ``pos`` is
-    unused).  That in-place update is what ``compat.donated_jit``
-    (buffer donation) buys the reference."""
+    unused; Mamba2: the new conv and SSM states).  That in-place update
+    is what ``compat.donated_jit`` (buffer donation) buys the
+    reference."""
     x = _embed(cfg, params, token[:, None])
+    x0 = x
+    shared = params.get("shared")
     scan_units = (cfg.scan_layers if opts.decode_scan is None
                   else bool(opts.decode_scan))
     for si, st in enumerate(blk.build_stages(cfg)):
@@ -379,12 +491,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         if scan_units:
             for i in range(st.n_units):
                 x = _apply_unit_decode(cfg, blk.tree_index(sp, i), st.unit,
-                                       x, pos, blk.tree_index(sc, i), opts)
+                                       x, x0, pos, blk.tree_index(sc, i),
+                                       shared, i, opts)
         else:
             views = [(blk.tree_index(sp, i), blk.tree_index(sc, i))
                      for i in range(st.n_units)]
-            for up, cu in views:
-                x = _apply_unit_decode(cfg, up, st.unit, x, pos, cu, opts)
+            for i, (up, cu) in enumerate(views):
+                x = _apply_unit_decode(cfg, up, st.unit, x, x0, pos, cu,
+                                       shared, i, opts)
     x = rmsnorm(x, params["final_norm"])
     logits = compute_logits(cfg, params, x[:, 0], opts.mm_tiles)
     return logits, cache

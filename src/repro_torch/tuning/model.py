@@ -141,15 +141,28 @@ def decode_products(cfg, batch: int) -> List[Tuple[int, int, int, bool, int]]:
     step makes, each distinct shape once with its count, layer by layer
     as ``models.blocks.build_stages`` lays the model out: an attention
     layer's projections and dense FFN (an MoE layer's shared expert; its
-    routed experts are einsums), an RWKV layer's sixteen, and the logits
-    against the [V, d] table."""
+    routed experts are einsums), an RWKV layer's sixteen, a Mamba2
+    layer's ``in_proj`` and ``out_proj`` (and, first in a zamba2 unit,
+    its shared block's projections from concat(x, x0) and dense FFN),
+    and the logits against the [V, d] table."""
     from repro_torch.models import blocks
     from repro_torch.models.ffn import is_gated
+    from repro_torch.models.ssm import ssm_dims
     d = cfg.d_model
     counts: Dict[Tuple[int, int], int] = {}
 
     def add(k, n, times):
-        counts[(k, n)] = counts.get((k, n), 0) + times
+        if times:
+            counts[(k, n)] = counts.get((k, n), 0) + times
+
+    def attn_ffn(d_in, times, ff):
+        a = cfg.attention
+        add(d_in, a.num_heads * a.head_dim, times)
+        add(d_in, a.num_kv_heads * a.head_dim, 2 * times)
+        add(a.num_heads * a.head_dim, d, times)
+        if ff:
+            add(d, ff, (2 if is_gated(cfg.activation) else 1) * times)
+            add(ff, d, times)
 
     for st in blocks.build_stages(cfg):
         for dsc in st.unit:
@@ -160,18 +173,19 @@ def decode_products(cfg, batch: int) -> List[Tuple[int, int, int, bool, int]]:
                                 (d, d, 6), (d, cfg.d_ff, 1), (cfg.d_ff, d, 1)):
                     add(k, n, c * st.n_units)
                 continue
+            if dsc.kind == "mamba":
+                s = cfg.ssm
+                d_inner, nheads, _ = ssm_dims(d, s)
+                if dsc.shared_attn:
+                    attn_ffn(2 * d, st.n_units, cfg.d_ff)
+                add(d, 2 * d_inner + 2 * s.state_dim + nheads, st.n_units)
+                add(d_inner, d, st.n_units)
+                continue
             if dsc.kind != "attn":
                 raise NotImplementedError(f"decode products of {dsc.kind} "
                                           "layers come with their family")
-            a = cfg.attention
-            add(d, a.num_heads * a.head_dim, st.n_units)
-            add(d, a.num_kv_heads * a.head_dim, 2 * st.n_units)
-            add(a.num_heads * a.head_dim, d, st.n_units)
-            ff = cfg.moe.shared_expert_ff if dsc.use_moe else cfg.d_ff
-            if ff:
-                add(d, ff, (2 if is_gated(cfg.activation) else 1)
-                    * st.n_units)
-                add(ff, d, st.n_units)
+            attn_ffn(d, st.n_units,
+                     cfg.moe.shared_expert_ff if dsc.use_moe else cfg.d_ff)
     products = [(batch, k, n, False, c) for (k, n), c in counts.items()]
     return products + [(batch, d, cfg.padded_vocab, True, 1)]
 

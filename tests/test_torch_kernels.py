@@ -24,6 +24,7 @@ import torch
 
 from conftest import KERNEL_TOLERANCES, assert_kernel_close
 from repro.kernels.flash_attention.ops import attention as jax_attention
+from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro.kernels.spm_matmul.ops import matmul as jax_matmul
 from repro.kernels.spm_matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.convert import tensor_from_numpy
@@ -185,6 +186,41 @@ def test_plain_flash_matches_pallas(B, Sq, Sk, H, KV, D, causal, window,
     want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          causal=causal, window=window, interpret=True)
     assert_kernel_close(_f32(got), _f32(want), dtype)
+
+
+# zamba2's shared attention blocks: head dim 112 (3584 / 32), MHA
+FLASH_D112 = [(2, 128, 4, 4, True, 0, "float32"),
+              (2, 128, 4, 4, True, 0, "bfloat16"),
+              (1, 100, 4, 2, True, 24, "bfloat16"),     # ragged, windowed
+              (1, 64, 2, 2, False, 0, "float32")]
+
+
+@pytest.mark.parametrize("B,S,H,KV,causal,window,dtype", FLASH_D112)
+def test_plain_flash_d112_matches_pallas_and_oracle(B, S, H, KV, causal,
+                                                    window, dtype):
+    rng = np.random.default_rng(112 + S + H)
+    q, k, v = (_np(rng.standard_normal((B, S, n, 112), np.float32), dtype)
+               for n in (H, KV, KV))
+    got = fa_ops.attention(*(tensor_from_numpy(t) for t in (q, k, v)),
+                           causal=causal, window=window)
+    assert got.shape == (B, S, H, 112)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    want = jax_attention(jq, jk, jv, causal=causal, window=window,
+                         interpret=True)
+    assert_kernel_close(_f32(got), _f32(want), dtype)
+    assert_kernel_close(_f32(got), _f32(jax_attn_ref(
+        jq, jk, jv, causal=causal, window=window)), dtype)
+
+
+def test_flash_smem_plan_at_head_dim_112():
+    """D = 112 rows pad to 120 bf16 (240 bytes, 15 x 16): Q and two K
+    and V buffers take 76,800 bytes on ``tensor_core`` (three blocks an
+    SM); the fp32 path's 103,424 leave two."""
+    tc = gpu_mapping.flash_smem_plan(112, "tensor_core")
+    fma = gpu_mapping.flash_smem_plan(112, "fma")
+    assert (tc["smem_need"], fma["smem_need"]) == (76_800, 103_424)
+    assert (tc["blocks_per_sm"], fma["blocks_per_sm"]) == (3, 2)
+    assert (112 + gpu_mapping.FLASH_TC_PAD) * 2 // 16 % 2 == 1
 
 
 def test_flash_first_tile_fully_masked_row_is_cleared():
@@ -712,3 +748,33 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):
         fa_ops.attention(q, q, q)               # head dim 48: no kernel
     assert (mm_ops.matmul.launches, fa_ops.attention.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,aligned", [(torch.bfloat16, True),
+                                           (torch.bfloat16, False),
+                                           (torch.float32, True)])
+def test_cuda_flash_d112_launches_its_path_and_matches_plain(
+        cuda_device, dtype, aligned):
+    """zamba2's head dim on the card: bf16 rows on the 16-byte grid take
+    the tensor-core kernel, fp32 and off-grid rows the fma kernel; each
+    launch counts once and holds to the plain version.  Head dim 120,
+    which no kernel is compiled for, raises and launches nothing."""
+    from repro_torch.kernels.tolerance import check
+    g = torch.Generator(device=cuda_device).manual_seed(112)
+    off = int(not aligned)
+    q, k, v = (torch.randn(2, 100, n, 112 + off, generator=g,
+                           device=cuda_device).to(dtype)[..., off:]
+               for n in (8, 8, 8))
+    path = fa_ops.select_path(dtype, aligned)
+    before = dict(fa_ops.attention.paths)
+    got = fa_ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.attention.paths[path] == before[path] + 1
+    want = fa_ops.attention_plain(q, k, v, causal=True)
+    assert check(got, want, dtype)[0] < 1
+    launches = fa_ops.attention.launches
+    x = torch.ones(1, 64, 2, 120, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.attention(x, x, x)
+    assert fa_ops.attention.launches == launches

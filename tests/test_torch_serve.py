@@ -94,8 +94,9 @@ def test_wcet_bound_derives_from_the_served_plan():
 
 # weight-pass products per layer of one decode step: q k v o gate up
 # down; rwkv's time mix mix_w1, mix_w2 x 5, wd_w1, wd_w2, r k v g o and
-# its channel mix k v r
-PRODUCTS_PER_LAYER = {"qwen2-0.5b": 7, "rwkv6-1.6b": 16}
+# its channel mix k v r; zamba2's in_proj and out_proj (2 layers: a
+# stage of no units, so no tied block, and a tail of two mamba layers)
+PRODUCTS_PER_LAYER = {"qwen2-0.5b": 7, "rwkv6-1.6b": 16, "zamba2-7b": 2}
 
 
 @pytest.mark.parametrize("arch", sorted(PRODUCTS_PER_LAYER))
@@ -141,9 +142,12 @@ def test_default_plan_follows_the_reference_rules():
     assert plan_sig(plan) == jax_plan_sig(plan)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b", "zamba2-7b"])
 def test_shed_batch_slices_only_the_batch_axis(arch):
-    cfg = reduce_config(get_config(arch), layers=2, d_model=64, vocab=256)
+    # zamba2 at 8 layers: one unit, so the tied block's K/V too
+    layers = 8 if arch == "zamba2-7b" else 2
+    cfg = reduce_config(get_config(arch), layers=layers, d_model=64,
+                        vocab=256)
     cache = lm.init_cache(cfg, 4, 40, device="cpu")
     for _, leaf in tree_items(cache):
         leaf.normal_()
@@ -270,7 +274,7 @@ def test_no_trace_without_repro_trace(monkeypatch, capsys):
     assert "trace:" not in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b", "zamba2-7b"])
 def test_compile_step_fns_on_cpu_match_direct_lm_calls(arch):
     """On the CPU, ``compile_step_fns`` are the plain ``lm.prefill`` and
     ``lm.decode_step``: the same logits and greedy tokens as calling

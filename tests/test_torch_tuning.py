@@ -492,9 +492,9 @@ def test_launch_plan_without_an_entry_is_the_untuned_launch(caches, shape):
 
 
 def test_main_path_products_cover_the_served_models():
-    assert len(MAIN_PRODUCTS) == 35
+    assert len(MAIN_PRODUCTS) == 46
     for arch, B, P in (("qwen2-0.5b", 4, 256), ("rwkv6-1.6b", 4, 256),
-                       ("gemma3-12b", 4, 2048)):
+                       ("gemma3-12b", 4, 2048), ("zamba2-7b", 4, 512)):
         cfg = get_config(arch)
         for m, k, n, tb, _ in port_model.decode_products(cfg, B):
             assert (m, k, n, tb) in MAIN_PRODUCTS
@@ -689,6 +689,43 @@ def test_decode_products_count_the_serves_products():
         prods = port_model.decode_products(cfg, 4)
         assert sum(c for *_, c in prods) == per_layer * cfg.num_layers + 1
         assert [p[3] for p in prods].count(True) == 1
+
+
+def test_decode_products_of_zamba2_count_its_spec():
+    """zamba2-7b at batch 4, counted from ``lm.model_spec``: each mamba
+    layer's in_proj (3584 -> 14576) and out_proj (7168 -> 3584), and, once
+    per unit (13), a tied block's wq/wk/wv (7168 -> 3584), wo and its
+    ungated GELU FFN; then the transposed-B logits.  241 launches a step
+    in 6 shapes (out_proj and the tied q/k/v share 7168 -> 3584)."""
+    from collections import Counter
+
+    from repro_torch.models import lm as plm
+    from repro_torch.models.spec import tree_items
+    cfg = get_config("zamba2-7b")
+    spec = plm.model_spec(cfg)
+    want = Counter()
+    for path, par in tree_items(spec):
+        if path.startswith("stage") and path.endswith(("/in_proj",
+                                                       "/out_proj")):
+            units, k, n = par.shape
+            want[(k, n)] += units
+    uses = cfg.num_layers // cfg.ssm.shared_attn_every
+    attn, ffn = spec["shared"]["attn"], spec["shared"]["ffn"]
+    for name in ("wq", "wk", "wv"):
+        _, k, heads, hd = attn[name].shape
+        want[(k, heads * hd)] += uses
+    _, heads, hd, n = attn["wo"].shape
+    want[(heads * hd, n)] += uses
+    assert set(ffn) == {"w_gate", "w_down"}
+    for par in ffn.values():
+        _, k, n = par.shape
+        want[(k, n)] += uses
+    prods = port_model.decode_products(cfg, 4)
+    assert {(k, n): c for m, k, n, tb, c in prods if not tb} == dict(want)
+    assert all(m == 4 for m, *_ in prods)
+    assert [p for p in prods if p[3]] == [(4, 3584, 32_000, True, 1)]
+    assert (len(prods), sum(c for *_, c in prods)) == (6, 241)
+    assert want[(7168, 3584)] == 81 + 3 * 13
 
 
 def test_tuned_serving_plan_has_the_reference_keys():
