@@ -31,8 +31,10 @@ Phases, one result line each; any failure exits non-zero:
             and must give the same bits.  wkv6's serve shape runs once
             more through the kernel built with its per-step clock
             counters (``WKV6_STEP_CLOCKS``), which say which step of a
-            block takes its time.  Then the kernel's time, the plain
-            version's, a
+            block takes its time.  flash_attention's cases carry Sq and
+            Sk apart: whisper's cross-attention shapes (Sq != Sk, both
+            ways round, bf16 and fp32, unmasked) run beside the main
+            path's.  Then the kernel's time, the plain version's, a
             PyTorch library call's where one computes the same function
             (a yardstick the port never calls) and the bound from the
             datasheet rates.
@@ -42,9 +44,13 @@ Phases, one result line each; any failure exits non-zero:
             prompt) and zamba2-7b (15 layers: two units of a tied
             shared-attention block and six Mamba2 layers, so both tied
             blocks run, and a tail of three; two SSD chunks of 32 in the
-            prompt), fp32, on the card against the same converted
-            parameters on the CPU: prefill logits within 1e-4 of the
-            largest logit, 8 greedy tokens identical.  Then reduced
+            prompt), whisper-base (2 decoder and 2 encoder layers, 96
+            frames against the 64-token prompt, so the cross-attention
+            runs flash at Sq != Sk) and pixtral-12b (2 layers, patch
+            embeddings over the first 16 positions), fp32, on the card
+            against the same converted parameters on the CPU: prefill
+            logits within 1e-4 of the largest logit, 8 greedy tokens
+            identical.  Then reduced
             qwen3-moe-235b-a22b through ``repro_torch.launch.serve`` on
             the card and on the CPU: the card replays its captured MoE
             prefill and decode graphs and must give the CPU's tokens.
@@ -52,8 +58,11 @@ Phases, one result line each; any failure exits non-zero:
             and depth (qwen2-0.5b and rwkv6-1.6b: 24 layers, prompt 256;
             gemma3-12b: 48 layers, prompt 2048, twice its local window;
             zamba2-7b: 81 Mamba2 layers and 13 tied-block applications,
-            prompt 512, two SSD chunks of 256; bf16, batch 4, 32 new
-            tokens), qwen2-0.5b's with
+            prompt 512, two SSD chunks of 256; whisper-base: 6 encoder
+            and 6 decoder layers, prompt 1536 and frames as long, the
+            config's cross K/V length; pixtral-12b: 40 layers, prompt
+            1024, the stub's patch positions, no patches fed; bf16,
+            batch 4, 32 new tokens), qwen2-0.5b's with
             ``REPRO_TRACE`` set.  Launch counters are zeroed just before
             each serve and read just after; each kernel of that path
             must have launched, and all 4x32 tokens must come out (a
@@ -64,27 +73,33 @@ Phases, one result line each; any failure exits non-zero:
             kernel once per layer (spm_matmul once per product), one
             decode replay the step's spm_matmul products (zamba2: 241
             spm_matmul and 13 flash_attention, at head dim 112, a prefill
-            replay; 241 spm_matmul a decode replay).  The wrappers
+            replay; 241 spm_matmul a decode replay; whisper-base: 97
+            spm_matmul and 18 flash_attention, encoder, decoder self and
+            cross, a prefill replay, 49 spm_matmul a decode replay;
+            pixtral-12b: 281 and 40, and 281).  The wrappers
             themselves must have launched for exactly two prefills and
             two decode steps (each graph's eager warm-up and its
             capture), so nothing timed ran eagerly; their path counters
             must show every decode product but the logits on the
             split-K path and every prefill product but the logits on the
-            wgmma path (and, for qwen2-0.5b, gemma3-12b and zamba2-7b,
-            every flash_attention launch, for rwkv6-1.6b every wkv6
-            launch, on its tensor-core kernel).  Then the same model,
+            wgmma path (and, for every model but rwkv6-1.6b, every
+            flash_attention launch, for rwkv6-1.6b every wkv6 launch,
+            on its tensor-core kernel).  Then the same model,
             weights and prompt again through ``serve.compile_step_fns``:
             the prefill graph's logits must be bit-identical to an eager
             ``lm.prefill``'s, and 8 greedy tokens through the graphs
-            identical to 8 through eager calls.
+            identical to 8 through eager calls; for whisper-base's
+            padded vocabulary, the logits past 51,865 of the prefill
+            replay and of a decode replay all -1e30, no argmax there.
 6. trace    each served model's decode graph, and gemma3-12b's and
             zamba2-7b's prefill graphs, replayed under
             ``torch.profiler``: the replay's time (CUDA events), the
             device's busy share, and its kernels' device time by family.
 7. predictability  the jitter statistics (median, p99, spread, CoV,
             WCET margin) of each serve's 32 decode steps and of its
-            prefill graph's replays timed by CUDA events (10 for qwen2
-            and rwkv6, 3 for gemma3 and zamba2), as a schema-v1 report
+            prefill graph's replays timed by CUDA events (10 for qwen2,
+            rwkv6 and whisper, 3 for gemma3, zamba2 and pixtral), as a
+            schema-v1 report
             (``repro_torch.obs.make_report``) that
             ``repro_torch.obs.validate_report`` must accept, written to
             ``chiprun_out/chip_smoke_report.json``; and qwen2's
@@ -246,9 +261,10 @@ def matmul_cases():
     """(label, m, k, n, trans_b, dtype, out_dtype, plan, main_path);
     the main path's shapes of qwen2-0.5b, of rwkv6-1.6b, of gemma3-12b
     (prefill M = 4 x 2048; the tied logits read the 262,144 x 3840
-    table, 2.01 GB, in place) and of zamba2-7b (prefill M = 4 x 512;
+    table, 2.01 GB, in place), of zamba2-7b (prefill M = 4 x 512;
     in_proj's N = 14,576 leaves 48 columns past the split-K tiles and
-    112 past the wgmma tiles)."""
+    112 past the wgmma tiles), of whisper-base (K = 512 at M = 6144 on
+    wgmma: 8 K steps a tile) and of pixtral-12b (d 5120)."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
     d, ff, V, B, BP = 896, 4864, 151_936, 4, 4 * 256
@@ -289,6 +305,27 @@ def matmul_cases():
                           {}, True))
     cases.append(("zamba2 logits (lm_head^T)", B, zd, zV, True, bf, f32, {},
                   True))
+    # whisper-base: prefill M = 4 x 1536 (frames as long as the prompt);
+    # q/k/v/o of the encoder, decoder self and cross blocks are all
+    # 512 x 512; the logits read the padded 51,968-row table
+    wd, wff, wV, WP = 512, 2048, 51_968, 4 * 1536
+    for phase, m in (("decode", B), ("prefill", WP)):
+        for what, k, n in (("q/k/v/o (self, cross, encoder)", wd, wd),
+                           ("ffn up", wd, wff), ("ffn down", wff, wd)):
+            cases.append((f"whisper {phase} {what}", m, k, n, False, bf,
+                          None, {}, True))
+    cases.append(("whisper logits (lm_head^T)", B, wd, wV, True, bf, f32, {},
+                  True))
+    # pixtral-12b: prefill M = 4 x 1024
+    pd, pq, pkv, pff, pV, PP = 5120, 4096, 1024, 14_336, 131_072, 4 * 1024
+    for phase, m in (("decode", B), ("prefill", PP)):
+        for what, k, n in (("q proj", pd, pq), ("k/v proj", pd, pkv),
+                           ("o proj", pq, pd), ("gate/up", pd, pff),
+                           ("down", pff, pd)):
+            cases.append((f"pixtral {phase} {what}", m, k, n, False, bf,
+                          None, {}, True))
+    cases.append(("pixtral logits (lm_head^T)", B, pd, pV, True, bf, f32, {},
+                  True))
     cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
     for m in (1, 2, 48, 259):
         cases.append((f"ragged M={m}", m, d, d, False, bf, None, {},
@@ -302,36 +339,54 @@ def matmul_cases():
 
 
 def flash_cases():
-    """(label, B, S, H, KV, D, causal, window, dtype, main_path)."""
+    """(label, B, Sq, Sk, H, KV, D, causal, window, dtype, main_path).
+    whisper-base's cross-attention prefill at the served prompt has the
+    encoder's shape (Sq = Sk = 1536, unmasked); Sq != Sk runs off the
+    main path: its 448-token decoder context against the 1500 frames of
+    its 30 s window, fp32, and Sq > Sk."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [("serve prefill", 4, 256, 14, 2, 64, True, 0, bf, True),
-             ("gemma3 prefill, global", 4, 2048, 16, 8, 256, True, 0, bf,
+    cases = [("serve prefill", 4, 256, 256, 14, 2, 64, True, 0, bf, True),
+             ("gemma3 prefill, global", 4, 2048, 2048, 16, 8, 256, True, 0,
+              bf, True),
+             ("gemma3 prefill, local", 4, 2048, 2048, 16, 8, 256, True,
+              1024, bf, True),
+             ("zamba2 shared-attention prefill", 4, 512, 512, 32, 32, 112,
+              True, 0, bf, True),
+             ("whisper encoder and cross prefill", 4, 1536, 1536, 8, 8, 64,
+              False, 0, bf, True),
+             ("whisper decoder self prefill", 4, 1536, 1536, 8, 8, 64,
+              True, 0, bf, True),
+             ("pixtral prefill", 4, 1024, 1024, 32, 8, 128, True, 0, bf,
               True),
-             ("gemma3 prefill, local", 4, 2048, 16, 8, 256, True, 1024, bf,
-              True),
-             ("zamba2 shared-attention prefill", 4, 512, 32, 32, 112, True,
-              0, bf, True),
-             ("ragged S=100 D=112", 2, 100, 8, 8, 112, True, 0, bf, False),
-             ("fp32 D=112", 1, 256, 4, 4, 112, True, 0, f32, False),
-             ("unaligned bf16 D=112", 1, 128, 4, 4, 112, True, 0, bf,
+             ("cross Sq 448 Sk 1500", 4, 448, 1500, 8, 8, 64, False, 0, bf,
               False),
-             ("ragged S=100 D=256 window 24", 2, 100, 4, 2, 256, True, 24,
-              bf, False),
-             ("fp32 D=256 window 64", 1, 256, 4, 2, 256, True, 64, f32,
+             ("cross fp32 Sq 100 Sk 300", 2, 100, 300, 8, 8, 64, False, 0,
+              f32, False),
+             ("cross Sq 200 > Sk 64", 2, 200, 64, 8, 8, 64, False, 0, bf,
               False),
-             ("unaligned bf16 D=256", 1, 128, 4, 2, 256, True, 0, bf,
+             ("ragged S=100 D=112", 2, 100, 100, 8, 8, 112, True, 0, bf,
               False),
-             ("windowed", 4, 256, 14, 2, 64, True, 64, bf, False),
-             ("non-causal", 4, 256, 14, 2, 64, False, 0, bf, False),
-             ("ragged S=100", 2, 100, 14, 2, 64, True, 0, bf, False),
-             ("S=100 window 24", 1, 100, 4, 1, 32, True, 24, bf, False),
-             ("unaligned bf16", 2, 100, 4, 1, 64, True, 0, bf, False),
-             ("ragged S=100 fp32", 2, 100, 4, 1, 128, True, 0,
-              torch.float32, False)]
-    for b, sq, _, h, kv, d, causal, w, dt in \
+             ("fp32 D=112", 1, 256, 256, 4, 4, 112, True, 0, f32, False),
+             ("unaligned bf16 D=112", 1, 128, 128, 4, 4, 112, True, 0, bf,
+              False),
+             ("ragged S=100 D=256 window 24", 2, 100, 100, 4, 2, 256, True,
+              24, bf, False),
+             ("fp32 D=256 window 64", 1, 256, 256, 4, 2, 256, True, 64, f32,
+              False),
+             ("unaligned bf16 D=256", 1, 128, 128, 4, 2, 256, True, 0, bf,
+              False),
+             ("windowed", 4, 256, 256, 14, 2, 64, True, 64, bf, False),
+             ("non-causal", 4, 256, 256, 14, 2, 64, False, 0, bf, False),
+             ("ragged S=100", 2, 100, 100, 14, 2, 64, True, 0, bf, False),
+             ("S=100 window 24", 1, 100, 100, 4, 1, 32, True, 24, bf,
+              False),
+             ("unaligned bf16", 2, 100, 100, 4, 1, 64, True, 0, bf, False),
+             ("ragged S=100 fp32", 2, 100, 100, 4, 1, 128, True, 0, f32,
+              False)]
+    for b, sq, sk, h, kv, d, causal, w, dt in \
             CONFORMANCE_SHAPES["flash_attention"]:
-        cases.append(("conformance", b, sq, h, kv, d, causal, w,
+        cases.append(("conformance", b, sq, sk, h, kv, d, causal, w,
                       getattr(torch, dt), False))
     return cases
 
@@ -355,11 +410,11 @@ def wkv_cases():
     return cases
 
 
-def mask_of(S, causal, window, dev):
-    """[S, S] bool: the (q, k) pairs the kernel must attend to."""
-    q = torch.arange(S, device=dev)[:, None]
-    k = torch.arange(S, device=dev)[None, :]
-    ok = torch.ones(S, S, dtype=torch.bool, device=dev)
+def mask_of(Sq, Sk, causal, window, dev):
+    """[Sq, Sk] bool: the (q, k) pairs the kernel must attend to."""
+    q = torch.arange(Sq, device=dev)[:, None]
+    k = torch.arange(Sk, device=dev)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
     if causal:
         ok &= k <= q
     if window > 0:
@@ -473,12 +528,12 @@ def run_flash(dev, gen):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
     rows = []
-    for label, B, S, H, KV, D, causal, w, dt, main in flash_cases():
+    for label, B, Sq, Sk, H, KV, D, causal, w, dt, main in flash_cases():
         # "unaligned": each head's row one element off the 16-byte grid
         off = int(label.startswith("unaligned"))
-        q, k, v = (torch.randn(B, S, n, D + off, generator=gen,
+        q, k, v = (torch.randn(B, s, n, D + off, generator=gen,
                                device=dev).to(dt)[..., off:]
-                   for n in (H, KV, KV))
+                   for s, n in ((Sq, H), (Sk, KV), (Sk, KV)))
         before = dict(ops.attention.paths)
         got = ops.attention(q, k, v, causal=causal, window=w)
         torch.cuda.synchronize()
@@ -503,7 +558,8 @@ def run_flash(dev, gen):
             fail(f"flash_attention {label}: the check misses a 5 % scale "
                  f"error ({fault:.3f} of its allowance)")
         row = {"kernel": "flash_attention", "case": label,
-               "shape": [B, S, H, KV, D], "causal": causal, "window": w,
+               "shape": [B, Sq, Sk, H, KV, D], "causal": causal,
+               "window": w,
                "dtype": str(dt), "path": path,
                "deterministic": main or None, "err_ratio": ratio,
                "fault_ratio": fault,
@@ -514,14 +570,15 @@ def run_flash(dev, gen):
             x, y, z, causal=causal, window=w), sets)
         row["plain_ms"] = time_ms(lambda x, y, z: ops.attention_plain(
             x, y, z, causal=causal, window=w), sets)
-        mask = mask_of(S, causal, w, dev)
+        mask = mask_of(Sq, Sk, causal, w, dev)
         row["library_ms"], row["library_backend"] = library_attention_ms(
             q, k, v, causal, w, mask)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * D * int(mask.sum()) * B * H
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
         rows.append(row)
-        print(f"  flash_attention {label:18s} B{B} S{S} H{H} KV{KV} D{D} "
+        print(f"  flash_attention {label:18s} B{B} Sq{Sq} Sk{Sk} H{H} "
+              f"KV{KV} D{D} "
               f"causal={causal} window={w} {str(dt)[6:]:8s} {path} err "
               f"{ratio:.3f} of allowance (scale x1.05 {fault:.1f})  max abs "
               f"{diff:.2e}  kernel {row['ms']:.4f} ms  "
@@ -538,15 +595,18 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
 
 def library_attention_ms(q, k, v, causal, window, mask):
     """The yardstick: ``scaled_dot_product_attention`` on the same
-    inputs (the fused causal form where no window asks for a mask), run
-    by the first of ``SDPA_BACKENDS`` that takes the call; returns its
-    ms and that backend's name."""
+    inputs (no mask where the call is unmasked, the fused causal form
+    where no window asks for a mask), run by the first of
+    ``SDPA_BACKENDS`` that takes the call; returns its ms and that
+    backend's name."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
     args = [tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))]
-    kw = ({"is_causal": True} if causal and not window
-          else {"attn_mask": mask})
+    if window:
+        kw = {"attn_mask": mask}
+    else:
+        kw = {"is_causal": causal}
 
     def call(x, y, z):
         return F.scaled_dot_product_attention(x, y, z, enable_gqa=True, **kw)
@@ -722,11 +782,16 @@ def phase_kernels(dev):
 
 # the reduced models of phase 4: arch -> layers (gemma3: one unit of its
 # five local and one global layer, its window cut below the prompt;
-# zamba2: two units, so both tied blocks run, and a tail of three)
+# zamba2: two units, so both tied blocks run, and a tail of three;
+# whisper: two decoder and two encoder layers)
 MODELS = {"qwen2-0.5b": 2, "rwkv6-1.6b": 2, "gemma3-12b": 6,
           "qwen3-moe-235b-a22b": 2, "llama4-maverick-400b-a17b": 2,
-          "zamba2-7b": 15}
+          "zamba2-7b": 15, "whisper-base": 2, "pixtral-12b": 2}
 REDUCED_WINDOW = 16
+# phase 4's whisper frames are longer than its prompt (Sq != Sk in the
+# cross-attention); its pixtral replaces the first 16 token embeddings
+REDUCED_FRAMES = 96
+REDUCED_PATCHES = 16
 
 
 def phase_model(dev, arch):
@@ -753,22 +818,37 @@ def phase_model(dev, arch):
         if path.rsplit("/", 1)[-1] in ("u", "maa_x", "maa_rkvwg", "maa_k",
                                        "maa_r"):
             leaf.copy_(0.3 * torch.randn(leaf.shape, generator=gen))
+    a = cfg.attention
     if "shared" in cpu_params:
         # the init rule takes the head count as the tied blocks' q/k
         # fan-in; at the fan-in of their 2d inputs their softmax is not
         # one-hot up to near ties, which fp32 rounding would decide
-        a = cfg.attention
         for name in ("wq", "wk"):
             cpu_params["shared"]["attn"][name].mul_(
                 math.sqrt(a.num_heads / (2 * cfg.d_model)))
+    if cfg.family == "encdec":
+        # the same for whisper's unmasked encoder and cross-attention:
+        # q/k at the fan-in of their d inputs
+        for blk in (cpu_params["encoder"]["stack"]["pos0"]["attn"],
+                    cpu_params["stage0"]["pos0"]["self"],
+                    cpu_params["stage0"]["pos0"]["cross"]):
+            for name in ("wq", "wk"):
+                blk[name].mul_(math.sqrt(a.num_heads / cfg.d_model))
     np_params = tree_map(lambda t: t.numpy(), cpu_params)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
+                                     generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, REDUCED_FRAMES, cfg.d_model),
+                                      generator=gen)
+    if cfg.frontend.kind == "patches" and cfg.frontend.num_positions:
+        batch["patch_embeds"] = 0.02 * torch.randn(
+            (B, REDUCED_PATCHES, cfg.d_model), generator=gen)
     runs = {}
     for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
         params = convert.params_from_numpy(cfg, np_params, d)
-        gen = torch.Generator().manual_seed(1)
-        tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen)
-        logits, cache = lm.prefill(cfg, params, {"tokens": tokens.to(d)},
-                                   opts)
+        logits, cache = lm.prefill(
+            cfg, params, {k: v.to(d) for k, v in batch.items()}, opts)
         first = logits.cpu()
         toks = []
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
@@ -781,14 +861,17 @@ def phase_model(dev, arch):
     rel, _ = rel_err(runs["cuda"][0][:, :cfg.vocab_size],
                      runs["cpu"][0][:, :cfg.vocab_size])
     same = torch.equal(runs["cuda"][1], runs["cpu"][1])
-    print(f"phase 4 model: reduced {arch} fp32 card vs CPU: prefill "
-          f"logits rel err {rel:.2e} (tol {MODEL_TOL:.0e}); {G} greedy "
-          f"tokens identical: {same}", flush=True)
+    fed = ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items())
+    print(f"phase 4 model: reduced {arch} fp32 ({fed}) card vs CPU: "
+          f"prefill logits rel err {rel:.2e} (tol {MODEL_TOL:.0e}); {G} "
+          f"greedy tokens identical: {same}", flush=True)
     if not rel < MODEL_TOL:
         fail("reduced model logits disagree between card and CPU")
     if not same:
         fail(f"greedy tokens differ: card {runs['cuda'][1].tolist()} "
              f"cpu {runs['cpu'][1].tolist()}")
+    return {"layers": MODELS[arch], "fed": fed, "logits_rel_err": rel,
+            "tokens_identical": same}
 
 
 MOE_SERVE = ["--arch", "qwen3-moe-235b-a22b", "--dtype", "float32",
@@ -854,6 +937,24 @@ SERVES = {
                   "per_prefill": {"spm_matmul": 81 * 2 + 13 * 6 + 1,
                                   "flash_attention": 13},
                   "mm_per_step": 81 * 2 + 13 * 6 + 1},
+    # prompt 1536: the config's cross_kv_len; frames as long as the
+    # prompt.  Prefill: 6 encoder layers of 6 products, 6 decoder layers
+    # of 10 (self q/k/v/o, cross q/k/v/o, FFN up/down), one flash launch
+    # each for the encoder, the decoder self and the cross blocks; decode:
+    # 8 a layer (the cross k/v are prefill-only).  Vocab 51,865 padded to
+    # 51,968: the padded logits must stay masked
+    "whisper-base": {"prompt": 1536, "vocab": 51_865,
+                     "kernels": ("spm_matmul", "flash_attention"),
+                     "per_prefill": {"spm_matmul": 6 * 6 + 6 * 10 + 1,
+                                     "flash_attention": 3 * 6},
+                     "mm_per_step": 8 * 6 + 1},
+    # prompt 1024: the stub's num_positions (the serve feeds no patches,
+    # so the dense path serves); head dim 128
+    "pixtral-12b": {"prompt": 1024, "vocab": 131_072,
+                    "kernels": ("spm_matmul", "flash_attention"),
+                    "per_prefill": {"spm_matmul": 7 * 40 + 1,
+                                    "flash_attention": 40},
+                    "mm_per_step": 7 * 40 + 1},
 }
 
 
@@ -864,7 +965,7 @@ G = 32
 # prefill graph replays timed per served arch, greedy tokens compared
 # between the graphs and eager calls
 PREFILL_REPLAYS = {"qwen2-0.5b": 10, "rwkv6-1.6b": 10, "gemma3-12b": 3,
-                   "zamba2-7b": 3}
+                   "zamba2-7b": 3, "whisper-base": 10, "pixtral-12b": 3}
 PARITY_TOKENS = 8
 
 
@@ -970,6 +1071,10 @@ def phase_capture(dev, arch, timing=True, phase=5):
     if not torch.equal(graph_toks, eager_toks):
         fail(f"{arch}: greedy tokens through the graphs differ from "
              f"eager ones")
+    if cfg.padded_vocab != V:
+        check_padded_logits(arch, cfg, captured,
+                            step(graph_toks[:, -1].to(dev),
+                                 P + PARITY_TOKENS - 1))
     del eager, cache
     release()
     if not timing:
@@ -994,6 +1099,24 @@ def phase_capture(dev, arch, timing=True, phase=5):
             f"{arch} prefill (graph replay, 4 x {P} tokens)",
             lambda i: prefill_fn(batch), 1)
     return out
+
+
+def check_padded_logits(arch, cfg, prefill_logits, decode_logits):
+    """A padded vocabulary's tail, after the prefill replay and after a
+    decode replay: every padded logit exactly -1e30, and no argmax over
+    the whole padded row there."""
+    V = cfg.vocab_size
+    for what, logits in (("prefill", prefill_logits),
+                         ("decode", decode_logits)):
+        tail = logits[:, V:]
+        masked = bool((tail == -1e30).all())
+        top = int(torch.argmax(logits, dim=-1).max())
+        print(f"phase 5 capture {arch}: {what} replay's padded logits "
+              f"[:, {V}:{cfg.padded_vocab}] all -1e30 {masked}; largest "
+              f"argmax over the padded row {top}", flush=True)
+        if not masked or top >= V:
+            fail(f"{arch}: the {what} replay's padded logits are not "
+                 f"masked (argmax {top}, vocab {V})")
 
 
 # kernel families of a trace: the first pattern a kernel's name contains
@@ -1365,11 +1488,21 @@ def serve_products(cfg, B, P):
     """(m, k, n, trans_b, count, pinned) of a serve's spm_matmul calls
     for one prefill and one decode step: the decode step's products
     (``tuning.model.decode_products``) carry the serving plan's pins;
-    the prefill's run them at M = B x P without pins, but its logits,
-    taken at the last position (M = B)."""
+    the prefill's run them at M = B x P without pins, with an encoder's
+    products and a decoder's cross k/v, but its logits, taken at the
+    last position (M = B)."""
     from repro_torch.tuning.model import decode_products
     decode = decode_products(cfg, B)
     prefill = [(B * P, k, n, tb, c) for _, k, n, tb, c in decode if not tb]
+    if cfg.family == "encdec":
+        # the encoder's layers (frames as long as the prompt) and the
+        # decoder's cross k/v, which decode does not run
+        a, d, E = cfg.attention, cfg.d_model, cfg.encdec.encoder_layers
+        hq, hkv = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+        prefill += [(B * P, d, hq, False, E), (B * P, hq, d, False, E),
+                    (B * P, d, hkv, False, 2 * (E + cfg.num_layers)),
+                    (B * P, d, cfg.d_ff, False, E),
+                    (B * P, cfg.d_ff, d, False, E)]
     prefill += [(B, k, n, tb, c) for _, k, n, tb, c in decode if tb]
     return ([p + (True,) for p in decode]
             + [p + (False,) for p in prefill])
@@ -1455,8 +1588,7 @@ def main():
     dev, smi = phase_device()
     build_s, registers = phase_build()
     rows = phase_kernels(dev)
-    for arch in MODELS:
-        phase_model(dev, arch)
+    models = {arch: phase_model(dev, arch) for arch in MODELS}
     phase_moe_serve()
     OUT_DIR.mkdir(exist_ok=True)
     serves, captures = {}, {}
@@ -1476,6 +1608,7 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "registers": registers, "cases": rows,
+        "models": models,
         "kernels": kernels, "report": report, "tune": tuned,
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],

@@ -14,11 +14,14 @@ record -> warn -> shed ladder (``resilience.DeadlineMonitor``), and a
 shed halves the batch.
 
 On CUDA the weight-pass products run the hand-written ``spm_matmul``
-kernel, prefill attention (zamba2's tied blocks' too) the hand-written
-``flash_attention`` kernel and an RWKV model's prefill WKV the
-hand-written ``wkv6`` kernel; an MoE layer's expert products are
-batched einsums and zamba2's SSD scan is torch ops, as in the
-reference.
+kernel, prefill attention (zamba2's tied blocks', whisper's unmasked
+encoder and cross-attention too) the hand-written ``flash_attention``
+kernel and an RWKV model's prefill WKV the hand-written ``wkv6``
+kernel; an MoE layer's expert products are batched einsums and
+zamba2's SSD scan is torch ops, as in the reference.  An
+encoder-decoder model (whisper) is fed random ``frames`` of the
+prompt's length, as the reference's serve feeds them: its encoder
+memory is as long as the prompt.
 Before anything is timed, the kernels are built and
 ``compile_step_fns`` (the counterpart of the reference's AOT
 compilation) captures one prefill and one decode step as CUDA graphs:
@@ -44,6 +47,10 @@ host clock around work that ends in ``torch.cuda.synchronize()``.
       --full --batch 4 --prompt-len 2048 --gen 32         # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --full --batch 4 --prompt-len 512 --gen 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --full --batch 4 --prompt-len 1536 --gen 32         # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+      --full --batch 4 --prompt-len 1024 --gen 32         # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-235b-a22b --dtype float32          # reduced MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
@@ -265,7 +272,9 @@ def build_parser() -> argparse.ArgumentParser:
 def setup(args: argparse.Namespace, dev: torch.device):
     """The model, plan and prompt ``args`` serve on ``dev``: ``(cfg,
     plan, plan_source, opts, params, batch)``.  Weights and prompt are
-    drawn from seed 0."""
+    drawn from seed 0; an encoder-decoder model's ``frames`` [B, P,
+    d_model] (fp32 normals) from the same generator after the tokens,
+    as the reference's serve draws them."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced_config(cfg, args)
@@ -297,11 +306,14 @@ def setup(args: argparse.Namespace, dev: torch.device):
     gen.manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                            device=init_dev)
+    batch = {"tokens": tokens, "targets": tokens}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, P, cfg.d_model), generator=gen,
+                                      device=init_dev)
     if init_dev != dev:
         params = tree_map(lambda t: t.to(dev), params)
-        tokens = tokens.to(dev)
-    return cfg, plan, plan_source, opts, params, {"tokens": tokens,
-                                                  "targets": tokens}
+        batch = {k: v.to(dev) for k, v in batch.items()}
+    return cfg, plan, plan_source, opts, params, batch
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -14,9 +14,13 @@ Port of the reference's ``models/attention.py``.  What differs:
   only that path.
 * Decode (one query) has no TPU kernel and stays torch ops, as in the
   reference.  Its cache write is in place (see ``decode_attention``).
+* Encoder-decoder cross-attention (``cross_kv``, ``cross_attention``):
+  the memory's K/V are projected once; the prefill call on CUDA runs
+  ``flash_attention`` unmasked with Sq the decoder's length and Sk the
+  encoder's, the decode call (``decode=True``, one query against the
+  cached cross K/V) runs ``sdpa``.  The caller states which call it
+  makes; the shapes do not decide it.
 * Softmax arithmetic is fp32 regardless of model dtype.
-
-``cross_attention``/``cross_kv`` come with the whisper slice.
 """
 from __future__ import annotations
 
@@ -223,6 +227,16 @@ def self_attention(p: dict, x: torch.Tensor, a: AttentionConfig,
     return y
 
 
+def position_index(pos: Union[int, torch.Tensor],
+                   device: torch.device) -> torch.Tensor:
+    """A decode step's position as a [1] long tensor on ``device``: a
+    0-d tensor is reshaped (no host read, so a captured graph replays
+    it with new values), an int is put there."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1)
+    return torch.full((1,), pos, dtype=torch.long, device=device)
+
+
 def decode_attention(p: dict, x: torch.Tensor, a: AttentionConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      pos: Union[int, torch.Tensor], *, theta: float,
@@ -241,10 +255,7 @@ def decode_attention(p: dict, x: torch.Tensor, a: AttentionConfig,
     with p % L == s.  ``tile`` pins the projections' spm_matmul tile.
     Returns (y [B,1,d], cache_k, cache_v)."""
     scale = _scale(a)
-    if isinstance(pos, torch.Tensor):
-        positions = pos.reshape(1)
-    else:
-        positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    positions = position_index(pos, x.device)
     q, k_new, v_new = qkv_project(p, x, a, positions, theta, tile)
     L = cache_k.shape[1]
     is_ring = window > 0 and L <= window
@@ -261,3 +272,50 @@ def decode_attention(p: dict, x: torch.Tensor, a: AttentionConfig,
     o = sdpa(q, cache_k, cache_v, positions, pos_k, causal=True,
              window=window, scale=scale, chunk_q=0, chunk_kv=0)
     return out_project(p, o, tile), cache_k, cache_v
+
+
+def cross_attention(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
+                    mem_v: torch.Tensor, a: AttentionConfig, *,
+                    decode: bool = False,
+                    tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Encoder-decoder cross-attention over precomputed memory K/V
+    ([B, T, KV, hd], from ``cross_kv``), with no mask: the whole
+    encoder memory is visible.  x: [B, S, d] -> [B, S, d].
+
+    The prefill call on CUDA launches ``flash_attention`` (not causal,
+    Sq = S, Sk = T); the decode call (``decode``, S = 1) and every CPU
+    call run ``sdpa``, the reference's form.  ``tile`` pins the q and
+    output projections' spm_matmul tile."""
+    B, S, d = x.shape
+    scale = _scale(a)
+    q = linear(x, p["wq"].reshape(d, -1), tile).reshape(
+        B, S, a.num_heads, a.head_dim)
+    if a.qkv_bias:
+        q = q + p["bq"]
+    if q.is_cuda and not decode:
+        o = flash_ops.attention(q, mem_k, mem_v, causal=False, window=0,
+                                scale=scale)
+    else:
+        pos_q = torch.arange(S, dtype=torch.long, device=x.device)
+        pos_k = torch.arange(mem_k.shape[1], dtype=torch.long,
+                             device=x.device)
+        o = sdpa(q, mem_k, mem_v, pos_q, pos_k, causal=False, window=0,
+                 scale=scale, chunk_q=0, chunk_kv=0)
+    return out_project(p, o, tile)
+
+
+def cross_kv(p: dict, memory: torch.Tensor, a: AttentionConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder output [B, T, d] once into cross-attention
+    K/V, each [B, T, KV, hd]."""
+    B, T, d = memory.shape
+
+    def proj(w):
+        return linear(memory, w.reshape(d, -1)).reshape(
+            B, T, a.num_kv_heads, a.head_dim)
+
+    k, v = proj(p["wk"]), proj(p["wv"])
+    if a.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v

@@ -6,18 +6,20 @@ a unit is a fixed tuple of layer descriptors.  Parameters of a stage
 are stacked along a leading "stack" axis, one entry per unit, as in the
 reference, so converted reference parameters keep their layout.
 
-The port carries the dense/vlm families (including gemma3-style
-``layer_pattern`` units of local and global layers), the MoE family
-(every layer MoE, or llama4's alternating MoE and dense layers), the
-RWKV family and the hybrid family:
+The port carries every family of the reference: dense and vlm
+(including gemma3-style ``layer_pattern`` units of local and global
+layers), MoE (every layer MoE, or llama4's alternating MoE and dense
+layers), RWKV, hybrid and encoder-decoder:
 
   zamba2 : stage0: 13 units x [shared_attn+mamba, mamba x5],
            stage1: 1 unit   x [mamba x3]     (81 = 13*6 + 3)
+  whisper: stage0: 6 units x [dec_attn] (self, cross, FFN); the
+           encoder is its own stage (``encoder_stage``): 6 units x
+           [enc_attn], not causal
 
 A stage may hold 0 units (zamba2 cut to fewer layers than one unit):
 its parameters and caches are stacked leaves with a leading 0, as the
-reference's scan over no units gives.  The encoder-decoder family's
-stages raise ``NotImplementedError`` until its slice lands.
+reference's scan over no units gives.
 """
 from __future__ import annotations
 
@@ -51,12 +53,6 @@ class LayerDescr:
 class StageDescr:
     n_units: int
     unit: Tuple[LayerDescr, ...]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it comes with its "
-        "family's slice")
 
 
 def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
@@ -96,7 +92,16 @@ def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
         return tuple(stages)
     if cfg.family == "rwkv":
         return (StageDescr(cfg.num_layers, (LayerDescr("rwkv"),)),)
-    raise _not_ported(f"the {cfg.family!r} family")
+    if cfg.family == "encdec":
+        unit = (LayerDescr("dec_attn", theta=0.0),)
+        return (StageDescr(cfg.num_layers, unit),)
+    raise ValueError(cfg.family)
+
+
+def encoder_stage(cfg: ModelConfig) -> StageDescr:
+    assert cfg.family == "encdec"
+    return StageDescr(cfg.encdec.encoder_layers,
+                      (LayerDescr("enc_attn", theta=0.0, causal=False),))
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +125,15 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
             p["ln_attn_post"] = rmsnorm_spec(d)
             p["ln_ffn_post"] = rmsnorm_spec(d)
         return p
+    if dsc.kind == "dec_attn":
+        return {
+            "ln_self": rmsnorm_spec(d),
+            "self": attn_mod.attn_spec(d, cfg.attention, dt),
+            "ln_cross": rmsnorm_spec(d),
+            "cross": attn_mod.attn_spec(d, cfg.attention, dt),
+            "ln_ffn": rmsnorm_spec(d),
+            "ffn": ffn_mod.dense_ffn_spec(d, cfg.d_ff, cfg.activation, dt),
+        }
     if dsc.kind == "mamba":
         return {
             "ln": rmsnorm_spec(d),
@@ -132,7 +146,7 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
             "ln_cm": rmsnorm_spec(d),
             "cm": rwkv_mod.channelmix_spec(d, cfg.d_ff, dt),
         }
-    raise _not_ported(f"the {dsc.kind!r} layer")
+    raise ValueError(dsc.kind)
 
 
 def shared_block_spec(cfg: ModelConfig) -> dict:
@@ -174,6 +188,22 @@ def layer_cache_spec(cfg: ModelConfig, dsc: LayerDescr, batch: int,
                      ("batch", "kv_seq", "kv_heads", None), init="zeros",
                      dtype=dt),
         }
+    if dsc.kind == "dec_attn":
+        # self K/V at the cache length; cross K/V at the encoder memory
+        # length the decode steps see
+        ek = cfg.encdec.cross_kv_len
+        kv = ("batch", "kv_seq", "kv_heads", None)
+        mem = ("batch", None, "kv_heads", None)
+        return {
+            "k": Par((batch, cache_len, a.num_kv_heads, a.head_dim), kv,
+                     init="zeros", dtype=dt),
+            "v": Par((batch, cache_len, a.num_kv_heads, a.head_dim), kv,
+                     init="zeros", dtype=dt),
+            "ck": Par((batch, ek, a.num_kv_heads, a.head_dim), mem,
+                      init="zeros", dtype=dt),
+            "cv": Par((batch, ek, a.num_kv_heads, a.head_dim), mem,
+                      init="zeros", dtype=dt),
+        }
     if dsc.kind == "mamba":
         c = ssm_mod.mamba_state_spec(batch, cfg.d_model, cfg.ssm, dt)
         if dsc.shared_attn:
@@ -185,7 +215,7 @@ def layer_cache_spec(cfg: ModelConfig, dsc: LayerDescr, batch: int,
         return c
     if dsc.kind == "rwkv":
         return rwkv_mod.rwkv_state_spec(batch, cfg.d_model, cfg.rwkv, dt)
-    raise _not_ported(f"the {dsc.kind!r} layer cache")
+    raise ValueError(dsc.kind)
 
 
 def stage_cache_spec(cfg: ModelConfig, stage: StageDescr, batch: int,

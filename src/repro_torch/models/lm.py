@@ -1,7 +1,9 @@
 """Language model of the port: the dense decoder (gemma3's local and
-global layers among them), MoE, RWKV and hybrid (zamba2: Mamba2 layers
-with weight-tied shared attention blocks) paths of the reference's
-``models/lm.py``, in PyTorch.
+global layers among them, and the VLM stub pixtral, whose patch
+embeddings replace the first token embeddings), MoE, RWKV, hybrid
+(zamba2: Mamba2 layers with weight-tied shared attention blocks) and
+encoder-decoder (whisper) paths of the reference's ``models/lm.py``, in
+PyTorch.
 
 Public API (the reference's, with an explicit ``device`` and seed):
   model_spec(cfg)                        -> Par tree
@@ -21,6 +23,14 @@ prefill WKV through ``wkv6``: their hand-written kernels for CUDA
 tensors, their plain versions for CPU tensors.  The Mamba2 layers' SSD
 scan is torch ops, as the reference's is jnp.
 
+whisper's encoder runs over ``batch["frames"]`` (precomputed frame
+embeddings [B, T, d] plus a learned position table) with unmasked
+self-attention; each decoder layer projects the encoder memory once
+into cross K/V (prefill), which the cache keeps at length T beside the
+self K/V, and decode cross-attends over them.  The decoder adds a
+learned position table too; decode looks it up at ``pos`` on the
+device.
+
 A zamba2 shared block attends over concat(x, x0), x0 the embedding
 output, and selects tied block ``unit index % n_shared_blocks``; the
 unit loops carry both.  Decode updates every cache buffer in place: the
@@ -29,8 +39,7 @@ new K/V rows (the shared blocks' included) and the recurrent states
 replay reads them.
 
 Entry points default to ``device="cuda"`` and take the CPU only when
-asked.  Training (``lm_loss``/``train_loss``) and the encoder-decoder
-family come with later slices.
+asked.  Training (``lm_loss``/``train_loss``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -53,6 +62,8 @@ from repro_torch.models.spec import param_count as spec_param_count
 from repro_torch.models.spec import tree_map
 
 Device = Union[str, torch.device]
+
+MAX_POS_TABLE = 32_768  # whisper learned-position tables
 
 
 @dataclass(frozen=True, eq=False)
@@ -103,6 +114,15 @@ def model_spec(cfg: ModelConfig) -> dict:
     if cfg.family == "hybrid":
         spec["shared"] = stack(blk.shared_block_spec(cfg),
                                cfg.ssm.n_shared_blocks)
+    if cfg.family == "encdec":
+        spec["encoder"] = {
+            "stack": blk.stage_spec(cfg, blk.encoder_stage(cfg)),
+            "norm": rmsnorm_spec(d),
+            "pos": Par((MAX_POS_TABLE, d), (None, "embed"), init="normal",
+                       dtype=cfg.dtype),
+        }
+        spec["dec_pos"] = Par((MAX_POS_TABLE, d), (None, "embed"),
+                              init="normal", dtype=cfg.dtype)
     return spec
 
 
@@ -272,9 +292,36 @@ def _mamba_layer_full(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
     return x + m, (c if collect else None)
 
 
+def _dec_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    memory: torch.Tensor, positions: torch.Tensor,
+                    opts: RunOptions, collect: bool, cache_len: int):
+    """One whisper decoder layer over the whole sequence: causal self
+    attention, cross-attention over the encoder memory (projected here
+    once into cross K/V), the dense FFN; with ``collect``, its decode
+    state ``{"k", "v", "ck", "cv"}``."""
+    a = cfg.attention
+    h = rmsnorm(x, p["ln_self"])
+    res = attn_mod.self_attention(
+        p["self"], h, a, positions, theta=0.0, window=0,
+        chunk_q=opts.chunk_q, chunk_kv=opts.chunk_kv, return_kv=collect)
+    att, kv = res if collect else (res, None)
+    x = x + att
+    h = rmsnorm(x, p["ln_cross"])
+    ck, cv = attn_mod.cross_kv(p["cross"], memory, a)
+    x = x + attn_mod.cross_attention(p["cross"], h, ck, cv, a)
+    h = rmsnorm(x, p["ln_ffn"])
+    x = x + ffn_mod.dense_ffn(p["ffn"], h, cfg.activation)
+    if not collect:
+        return x, None
+    return x, {"k": _to_cache_buf(kv[0], cache_len, opts),
+               "v": _to_cache_buf(kv[1], cache_len, opts),
+               "ck": ck, "cv": cv}
+
+
 def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                      x0: torch.Tensor, positions: torch.Tensor,
                      opts: RunOptions, collect: bool,
+                     memory: Optional[torch.Tensor],
                      shared: Optional[dict], unit_idx: int,
                      cache_len: int):
     cache = {}
@@ -282,19 +329,21 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
     a = cfg.attention
     for i, dsc in enumerate(unit):
         p = up[f"pos{i}"]
-        if dsc.kind in ("rwkv", "mamba"):
+        if dsc.kind in ("rwkv", "mamba", "dec_attn"):
             if dsc.kind == "rwkv":
                 x, c = _rwkv_layer_full(cfg, p, x, collect)
-            else:
+            elif dsc.kind == "mamba":
                 x, c = _mamba_layer_full(cfg, p, dsc, x, x0, positions,
                                          opts, collect, shared, unit_idx,
                                          cache_len)
+            else:
+                x, c = _dec_layer_full(cfg, p, x, memory, positions, opts,
+                                       collect, cache_len)
             if collect:
                 cache[f"pos{i}"] = c
             continue
         if dsc.kind not in ("attn", "enc_attn"):
-            raise NotImplementedError(f"{dsc.kind} layers come with their "
-                                      "family's slice")
+            raise ValueError(dsc.kind)
         h = rmsnorm(x, p["ln_attn"])
         res = attn_mod.self_attention(
             p["attn"], h, a, positions, theta=dsc.theta, window=dsc.window,
@@ -321,13 +370,15 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
 def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
                     x: torch.Tensor, x0: torch.Tensor,
                     positions: torch.Tensor, opts: RunOptions,
-                    collect: bool, shared: Optional[dict], cache_len: int):
+                    collect: bool, memory: Optional[torch.Tensor],
+                    shared: Optional[dict], cache_len: int):
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(stage.n_units):
         x, d_aux, c = _apply_unit_full(cfg, blk.tree_index(sp, i),
                                        stage.unit, x, x0, positions, opts,
-                                       collect, shared, i, cache_len)
+                                       collect, memory, shared, i,
+                                       cache_len)
         aux = aux + d_aux
         caches.append(c)
     if not collect:
@@ -342,26 +393,41 @@ def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
     return x, aux, stacked
 
 
+def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+            opts: RunOptions) -> torch.Tensor:
+    """whisper's encoder: frames [B, T, d] in the model dtype plus the
+    learned positions, the unmasked encoder stage, its norm."""
+    enc = params["encoder"]
+    T = frames.shape[1]
+    x = frames.to(compat.torch_dtype(cfg.dtype)) + enc["pos"][:T]
+    positions = torch.arange(T, dtype=torch.long, device=x.device)
+    x, _, _ = _run_stage_full(cfg, enc["stack"], blk.encoder_stage(cfg), x,
+                              x, positions, opts, False, None, None, 0)
+    return rmsnorm(x, enc["norm"])
+
+
 def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
                    opts: RunOptions = DEFAULT_OPTS, collect: bool = False,
                    cache_len: int = 0):
-    """Run embeddings + all stages.  Returns (x, aux, caches); ``aux``
-    is the sum of the MoE layers' balance losses (0 without MoE)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder comes with the whisper "
-                                  "slice")
+    """Run embeddings (and whisper's encoder) + all stages.  Returns (x,
+    aux, caches); ``aux`` is the sum of the MoE layers' balance losses
+    (0 without MoE)."""
     tokens = batch["tokens"]
+    S = tokens.shape[1]
     x = _embed(cfg, params, tokens, batch)
+    memory = None
+    if cfg.family == "encdec":
+        x = x + params["dec_pos"][:S]
+        memory = _encode(cfg, params, batch["frames"], opts)
     x0 = x
-    positions = torch.arange(tokens.shape[1], dtype=torch.long,
-                             device=tokens.device)
+    positions = torch.arange(S, dtype=torch.long, device=tokens.device)
     shared = params.get("shared")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for si, st in enumerate(blk.build_stages(cfg)):
         x, a_i, c_i = _run_stage_full(cfg, params[f"stage{si}"], st, x, x0,
-                                      positions, opts, collect, shared,
-                                      cache_len)
+                                      positions, opts, collect, memory,
+                                      shared, cache_len)
         aux = aux + a_i
         caches[f"stage{si}"] = c_i
     x = rmsnorm(x, params["final_norm"])
@@ -433,6 +499,25 @@ def _mamba_layer_decode(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
     return x + m
 
 
+def _dec_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      pos: Union[int, torch.Tensor], c: dict,
+                      tile: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """One whisper decoder step: self decode attention writes its new
+    K/V row into the cache in place; cross-attention reads the cached
+    cross K/V (``decode=True``: torch ops, one query)."""
+    a = cfg.attention
+    h = rmsnorm(x, p["ln_self"])
+    att, _, _ = attn_mod.decode_attention(p["self"], h, a, c["k"], c["v"],
+                                          pos, theta=0.0, window=0,
+                                          tile=tile)
+    x = x + att
+    h = rmsnorm(x, p["ln_cross"])
+    x = x + attn_mod.cross_attention(p["cross"], h, c["ck"], c["cv"], a,
+                                     decode=True, tile=tile)
+    h = rmsnorm(x, p["ln_ffn"])
+    return x + ffn_mod.dense_ffn(p["ffn"], h, cfg.activation, tile)
+
+
 def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                        x0: torch.Tensor, pos: Union[int, torch.Tensor],
                        cache_unit: dict, shared: Optional[dict],
@@ -449,9 +534,11 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             x = _mamba_layer_decode(cfg, p, dsc, x, x0, pos, c, shared,
                                     unit_idx, tile)
             continue
+        if dsc.kind == "dec_attn":
+            x = _dec_layer_decode(cfg, p, x, pos, c, tile)
+            continue
         if dsc.kind not in ("attn", "enc_attn"):
-            raise NotImplementedError(f"{dsc.kind} layers come with their "
-                                      "family's slice")
+            raise ValueError(dsc.kind)
         h = rmsnorm(x, p["ln_attn"])
         att, _, _ = attn_mod.decode_attention(
             p["attn"], h, a, c["k"], c["v"], pos, theta=dsc.theta,
@@ -480,8 +567,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     ``pos`` (RWKV: the new token-shift and WKV states; ``pos`` is
     unused; Mamba2: the new conv and SSM states).  That in-place update
     is what ``compat.donated_jit`` (buffer donation) buys the
-    reference."""
+    reference.  whisper's decoder position is a device gather at
+    ``pos``, so a captured graph replays it at each new position."""
     x = _embed(cfg, params, token[:, None])
+    if cfg.family == "encdec":
+        x = x + params["dec_pos"].index_select(
+            0, attn_mod.position_index(pos, x.device))
     x0 = x
     shared = params.get("shared")
     scan_units = (cfg.scan_layers if opts.decode_scan is None

@@ -143,8 +143,10 @@ def decode_products(cfg, batch: int) -> List[Tuple[int, int, int, bool, int]]:
     layer's projections and dense FFN (an MoE layer's shared expert; its
     routed experts are einsums), an RWKV layer's sixteen, a Mamba2
     layer's ``in_proj`` and ``out_proj`` (and, first in a zamba2 unit,
-    its shared block's projections from concat(x, x0) and dense FFN),
-    and the logits against the [V, d] table."""
+    its shared block's projections from concat(x, x0) and dense FFN), a
+    whisper decoder layer's self q/k/v/o, cross q and o (its cross k/v
+    are projected once, at prefill) and dense FFN, and the logits
+    against the [V, d] table."""
     from repro_torch.models import blocks
     from repro_torch.models.ffn import is_gated
     from repro_torch.models.ssm import ssm_dims
@@ -181,9 +183,14 @@ def decode_products(cfg, batch: int) -> List[Tuple[int, int, int, bool, int]]:
                 add(d, 2 * d_inner + 2 * s.state_dim + nheads, st.n_units)
                 add(d_inner, d, st.n_units)
                 continue
+            if dsc.kind == "dec_attn":
+                a = cfg.attention
+                attn_ffn(d, st.n_units, cfg.d_ff)
+                add(d, a.num_heads * a.head_dim, st.n_units)
+                add(a.num_heads * a.head_dim, d, st.n_units)
+                continue
             if dsc.kind != "attn":
-                raise NotImplementedError(f"decode products of {dsc.kind} "
-                                          "layers come with their family")
+                raise ValueError(dsc.kind)
             attn_ffn(d, st.n_units,
                      cfg.moe.shared_expert_ff if dsc.use_moe else cfg.d_ff)
     products = [(batch, k, n, False, c) for (k, n), c in counts.items()]

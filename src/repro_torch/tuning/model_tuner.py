@@ -84,6 +84,9 @@ def make_serve_runner(cfg, problem: ModelProblem, plan: Plan,
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                            device=dev)
     batch = {"tokens": tokens, "targets": tokens}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, P, cfg.d_model), generator=gen,
+                                      device=dev)
     if dev.type == "cuda":
         _build.build()
     prefill_fn, step = compile_step_fns(cfg, params, batch, opts, P)

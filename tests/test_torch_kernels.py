@@ -212,6 +212,31 @@ def test_plain_flash_d112_matches_pallas_and_oracle(B, S, H, KV, causal,
         jq, jk, jv, causal=causal, window=window)), dtype)
 
 
+# whisper's cross-attention: Sq (the decoder's length) != Sk (the
+# encoder's), unmasked, both ways round
+FLASH_CROSS = [(2, 48, 80, 4, 2, 64, "float32"),
+               (2, 48, 80, 4, 2, 64, "bfloat16"),
+               (1, 64, 16, 8, 8, 64, "float32"),
+               (1, 32, 96, 8, 8, 64, "bfloat16")]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,dtype", FLASH_CROSS)
+def test_plain_flash_cross_shapes_match_pallas_and_oracle(B, Sq, Sk, H, KV,
+                                                          D, dtype):
+    rng = np.random.default_rng(Sq * Sk)
+    q = _np(rng.standard_normal((B, Sq, H, D), np.float32), dtype)
+    k, v = (_np(rng.standard_normal((B, Sk, KV, D), np.float32), dtype)
+            for _ in range(2))
+    got = fa_ops.attention(*(tensor_from_numpy(t) for t in (q, k, v)),
+                           causal=False)
+    assert got.shape == (B, Sq, H, D)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    want = jax_attention(jq, jk, jv, causal=False, interpret=True)
+    assert_kernel_close(_f32(got), _f32(want), dtype)
+    assert_kernel_close(_f32(got), _f32(jax_attn_ref(jq, jk, jv,
+                                                     causal=False)), dtype)
+
+
 def test_flash_smem_plan_at_head_dim_112():
     """D = 112 rows pad to 120 bf16 (240 bytes, 15 x 16): Q and two K
     and V buffers take 76,800 bytes on ``tensor_core`` (three blocks an

@@ -306,13 +306,16 @@ def slice_setup():
     return jcfg, cfg, jparams, params, tokens, jopts, opts
 
 
-def jax_greedy(jcfg, jparams, tokens, jopts, steps=GEN):
-    """The reference's prefill of ``tokens`` [B, S] and ``steps`` greedy
-    decode steps, jitted: (prefill logits, prefill cache, tokens
+def jax_greedy(jcfg, jparams, tokens, jopts, steps=GEN, extra=None):
+    """The reference's prefill of ``tokens`` [B, S] (and the numpy
+    batch entries of ``extra``: frames, patch embeddings) and ``steps``
+    greedy decode steps, jitted: (prefill logits, prefill cache, tokens
     [B, steps], last logits), as numpy."""
     P = tokens.shape[1]
+    batch = {k: jnp.asarray(v) for k, v in (extra or {}).items()}
+    batch["tokens"] = jnp.asarray(tokens)
     logits, cache = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b, jopts))(
-        jparams, {"tokens": jnp.asarray(tokens)})
+        jparams, batch)
     step = jax.jit(lambda p, c, t, i: jlm.decode_step(jcfg, p, c, t, i,
                                                       jopts))
     prefill_logits, prefill_cache = np.asarray(logits), \
@@ -327,13 +330,14 @@ def jax_greedy(jcfg, jparams, tokens, jopts, steps=GEN):
         np.asarray(logits)
 
 
-def port_greedy(cfg, params, tokens, opts, steps=GEN):
+def port_greedy(cfg, params, tokens, opts, steps=GEN, extra=None):
     """The port's counterpart of ``jax_greedy``: ((prefill logits, the
     prefill cache's leaves by path), tokens [B, steps], last logits)."""
     P = tokens.shape[1]
-    logits, cache = plm.prefill(cfg, params,
-                                {"tokens": torch.from_numpy(tokens).long()},
-                                opts)
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in (extra or {}).items()}
+    batch["tokens"] = torch.from_numpy(tokens).long()
+    logits, cache = plm.prefill(cfg, params, batch, opts)
     first = (logits.clone(), {k: v.clone() for k, v in
                               tree_items(cache)})
     toks = []

@@ -142,9 +142,11 @@ def test_default_plan_follows_the_reference_rules():
     assert plan_sig(plan) == jax_plan_sig(plan)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-base"])
 def test_shed_batch_slices_only_the_batch_axis(arch):
-    # zamba2 at 8 layers: one unit, so the tied block's K/V too
+    # zamba2 at 8 layers: one unit, so the tied block's K/V too; whisper:
+    # the cross K/V too
     layers = 8 if arch == "zamba2-7b" else 2
     cfg = reduce_config(get_config(arch), layers=layers, d_model=64,
                         vocab=256)

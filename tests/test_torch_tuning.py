@@ -85,8 +85,8 @@ def _chip_smoke():
 
 
 def _main_path_products():
-    """(m, k, n, trans_b) of every main-path product of the three
-    served models, as chip_smoke.py builds them."""
+    """(m, k, n, trans_b) of every main-path product of the served
+    models, as chip_smoke.py builds them."""
     return sorted({(m, k, n, tb) for _, m, k, n, tb, dt, _, plan, main
                    in _chip_smoke().matmul_cases()
                    if main and dt == BF16 and not plan})
@@ -492,9 +492,10 @@ def test_launch_plan_without_an_entry_is_the_untuned_launch(caches, shape):
 
 
 def test_main_path_products_cover_the_served_models():
-    assert len(MAIN_PRODUCTS) == 46
+    assert len(MAIN_PRODUCTS) == 64
     for arch, B, P in (("qwen2-0.5b", 4, 256), ("rwkv6-1.6b", 4, 256),
-                       ("gemma3-12b", 4, 2048), ("zamba2-7b", 4, 512)):
+                       ("gemma3-12b", 4, 2048), ("zamba2-7b", 4, 512),
+                       ("whisper-base", 4, 1536), ("pixtral-12b", 4, 1024)):
         cfg = get_config(arch)
         for m, k, n, tb, _ in port_model.decode_products(cfg, B):
             assert (m, k, n, tb) in MAIN_PRODUCTS
@@ -684,7 +685,8 @@ def test_cpu_model_enumeration_is_the_reference_grid():
 
 def test_decode_products_count_the_serves_products():
     for arch, per_layer in (("qwen2-0.5b", 7), ("rwkv6-1.6b", 16),
-                            ("gemma3-12b", 7)):
+                            ("gemma3-12b", 7), ("pixtral-12b", 7),
+                            ("whisper-base", 8)):
         cfg = get_config(arch)
         prods = port_model.decode_products(cfg, 4)
         assert sum(c for *_, c in prods) == per_layer * cfg.num_layers + 1
