@@ -132,10 +132,54 @@ Phases, one result line each; any failure exits non-zero:
             have launched for two prefills and two decode steps, and its
             captured prefill's logits must equal an eager prefill's.
 
+9. train    the training path, with no plan cache (``REPRO_AUTOTUNE=0``).
+            (a) the backward's products at qwen2-0.5b's training widths
+            (T = 4 x 4096 rows; d 896, k/v 128, FFN 4864): each layer
+            product's dA (``ops.grad_a``: ``trans_b`` on the weight as
+            it lies) and dB (``ops.grad_b``: on the transposed copy of
+            the smaller of A and dC), and a loss chunk's logits (2048
+            rows against the 151,936-row table): the fp32-out forward,
+            dA from dC rounded to bf16 (beside the plain fp32 product of
+            the unrounded dC: its time and its difference) and dB;
+            plus the forward flash launch at [4, 4096, 14/2, 64]; each
+            held element by element to its plain version with a
+            planted fault caught (phase 3's rule), run twice for the
+            same bits, with its path, time, ``torch.mm``'s (SDPA's)
+            and its bound.  (b) reduced qwen2 fp32 (2 layers, remat
+            on): one step's gradient of every leaf and 5 steps of loss
+            on the card against the CPU, within 1e-4.  (c)
+            ``python -m repro_torch.launch.train --arch qwen2-0.5b
+            --full --steps 12 --batch 4 --seq 4096`` (TRAIN_4K's
+            sequence; the global batch cut from 256 to 4 for one card),
+            counters zeroed just before and read just after: the last
+            loss must be below the first, and so must the first step's
+            batch's loss under the trained parameters, every step must
+            launch the spm_matmul paths and the flash count reckoned
+            from the code (``train_products``), and it prints the step
+            ms (median, p99, CoV over steps 3-12), tokens/s, the
+            model-FLOP share of the bf16 peak, the peak memory and the
+            deadline's overruns; one more step traced by kernel family.
+            Then, from the trained state on the first batch: the step
+            under variants of the training path (per-unit indexing of
+            the stacked leaves, every loss chunk's logits kept, remat),
+            timed with their peak memory, the loss the same bits in
+            each (``train_variants``); 5 steps on that batch alone,
+            printed; and the same 5 steps at the same widths at 2
+            layers from init must lower the batch's loss by more than
+            10 x the spread of 4 batches' losses, with every leaf's
+            first moment non-zero and every leaf drawn at random moved
+            (``train_descent``: at 24 layers the init's gradient is too
+            large for a step to move the loss).
+            (d) a reduced bf16 run with a NaN step, then a save, a
+            preemption and a resume, bit-identical in the parameters
+            and the optimizer state to an undisturbed run.
+
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
 any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
+``python3 chip_smoke.py 9`` runs phases 1, 2 and 9 only and prints no
+result lines (``chiprun_out/chip_smoke_train.json``).
 """
 import gc
 import json
@@ -1136,7 +1180,7 @@ TRACE_FAMILIES = (
 )
 
 
-def trace_replays(what, run, n):
+def trace_replays(what, run, n, phase=6, families=TRACE_FAMILIES):
     """Where a graph replay's device time goes: ``run(i)`` replays it.
     After one warm-up call, ``n`` calls between CUDA events give the
     replay's time; ``n`` more under ``torch.profiler`` give each
@@ -1164,15 +1208,15 @@ def trace_replays(what, run, n):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
-    families = dict.fromkeys([f for f, _ in TRACE_FAMILIES] + ["other"],
-                             0.0)
+    patterns = families
+    families = dict.fromkeys([f for f, _ in patterns] + ["other"], 0.0)
     for name, ms in by_name.items():
-        fam = next((f for f, pats in TRACE_FAMILIES
+        fam = next((f for f, pats in patterns
                     if any(p in name for p in pats)), "other")
         families[fam] += ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(f"phase 6 trace: {what}: {replay_ms:.3f} ms a replay, kernels "
+    print(f"phase {phase} trace: {what}: {replay_ms:.3f} ms a replay, kernels "
           f"{busy:.3f} ms (device busy {busy / replay_ms:.3f}); by family: "
           + ", ".join(f"{f} {ms:.3f}" for f, ms in families.items()
                       if ms), flush=True)
@@ -1526,6 +1570,617 @@ def serve_paths(arch, plan):
     return counts
 
 
+# ------------------------------------------------------------- train
+
+# phase 9(c): TRAIN_4K's sequence length; the global batch is cut from
+# 256 to 4 for one card
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4096, 12
+TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--full", "--steps", str(TRAIN_STEPS),
+              "--batch", str(TRAIN_B), "--seq", str(TRAIN_S)]
+# phase 9(b): one step's gradient of every leaf, card against CPU, as a
+# share of the leaf's largest |gradient| on the CPU, and 5 losses (the
+# reduced fp32 qwen2: differently ordered fp32 sums in every product and
+# reduction of the forward and the backward, as phase 4's MODEL_TOL)
+GRAD_TOL = 1e-4
+GRAD_STEPS = 5
+# phase 9(c), after the run: DESCENT_STEPS steps on the first step's
+# batch alone at the launcher's peak rate must lower that batch's loss
+# by more than DESCENT_MARGIN x the spread of SPREAD_BATCHES batches'
+# losses (``train_descent``); each variant of the training path takes
+# one warm-up step and VARIANT_STEPS timed
+DESCENT_STEPS, SPREAD_BATCHES, DESCENT_MARGIN = 5, 4, 10
+VARIANT_STEPS = 3
+# phase 9(d): the reduced bf16 run disturbed by a NaN step at NAN_STEP and
+# a preemption at PREEMPT_STEP, then resumed, against an undisturbed one
+RESUME_STEPS, NAN_STEP, PREEMPT_STEP = 8, 2, 4
+
+
+def train_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen2-0.5b")
+
+
+def train_products(cfg, B, S, loss_chunk, remat=False):
+    """``(what, m, k, n, trans_b, out_fp32, count)``: the spm_matmul
+    launches one training step of a dense decoder makes, reckoned from
+    the code.  Forward: each layer product (``tuning.model
+    .decode_products``' per-layer shapes at M = B x S) and each loss
+    chunk's logits (``lm.lm_loss``: S / loss_chunk chunks of B x
+    loss_chunk rows against the [V, d] table, fp32 out); backward
+    (``SpmMatmul.backward``): dA through ``trans_b`` (a ``trans_b``
+    forward: without), dB on the transposed copy of the smaller of A and
+    dC (``ops.grad_b``), and each loss chunk's logits once more (its
+    ``torch.utils.checkpoint`` recompute; with ``remat`` each layer's
+    forward too)."""
+    from repro_torch.tuning.model import decode_products
+    T = B * S
+    out = []
+    for _, k, n, tb, c in decode_products(cfg, B):
+        if tb:
+            continue
+        out += [("fwd", T, k, n, False, False, c * (2 if remat else 1)),
+                ("dA", T, n, k, True, False, c)]
+        out.append(("dB", k, T, n, False, False, c) if k <= n
+                   else ("dB", n, T, k, False, False, c))
+    C = loss_chunk if (loss_chunk and S % loss_chunk == 0
+                       and S > loss_chunk) else S
+    R, d, V = B * C, cfg.d_model, cfg.padded_vocab
+    chunks = S // C
+    out += [("logits fwd", R, d, V, True, True, 2 * chunks),
+            ("logits dA", R, V, d, False, False, chunks),
+            ("logits dB", d, R, V, False, False, chunks)]
+    return out
+
+
+def train_paths(products):
+    """The spm_matmul launches by path of ``products``, as
+    ``ops.launch_plan`` resolves each (bf16, aligned)."""
+    from repro_torch.kernels.spm_matmul import ops
+    counts = dict.fromkeys(ops.matmul.paths, 0)
+    for _, m, k, n, tb, _, c in products:
+        counts[ops.launch_plan(m, k, n, torch.bfloat16, tb, True)["path"]] \
+            += c
+    return counts
+
+
+def run_train_case(label, fn, plain, lib, args, fault_args, flops,
+                   nbytes, main=True, extra=None):
+    """One phase-9(a) gradient product: the wrapper call ``fn(*args)``
+    held element by element to its plain version on the same inputs,
+    run twice for the same bits; a planted fault (``fault_args``: one
+    16-deep step of the contraction zeroed) must break the check; then
+    the call's time, the plain version's, ``torch.mm``'s and the bound."""
+    from repro_torch.kernels.spm_matmul import ops
+    from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
+    dt = torch.bfloat16
+    before = dict(ops.matmul.paths)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    path = launched_path(ops.matmul.paths, before)
+    if path != "wgmma":
+        fail(f"train {label}: launched {path}, expected wgmma")
+    if not torch.equal(got, fn(*args)):
+        fail(f"train {label}: two runs differ")
+    want = plain(*args)
+    ratio, diff = check(got, want, dt)
+    if not ratio < 1:
+        fail(f"train {label}: error at {ratio:.3f} of its allowance")
+    fault, _ = check(fn(*fault_args), want, dt)
+    if not fault > 1:
+        fail(f"train {label}: the check misses a dropped K step "
+             f"({fault:.3f} of its allowance)")
+    row = {"kernel": "spm_matmul", "case": f"train {label}",
+           "shape": list(got.shape), "dtype": str(dt), "path": path,
+           "deterministic": True, "err_ratio": ratio, "fault_ratio": fault,
+           "max_abs_err": diff, "rtol": RTOL[dt], "atol_frac": ATOL_FRAC[dt],
+           "main_path": main, **(extra or {})}
+    row["ms"] = time_ms(fn, [args], min_reps=5)
+    row["plain_ms"] = time_ms(plain, [args], min_reps=5)
+    row["library_ms"] = time_ms(lib, [args], min_reps=5)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    print(f"  spm_matmul train {label:22s} -> {list(got.shape)} {path} err "
+          f"{ratio:.3f} of allowance (dropped K step {fault:.1f})  kernel "
+          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  torch.mm "
+          f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    return row
+
+
+def phase_train_kernels(dev):
+    """Phase 9(a): the backward's products at qwen2's training widths
+    (T = 4 x 4096 rows; d 896, k/v 128, FFN 4864; the loss chunk's 2048
+    rows against the 151,936-row table) and the forward flash launch."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.spm_matmul import ops
+    from repro_torch.kernels.tolerance import check
+    from repro_torch.launch import train
+    cfg = train_cfg()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    T, d = TRAIN_B * TRAIN_S, cfg.d_model
+    R = TRAIN_B * train.LOSS_CHUNK
+    V = cfg.padded_vocab
+    hkv = cfg.attention.num_kv_heads * cfg.attention.head_dim
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+
+    def drop_cols(t):
+        t = t.clone()
+        t[:, -16:] = 0
+        return t
+
+    def drop_rows(t):
+        t = t.clone()
+        t[-16:] = 0
+        return t
+
+    rows = []
+    for what, k, n in (("q/o", d, d), ("k/v", d, hkv),
+                       ("gate/up", d, cfg.d_ff), ("down", cfg.d_ff, d)):
+        x, w, dc = rnd(T, k), rnd(k, n, scale=k ** -0.5), rnd(T, n)
+        rows.append(run_train_case(
+            f"{what} dA {T}x{n}x{k}ᵀ",
+            lambda g, b: ops.grad_a(g, b, False, bf),
+            lambda g, b: ops.matmul_plain(g, b, bf, trans_b=True),
+            lambda g, b: torch.mm(g, b.t()), (dc, w), (drop_cols(dc), w),
+            2 * T * n * k, 2 * (T * n + k * n + T * k)))
+        rows.append(run_train_case(
+            f"{what} dB {k}x{T}x{n}",
+            lambda a, g: ops.grad_b(a, g, False, bf),
+            lambda a, g: ops.matmul_plain(a.t(), g, bf),
+            lambda a, g: torch.mm(a.t(), g), (x, dc), (drop_rows(x), dc),
+            2 * T * n * k, 2 * (T * k + T * n + k * n),
+            extra={"copied": "A" if k <= n else "dC"}))
+        del x, w, dc
+    x, table = rnd(R, d), rnd(V, d, scale=d ** -0.5)
+    dc32 = 1e-3 * torch.randn(R, V, generator=gen, device=dev)
+    dc = dc32.to(bf)
+    f32 = torch.float32
+    rows.append(run_train_case(
+        f"logits fwd {R}x{d}x{V}ᵀ fp32 out",
+        lambda a, b: ops.matmul(a, b, trans_b=True, out_dtype=f32),
+        lambda a, b: ops.matmul_plain(a, b, f32, trans_b=True),
+        lambda a, b: torch.mm(a, b.t(), out_dtype=f32),
+        (x, table), (drop_cols(x), table), 2 * R * d * V,
+        2 * (R * d + V * d) + 4 * R * V))
+    # the logits' dA from the bf16-rounded dC, and what the plain fp32
+    # product of the unrounded dC costs and differs by
+    rows.append(run_train_case(
+        f"logits dA {R}x{V}x{d}",
+        lambda g, b: ops.grad_a(g, b, True, bf),
+        lambda g, b: ops.matmul_plain(g, b, bf),
+        lambda g, b: torch.mm(g, b), (dc, table), (drop_cols(dc), table),
+        2 * R * d * V, 2 * (R * V + V * d + R * d)))
+    fp32_ms = time_ms(lambda g, b: ops.matmul_plain(g, b, bf), [(dc32, table)],
+                      min_reps=5)
+    cast_ms = time_ms(lambda g: g.to(bf), [(dc32,)], min_reps=5)
+    vs_fp32, _ = check(ops.grad_a(dc, table, True, bf),
+                       ops.matmul_plain(dc32, table, bf), bf)
+    rows[-1].update({"fp32_plain_ms": fp32_ms, "cast_ms": cast_ms,
+                     "err_vs_fp32_dc": vs_fp32})
+    print(f"  logits dA: the fp32 dC rounded to bf16 ({cast_ms:.4f} ms) "
+          f"feeds the bf16 kernel; the plain fp32 product of the unrounded "
+          f"dC takes {fp32_ms:.4f} ms; kernel vs it {vs_fp32:.3f} of the "
+          f"bf16 allowance", flush=True)
+    rows.append(run_train_case(
+        f"logits dB {d}x{R}x{V}",
+        lambda a, g: ops.grad_b(a, g, True, bf),
+        lambda a, g: ops.matmul_plain(g.t(), a, bf),
+        lambda a, g: torch.mm(g.t(), a), (x, dc), (drop_rows(x), dc),
+        2 * R * d * V, 2 * (R * d + R * V + V * d),
+        extra={"copied": "A"}))
+    del x, table, dc32, dc
+    # the forward attention at the training shape
+    a = cfg.attention
+    q = rnd(TRAIN_B, TRAIN_S, a.num_heads, a.head_dim)
+    k, v = (rnd(TRAIN_B, TRAIN_S, a.num_kv_heads, a.head_dim)
+            for _ in range(2))
+    before = dict(fa.attention.paths)
+    got = fa.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    path = launched_path(fa.attention.paths, before)
+    if path != "tensor_core" or not torch.equal(got, fa.attention(q, k, v)):
+        fail(f"train flash: path {path}, or two runs differ")
+    want = fa.attention_plain(q, k, v, causal=True)
+    ratio, diff = check(got, want, bf)
+    fault, _ = check(fa.attention(q, k, v, scale=1.05 / math.sqrt(
+        a.head_dim)), want, bf)
+    if not ratio < 1 or not fault > 1:
+        fail(f"train flash: error {ratio:.3f}, planted fault {fault:.3f} "
+             f"of the allowance")
+    del got, want
+    mask = mask_of(TRAIN_S, TRAIN_S, True, 0, dev)
+    row = {"kernel": "flash_attention", "case": "train forward",
+           "shape": [TRAIN_B, TRAIN_S, TRAIN_S, a.num_heads,
+                     a.num_kv_heads, a.head_dim], "causal": True,
+           "window": 0, "dtype": str(bf), "path": path,
+           "deterministic": True, "err_ratio": ratio, "fault_ratio": fault,
+           "max_abs_err": diff, "main_path": True,
+           "ms": time_ms(lambda x, y, z: fa.attention(x, y, z), [(q, k, v)],
+                         min_reps=5),
+           "plain_ms": time_ms(lambda x, y, z: fa.attention_plain(x, y, z),
+                               [(q, k, v)], min_reps=3)}
+    row["library_ms"], row["library_backend"] = library_attention_ms(
+        q, k, v, True, 0, mask)
+    row["bound_ms"], row["bound_by"] = bound(
+        (2 * q.numel() + k.numel() + v.numel()) * 2,
+        4 * a.head_dim * int(mask.sum()) * TRAIN_B * a.num_heads, bf)
+    print(f"  flash_attention train B{TRAIN_B} S{TRAIN_S} H{a.num_heads}/"
+          f"{a.num_kv_heads} D{a.head_dim} causal {path} err {ratio:.3f} "
+          f"(scale x1.05 {fault:.1f})  kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  library {row['library_ms']} ms "
+          f"(SDPA {row['library_backend']})  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    rows.append(row)
+    del q, k, v, mask
+    release()
+    print(f"phase 9 train kernels: {len(rows)} cases within tolerance, "
+          f"each planted fault caught", flush=True)
+    return rows
+
+
+def _fan_in_qk(params, cfg):
+    """q/k at the fan-in of their d inputs (the reduced init's softmax is
+    otherwise one-hot up to near ties, which fp32 rounding decides)."""
+    a = cfg.attention
+    for key, stage in params.items():
+        if key.startswith("stage"):
+            for pos in stage.values():
+                for name in ("wq", "wk"):
+                    pos["attn"][name].mul_(
+                        math.sqrt(a.num_heads / cfg.d_model))
+
+
+def phase_train_grads(dev):
+    """Phase 9(b): reduced fp32 qwen2 (2 layers, remat on), one step's
+    gradient of every leaf and 5 steps of loss, card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, reduce_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.models import lm
+    from repro_torch.models.spec import tree_items, tree_map
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(reduce_config(
+        train_cfg(), layers=2, d_model=128, vocab=512), dtype="float32")
+    opts = lm.RunOptions(chunk_q=32, chunk_kv=32, loss_chunk=32, remat=True)
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=2,
+                       total_steps=GRAD_STEPS)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         global_batch=4, seq_len=128))
+    cpu_params = lm.init_params(cfg, seed=0, device="cpu")
+    _fan_in_qk(cpu_params, cfg)
+    runs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        params = tree_map(lambda t: t.to(d), cpu_params)
+        batches = [{k: torch.from_numpy(v).to(d, torch.long)
+                    for k, v in data.batch_at(i).items()}
+                   for i in range(GRAD_STEPS)]
+        _, grads = adamw.value_and_grad(
+            lambda p, b: lm.train_loss(cfg, p, b, opts), params, batches[0])
+        step = adamw.make_train_step(cfg, tcfg, opts)
+        opt, losses = adamw.adamw_init(params), []
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+        runs[name] = ({k: g.cpu() for k, g in tree_items(grads)}, losses)
+    worst = max((rel_err(g, runs["cpu"][0][k])[0], k)
+                for k, g in runs["cuda"][0].items())
+    loss_err = max(abs(a - b) / b for a, b in zip(runs["cuda"][1],
+                                                  runs["cpu"][1]))
+    print(f"phase 9 train grads: reduced qwen2-0.5b fp32 (2 layers, remat, "
+          f"batch 4 x 128) card vs CPU: worst leaf gradient {worst[0]:.2e} "
+          f"of its largest magnitude ({worst[1]}; {len(runs['cpu'][0])} "
+          f"leaves; tol {GRAD_TOL:.0e}); {GRAD_STEPS} losses "
+          f"{[round(x, 6) for x in runs['cuda'][1]]}, worst rel err "
+          f"{loss_err:.2e} (tol {GRAD_TOL:.0e})", flush=True)
+    if not worst[0] < GRAD_TOL or not loss_err < GRAD_TOL:
+        fail("card and CPU gradients or losses disagree")
+    return {"worst_grad_rel": worst[0], "worst_leaf": worst[1],
+            "loss_rel": loss_err, "losses": runs["cuda"][1]}
+
+
+# a training step's kernels by family: the attention backward's
+# recompute (flash_attention's attention_grad) runs its products on
+# cuBLAS
+TRAIN_FAMILIES = (
+    TRACE_FAMILIES[:3]
+    + (("cuBLAS products (attention backward's recompute)",
+        TRACE_FAMILIES[3][1]),)
+    + TRACE_FAMILIES[4:])
+
+
+def phase_train(dev):
+    """Phase 9(c): full-width qwen2-0.5b through the training entry point;
+    launch counters zeroed just before it and read just after."""
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    release()
+    reset_launches()
+    res = train.main(TRAIN_ARGV)
+    paths = path_counts()
+    cfg = train_cfg()
+    products = train_products(cfg, TRAIN_B, TRAIN_S, train.LOSS_CHUNK)
+    want = train_paths(products)
+    want_flash = cfg.num_layers
+    per_step = res["launches_per_step"]
+    loss, js = res["loss"], res["jitter"]
+    print(f"phase 9 train: repro_torch.launch.train {' '.join(TRAIN_ARGV)} "
+          f"(global batch cut from 256 to {TRAIN_B} for one card; seq "
+          f"{TRAIN_S}, TRAIN_4K's): loss {loss[0]:.4f} -> {loss[-1]:.4f} "
+          f"(gradient norm {res['grad_norm'][0]:.4g} -> "
+          f"{res['grad_norm'][-1]:.4g}); "
+          f"step median {js['median'] * 1e3:.2f} ms, p99 "
+          f"{res['p99_s'] * 1e3:.2f} ms, CoV {js['cov']:.4f} over steps 3-"
+          f"{TRAIN_STEPS}; {res['tokens_per_s']:,.0f} tokens/s; model FLOPs "
+          f"{res['model_flops']:.4g} a step, {res['peak_flop_share']:.4f} "
+          f"of the bf16 peak; peak memory {res['peak_memory'] / 2**30:.2f} "
+          f"GiB (torch.cuda.max_memory_allocated); deadline "
+          f"{res['deadline']['deadline_s'] * 1e3:.1f} ms, overruns "
+          f"{res['deadline']['overruns']}", flush=True)
+    print(f"phase 9 train: launches per step {per_step[-1]} (reckoned: "
+          f"spm_matmul {want}, {sum(want.values())} in all; flash_attention "
+          f"{want_flash}); over the run {paths['spm_matmul']} and "
+          f"{paths['flash_attention']}", flush=True)
+    if not all(map(math.isfinite, loss)):
+        fail(f"non-finite losses: {loss}")
+    for i, st in enumerate(per_step):
+        if st["spm_matmul"] != want or st["flash_attention"] != want_flash:
+            fail(f"train step {i + 1} launched {st}, reckoned spm_matmul "
+                 f"{want} and flash_attention {want_flash}")
+    if paths["wkv6"]["tensor_core"] or paths["wkv6"]["fma"]:
+        fail("wkv6 launched in qwen2's training")
+    launches = {"spm_matmul": sum(paths["spm_matmul"].values()),
+                "flash_attention": sum(paths["flash_attention"].values()),
+                "wkv6": 0}
+    # the last loss must be below the first, and so must the first
+    # step's batch's under the trained parameters; 12 steps (10 of them
+    # warm-up) move a new batch's loss by little, so train_descent reads
+    # the fall again against the spread between batches.  The run is
+    # deterministic: the same code gives the same losses on any card
+    tr, state = res["trainer"], res["final_state"]
+    batch0 = tr.batch_at(0)
+    with torch.no_grad():
+        again = float(lm.train_loss(cfg, state.params, batch0, tr.opts))
+    print(f"phase 9 train: the first step's batch after training: loss "
+          f"{again:.4f} (first {loss[0]:.4f}, last {loss[-1]:.4f})",
+          flush=True)
+    if not (loss[-1] < loss[0] and again < loss[0]):
+        fail(f"the loss did not fall: first {loss[0]}, last {loss[-1]}, "
+             f"the first batch after training {again}")
+    # one more step, traced: device time by kernel family
+    trace = trace_replays(
+        "train step (full-width qwen2-0.5b, batch 4 x 4096)",
+        lambda i: tr._step_fn(state.params, state.opt_state, batch0), 2,
+        phase=9, families=TRAIN_FAMILIES)
+    variants = train_variants(cfg, tr, state, batch0)
+    descent = train_descent(cfg, tr, state)
+    out = {k: v for k, v in res.items()
+           if k not in ("final_state", "trainer")}
+    out.update({"first_batch_loss_after": again, "trace": trace,
+                "variants": variants, "descent": descent})
+    del tr, state, res
+    release()
+    return out, launches
+
+
+def train_variants(cfg, tr, state, batch):
+    """Phase 9(c): the full-width step under variants of the training
+    path, in one process, each from the trained parameters and optimizer
+    state on the first step's batch (the update not kept): one warm-up
+    step and VARIANT_STEPS timed (host clock around a step that ends in
+    a synchronize), the peak memory (``torch.cuda.max_memory_allocated``
+    from the variant's first step; the trainer's state is resident
+    throughout) and the loss, which must be the same bits in every
+    variant.
+
+      baseline     the port as it is: each stacked stage leaf unbound
+                   once a step (``lm._unit_params``), each loss chunk's
+                   logits recomputed in the backward, no remat
+      index        each unit's leaves indexed one unit at a time
+                   (``blk.tree_index``): each index's backward fills a
+                   gradient the size of the whole stacked leaf
+      keep-logits  the loss chunks not recomputed (``lm.checkpoint`` a
+                   direct call): autograd keeps every chunk's fp32
+                   logits, as the reference's scan does
+      remat        ``RunOptions.remat``: each unit recomputed
+
+    ``index`` and ``keep-logits`` replace a name of ``models.lm`` for
+    their steps and put it back."""
+    import dataclasses
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    def indexed(sp, n):
+        return [blk.tree_index(sp, i) for i in range(n)]
+
+    def direct(fn, *a, use_reentrant=False):
+        return fn(*a)
+
+    variants = [("baseline", tr.opts, {}),
+                ("index", tr.opts, {"_unit_params": indexed}),
+                ("keep-logits", tr.opts, {"checkpoint": direct}),
+                ("remat", dataclasses.replace(tr.opts, remat=True), {})]
+    out = {}
+    for name, opts, patches in variants:
+        saved = {k: getattr(lm, k) for k in patches}
+        for k, v in patches.items():
+            setattr(lm, k, v)
+        try:
+            step = adamw.make_train_step(cfg, tr.tcfg, opts)
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(VARIANT_STEPS + 1):
+                t0 = time.monotonic()
+                _, _, m = step(state.params, state.opt_state, batch)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t0)
+        finally:
+            for k, v in saved.items():
+                setattr(lm, k, v)
+        out[name] = {"step_ms": [t * 1e3 for t in times[1:]],
+                     "median_ms": float(np.median(times[1:])) * 1e3,
+                     "peak_memory": torch.cuda.max_memory_allocated(),
+                     "loss": m["loss"].item()}
+        del m, step
+    base = out["baseline"]
+    for name, v in out.items():
+        d_ms = v["median_ms"] - base["median_ms"]
+        print(f"phase 9 train variants: {name:11s} step median "
+              f"{v['median_ms']:8.2f} ms ({d_ms:+.2f};"
+              f" steps {', '.join(f'{t:.2f}' for t in v['step_ms'])}), peak "
+              f"memory {v['peak_memory'] / 2**30:6.2f} GiB "
+              f"({(v['peak_memory'] - base['peak_memory']) / 2**30:+.2f}),"
+              f" loss {v['loss']!r}", flush=True)
+    if len({v["loss"] for v in out.values()}) != 1:
+        fail("the training path's variants disagree on the loss")
+    release()
+    return out
+
+
+def descend(cfg, tr, params, opt):
+    """DESCENT_STEPS steps of the launcher's update at its peak rate (no
+    warm-up, no decay) on the first step's batch alone, from ``params``
+    and ``opt``: the first SPREAD_BATCHES batches' losses before, each
+    step's loss and gradient norm, the first batch's loss after, and
+    the parameters and state the steps end with."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    batches = [tr.batch_at(i) for i in range(SPREAD_BATCHES)]
+    with torch.no_grad():
+        at = [float(lm.train_loss(cfg, params, b, tr.opts))
+              for b in batches]
+    tcfg = dataclasses.replace(tr.tcfg, warmup_steps=0, total_steps=1 << 30)
+    step = adamw.make_train_step(cfg, tcfg, tr.opts)
+    losses, norms = [], []
+    for _ in range(DESCENT_STEPS):
+        params, opt, m = step(params, opt, batches[0])
+        if not m["finite"]:
+            fail("a non-finite step on the first batch")
+        losses.append(m["loss"].item())
+        norms.append(float(m["grad_norm"]))
+    with torch.no_grad():
+        after = float(lm.train_loss(cfg, params, batches[0], tr.opts))
+    res = {"losses_before": at, "spread": max(at) - min(at),
+           "step_losses": losses, "grad_norms": norms, "after": after,
+           "fall": at[0] - after, "lr": tcfg.learning_rate}
+    return res, params, opt
+
+
+def _descent_line(what, r):
+    return (f"{what}: {DESCENT_STEPS} steps on the first batch alone at "
+            f"lr {r['lr']:g}: its loss {r['losses_before'][0]:.4f} -> "
+            f"{r['after']:.4f} (fall {r['fall']:.4f}; step losses "
+            f"{', '.join(f'{x:.4f}' for x in r['step_losses'])}; gradient "
+            f"norms {', '.join(f'{x:.4g}' for x in r['grad_norms'])}); "
+            f"spread of {SPREAD_BATCHES} batches' losses before "
+            f"{r['spread']:.4f} ("
+            f"{', '.join(f'{x:.4f}' for x in r['losses_before'])})")
+
+
+def train_descent(cfg, tr, state):
+    """Phase 9(c): is the update real?  Read first on the trained
+    24-layer model, where it is only printed: its gradient norm is
+    astronomically large (the reference's ``scaled`` init takes wq, wk
+    and wv's fan-in from their head axis, so attention is near one-hot
+    at init and the gradient grows geometrically with depth;
+    ``tests/test_torch_train.py`` holds the port's growth to the
+    reference's), and its loss moves by about the spread between
+    batches.  Then held at the same widths at 2 layers,
+    from init (seed 0): the first batch's loss must fall by more than
+    DESCENT_MARGIN x the spread of the first SPREAD_BATCHES batches'
+    losses, every leaf's first moment must be non-zero after the steps
+    (its gradient reached it) and every leaf not constant at init must
+    have moved from it (norm weights at 1.0 may stay: a bf16 1.0 moves
+    only by more than half its ulp)."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.models.spec import tree_items
+    from repro_torch.optim import adamw
+    deep, _, _ = descend(cfg, tr, state.params, state.opt_state)
+    print(_descent_line(f"phase 9 train descent: the trained "
+                        f"{cfg.num_layers}-layer model (printed, not "
+                        f"held)", deep), flush=True)
+    release()
+    two = dataclasses.replace(cfg, num_layers=2)
+    init = lm.init_params(two, tr.tcfg.seed, tr.device)
+    res, p, o = descend(two, tr, init, adamw.adamw_init(init))
+    still = [path for path, leaf in tree_items(o["m"])
+             if not bool(leaf.any())]
+    unmoved = [path for (path, a), (_, b) in zip(tree_items(init),
+                                                 tree_items(p))
+               if bool((a != a.reshape(-1)[0]).any()) and torch.equal(a, b)]
+    print(_descent_line("phase 9 train descent: the same widths at 2 "
+                        "layers from init (held)", res)
+          + f"; the fall must exceed {DESCENT_MARGIN} x the spread; "
+          f"leaves with a zero first moment {len(still)} of "
+          f"{len(list(tree_items(p)))}, leaves unchanged from a random "
+          f"init {len(unmoved)}", flush=True)
+    if not res["fall"] > DESCENT_MARGIN * res["spread"] or still \
+            or unmoved:
+        fail(f"the update is not real: fall {res['fall']} against "
+             f"spread {res['spread']}; zero first moment {still}; "
+             f"unchanged {unmoved}")
+    del init, p, o
+    release()
+    return {"deep": deep, "two_layers": res}
+
+
+def _state_bits(state):
+    from repro_torch.models.spec import tree_items
+    return [t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+            for _, t in tree_items({"p": state.params, "o": state.opt_state})]
+
+
+def phase_train_resume(dev):
+    """Phase 9(d): a reduced bf16 run with one NaN step, then a save, a
+    preemption and a resume, bit-identical to an undisturbed run in the
+    parameters and the optimizer state."""
+    from repro_torch.configs import TrainConfig, reduce_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.lm import RunOptions
+    from repro_torch.resilience import Fault, FaultPlan
+    from repro_torch.runtime.trainer import Trainer
+    cfg = reduce_config(train_cfg(), layers=2, d_model=128, vocab=512)
+    root = OUT_DIR / "train_resume"
+    if root.exists():
+        import shutil
+        shutil.rmtree(root)
+
+    def trainer(name, chaos=None):
+        return Trainer(cfg, TrainConfig(learning_rate=1e-2, warmup_steps=2,
+                                        total_steps=RESUME_STEPS),
+                       DataConfig(vocab_size=cfg.vocab_size, global_batch=4,
+                                  seq_len=128),
+                       ckpt_dir=str(root / name), ckpt_every=3,
+                       opts=RunOptions(loss_chunk=64, remat=False),
+                       log_every=0, chaos=chaos, device=dev)
+
+    ref = trainer("ref")
+    ref.run(RESUME_STEPS)
+    first = trainer("chaos", FaultPlan([Fault(NAN_STEP, "nan_loss"),
+                                        Fault(PREEMPT_STEP, "preempt")]))
+    first.run(RESUME_STEPS)
+    resumed = trainer("chaos")
+    resumed.run(RESUME_STEPS)
+    same = _state_bits(resumed.final_state) == _state_bits(ref.final_state)
+    print(f"phase 9 train resume: reduced qwen2-0.5b bf16 (2 layers, batch "
+          f"4 x 128) on the card: NaN step {first.nonfinite_steps}, "
+          f"preempted and saved at step {first.final_state.step}, resumed "
+          f"to {resumed.final_state.step}; parameters and optimizer state "
+          f"bit-identical to an undisturbed run: {same}", flush=True)
+    if (first.nonfinite_steps != [NAN_STEP]
+            or first.final_state.step != PREEMPT_STEP + 1
+            or resumed.final_state.step != RESUME_STEPS or not same):
+        fail("the disturbed run did not resume bit-identical")
+    return {"nonfinite_steps": first.nonfinite_steps,
+            "preempted_at": first.final_state.step, "bit_identical": same}
+
+
 def path_counts():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.spm_matmul import ops as mm_ops
@@ -1547,12 +2202,13 @@ def reset_launches():
         counts.update(dict.fromkeys(counts, 0))
 
 
-def kernel_summary(rows, launches, replayed):
+def kernel_summary(rows, launches, replayed, trained):
     """One entry per kernel; times and bounds summed over its main-path
-    cases (each shape once, every served model), errors the largest of
-    those cases.  ``launches`` is the wrappers' count over the serve
-    runs (summed), ``replayed_launches`` what the timed prefill and
-    decode graphs' replays launched."""
+    cases (each shape once, every served model and the training path),
+    errors the largest of those cases.  ``launches`` is the wrappers'
+    count over the serve runs and phase 9's training run (summed),
+    ``train_launches`` the training run's share, ``replayed_launches``
+    what the timed prefill and decode graphs' replays launched."""
     from repro_torch.kernels import _build
     replaced = {
         "spm_matmul": "src/repro/kernels/spm_matmul/spm_matmul.py:50",
@@ -1569,7 +2225,9 @@ def kernel_summary(rows, launches, replayed):
         out.append({
             "name": name, "route": "cuda",
             "source": str((_build.CSRC / f"{name}.cu").relative_to(ROOT)),
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + trained[name],
+            "train_launches": trained[name],
             "replayed_launches": replayed[name],
             "max_abs_err": max(r["max_abs_err"] for r in main),
             "ms": sum(r["ms"] for r in main),
@@ -1581,7 +2239,29 @@ def kernel_summary(rows, launches, replayed):
     return out
 
 
+def phase_train_phases(dev):
+    """Phase 9, its four parts in order; returns the kernel rows of (a)
+    and the results."""
+    rows = phase_train_kernels(dev)
+    grads = phase_train_grads(dev)
+    run, launches = phase_train(dev)
+    resume = phase_train_resume(dev)
+    return rows, {"grads": grads, "run": run, "launches": launches,
+                  "resume": resume, "cases": rows}
+
+
 def main():
+    if sys.argv[1:] == ["9"]:
+        # the training phase alone, after the device and the build: a
+        # quicker check of that path, with no result lines
+        os.environ["REPRO_AUTOTUNE"] = "0"
+        dev, _ = phase_device()
+        phase_build()
+        OUT_DIR.mkdir(exist_ok=True)
+        _, train = phase_train_phases(dev)
+        (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(
+            train, indent=1, default=str))
+        return
     # phases 1-7 read no plan cache: they launch what they launched
     # before tuning existed (phase 8 turns it on)
     os.environ["REPRO_AUTOTUNE"] = "0"
@@ -1604,12 +2284,19 @@ def main():
                        for _, r in serves.values())
                 for k in launches}
     tuned = phase_tune(dev, smi)
-    kernels = kernel_summary(rows, launches, replayed)
+    # phase 9 launches what the code launches untuned
+    os.environ["REPRO_AUTOTUNE"] = "0"
+    from repro_torch import tuning
+    tuning.reset()
+    train_rows, train = phase_train_phases(dev)
+    rows += train_rows
+    kernels = kernel_summary(rows, launches, replayed, train["launches"])
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "build_s": build_s, "registers": registers, "cases": rows,
         "models": models,
         "kernels": kernels, "report": report, "tune": tuned,
+        "train": {k: v for k, v in train.items() if k != "cases"},
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],
                          "jitter": res["jitter"],

@@ -1,5 +1,5 @@
-"""Turn the reference's parameter and cache trees, as numpy arrays, into
-the port's tensors.
+"""Turn the reference's parameter, optimizer-state and cache trees, as
+numpy arrays, into the port's tensors.
 
 The two frameworks' random generators never agree, so parity tests
 make parameters with the JAX package's ``init_params``, pass them
@@ -21,7 +21,7 @@ import torch
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
-from repro_torch.models.spec import tree_from_items, tree_items
+from repro_torch.models.spec import Par, tree_from_items, tree_items, tree_map
 
 Device = Union[str, torch.device]
 
@@ -69,3 +69,16 @@ def cache_from_numpy(cfg: ModelConfig, tree: dict, batch: int,
     """Reference KV cache (numpy leaves) -> the port's cache."""
     spec = lm.cache_spec(cfg, batch, cache_len, windowed)
     return _from_numpy(spec, tree, device, "cache")
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: dict,
+                         device: Device = "cuda") -> dict:
+    """The reference's AdamW state ``{"m", "v", "count"}`` (numpy
+    leaves) -> the port's: fp32 moments shaped like the parameters and
+    an int32 0-d count, so that both packages can start from the same
+    full training state."""
+    f32 = tree_map(lambda p: Par(p.shape, p.axes, init="zeros",
+                                 dtype="float32"), lm.model_spec(cfg))
+    spec = {"m": f32, "v": f32,
+            "count": Par((), (), init="zeros", dtype="int32")}
+    return _from_numpy(spec, state, device, "opt_state")

@@ -264,13 +264,41 @@ def serve_step_schedule(batch: int, d_model: int, n_params: int, *,
                         chip: GPUChip = H100) -> Schedule:
     """Static schedule for one decode step's weight pass, tiled by the
     SERVED plan's ``mm_bm``/``mm_bn`` pins, with the reference's sizing
-    rule: an effective [batch, d_model, 2*n_params/d_model] matmul."""
+    rule: an effective [batch, d_model, 2*n_params/d_model] matmul.
+    Its ``gpu_wcet`` is the bound ``serve_step_wcet`` computes in closed
+    form (the tests hold the two equal)."""
     n_eff = max(d_model, 2 * n_params // d_model)
     tile_m = max(1, min(int(plan["mm_bm"]), batch))
     tile_n = max(1, min(int(plan["mm_bn"]), n_eff))
     return gpu_matmul_schedule(batch, d_model, n_eff, tile_m=tile_m,
                                tile_n=tile_n, elem_bytes=elem_bytes,
                                chip=chip)
+
+
+def serve_step_wcet(batch: int, d_model: int, n_params: int, *,
+                    plan: dict, elem_bytes: int = 2,
+                    chip: GPUChip = H100) -> float:
+    """The per-step WCET bound of serving (``launch.serve.plan_wcet_s``)
+    and of training's deadline (``launch.train``):
+    ``gpu_wcet(serve_step_schedule(...))`` in closed form, without
+    building the schedule: at a training batch (16,384 rows of qwen2)
+    the schedule holds ~6.6 M phases and takes ~35 s of host time to
+    build.  Same phases, same per-phase times: every column block loads
+    B once and each row tile loads A and stores C; the slowest SM runs
+    ceil(column blocks / SMs) blocks of ``tiles_m`` tile products."""
+    n_eff = max(d_model, 2 * n_params // d_model)
+    tile_m = max(1, min(int(plan["mm_bm"]), batch))
+    tile_n = max(1, min(int(plan["mm_bn"]), n_eff))
+    tiles_m = math.ceil(batch / tile_m)
+    tiles_n = math.ceil(n_eff / tile_n)
+    rate = chip.hbm_bw * chip.worst_hbm_derate
+    k = d_model
+    dma = tiles_n * (k * tile_n * elem_bytes / rate + tiles_m * (
+        tile_m * k * elem_bytes / rate
+        + tile_m * tile_n * elem_bytes / rate))
+    per_sm = chip.peak_flops / chip.num_sms
+    comp = 2.0 * tile_m * k * tile_n / (per_sm * chip.worst_tc_eff)
+    return dma + math.ceil(tiles_n / chip.num_sms) * tiles_m * comp
 
 
 def gpu_phase_wcet(ph, chip: GPUChip = H100) -> float:

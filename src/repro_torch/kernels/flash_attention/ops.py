@@ -24,6 +24,15 @@ cache's (``launch_plan``), which can only name that tile too.  q, k and
 v are read in place through their strides (the head dim must be
 contiguous).
 
+Training: under grad mode, a call whose q, k or v needs a gradient runs
+through ``FlashAttention`` (a ``torch.autograd.Function``): the forward
+is this wrapper's call (the kernel on CUDA), the backward
+(``attention_grad``) recomputes the reference model's attention
+(``ref.attention_block``) under autograd, one block of queries at a
+time.  No TPU kernel computes attention's gradient: the reference has
+no backward kernel, and ``jax.grad`` differentiates its jnp ``sdpa``.
+Every other call, serving's among them, takes the direct route.
+
 What bounds it on the card, and what the design does about it, is in
 the source note of ``csrc/flash_attention.cu``.
 """
@@ -38,11 +47,17 @@ import torch
 from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, FLASH_PATHS,
                                           flash_smem_plan)
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                     attention_block,
+                                                     attention_ref, visible)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65_535
 PATHS = FLASH_PATHS
+# queries per block of attention_grad's recompute: one block's fp32
+# scores at qwen2's training shape (batch 4, 4096 keys, 14 heads) are
+# 4 x 14 x 512 x 4096 x 4 B = 470 MB
+BWD_CHUNK_Q = 512
 
 attention_plain = attention_ref
 
@@ -111,14 +126,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               bq: Optional[int] = None,
               bk: Optional[int] = None) -> torch.Tensor:
     """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype.
-    Positions are ``arange`` for both q and k (prefill)."""
+    Positions are ``arange`` for both q and k (prefill).  Differentiable
+    (``FlashAttention``) when grad mode is on and an input needs a
+    gradient."""
     _check(q, k, v)
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    scale = scale or 1.0 / math.sqrt(D)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale,
+                                    (bq, bk))
+    return _attention(q, k, v, causal, window, scale, bq, bk)
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """Whether every input lies on the CPU (the plain version runs)."""
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _attention(q, k, v, causal, window, scale, bq=None, bk=None):
+    """The checked call's dispatch: the plain version on the CPU, the
+    kernel on CUDA."""
+    if _on_cpu(q, k, v):
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale)
+    return _launch(q, k, v, causal, window, scale, bq, bk)
+
+
+def _launch(q, k, v, causal, window, scale, bq=None, bk=None):
+    """Launch the CUDA kernel ``select_path`` picks, or raise."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError("flash_attention runs on one CUDA device or the "
@@ -154,6 +190,65 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attention.launches += 1
     attention.paths[path] += 1
     return o
+
+
+def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor, *, causal: bool, window: int,
+                   scale: float, chunk_q: int = BWD_CHUNK_Q):
+    """(dq, dk, dv) of ``attention(q, k, v)`` against the output
+    gradient ``do``.  ``ref.attention_block`` is recomputed under
+    autograd one block of ``chunk_q`` queries at a time, over the keys
+    the block's mask can let through (causal: up to its last query; a
+    window: from its first query's window start); the keys cut off are
+    masked to exactly zero weight, so the function is the same.  dk and
+    dv sum the blocks in fp32 and are cast to k's and v's dtype once."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        for q0 in range(0, Sq, chunk_q):
+            q1 = min(Sq, q0 + chunk_q)
+            k0 = max(0, q0 - window + 1) if window > 0 else 0
+            k1 = min(Sk, q1) if causal else Sk
+            if k1 <= k0:        # rows with no visible key: keep them all
+                k0, k1 = 0, Sk
+            qc = q[:, q0:q1].detach().requires_grad_()
+            kc = k[:, k0:k1].detach().requires_grad_()
+            vc = v[:, k0:k1].detach().requires_grad_()
+            ok = visible(torch.arange(q0, q1, device=q.device),
+                         torch.arange(k0, k1, device=q.device), causal,
+                         window)
+            bias = torch.where(ok, 0.0, NEG_INF).float()
+            o = attention_block(qc.reshape(B, q1 - q0, KV, H // KV, D),
+                                kc, vc, bias, scale)
+            gq, gk, gv = torch.autograd.grad(
+                o, (qc, kc, vc), do[:, q0:q1].reshape(o.shape))
+            dq[:, q0:q1] = gq
+            dk[:, k0:k1] += gk.float()
+            dv[:, k0:k1] += gv.float()
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention under autograd: the forward is the wrapper's call
+    (the kernel on CUDA, the plain version on the CPU); the backward is
+    ``attention_grad`` and returns dq, dk and dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, pins):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, scale)
+        return _attention(q, k, v, causal, window, scale, *pins)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = attention_grad(q, k, v, do, causal=causal,
+                                    window=window, scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
 attention.launches = 0

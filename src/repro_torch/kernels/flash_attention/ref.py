@@ -8,6 +8,13 @@ TPU kernel and the CUDA kernel both accumulate in fp32).
 
 The wrapper in ``ops.py`` runs this for CPU tensors; ``chip_smoke.py``
 holds the CUDA kernel against it on the card.
+
+``attention_block`` is the reference model's attention over one block
+(its ``models/attention.py::_block_attn``): products in the inputs'
+dtype, softmax in fp32.  ``jax.grad`` of that form is the reference's
+attention gradient; the port's ``models.attention.sdpa`` runs it, and
+``ops.attention_grad`` recomputes it under autograd for the kernel's
+backward.
 """
 import math
 from typing import Optional
@@ -15,6 +22,29 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def visible(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """[Sq, Sk] bool: which keys each query may attend to."""
+    ok = torch.ones((len(pos_q), len(pos_k)), dtype=torch.bool,
+                    device=pos_q.device)
+    if causal:
+        ok &= pos_k[None, :] <= pos_q[:, None]
+    if window > 0:
+        ok &= (pos_q[:, None] - pos_k[None, :]) < window
+    return ok
+
+
+def attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """The reference model's single-block attention.
+    q: [B,Sq,KV,G,hd]; k,v: [B,Tk,KV,hd]; bias: [Sq,Tk] additive fp32
+    -> [B,Sq,KV,G,hd] in v's dtype."""
+    s = torch.einsum("bqkgh,btkh->bkgqt", q, k).float() * scale
+    s = s + bias
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqt,btkh->bqkgh", p.to(v.dtype), v)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,13 +57,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale or 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, KV, G, D).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * scale
-    pos_q = torch.arange(Sq, device=q.device)[:, None]
-    pos_k = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= pos_k <= pos_q
-    if window > 0:
-        ok &= (pos_q - pos_k) < window
+    ok = visible(torch.arange(Sq, device=q.device),
+                 torch.arange(Sk, device=q.device), causal, window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)

@@ -46,6 +46,13 @@ The lookup sits in front of the cached ``resolve_plan`` and
 ``splitk_plan``, so a new cache, or ``tuning.reset()``, is seen at the
 next call.
 
+Training: under grad mode, a call whose operand needs a gradient runs
+through ``SpmMatmul`` (a ``torch.autograd.Function``), whose backward
+makes both gradient products through this same wrapper, so on CUDA
+they are kernel launches too (see ``SpmMatmul``).  Every other call,
+serving's and its captured graphs' among them, takes the direct route
+and launches exactly what it launched before.
+
 What bounds each path on the card, and what its design does about it,
 is in the source notes of ``csrc/spm_matmul.cu``.
 """
@@ -317,11 +324,31 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False,
            bm: Optional[int] = None, bn: Optional[int] = None,
            bk: Optional[int] = None) -> torch.Tensor:
     """C = A @ B (``trans_b``: A @ B.T with B given as [N, K]), fp32
-    accumulation, output in A's dtype unless ``out_dtype`` is given."""
+    accumulation, output in A's dtype unless ``out_dtype`` is given.
+    Differentiable (``SpmMatmul``) when grad mode is on and an operand
+    needs a gradient."""
     out_dtype = out_dtype or a.dtype
     _check(a, b, trans_b, out_dtype)
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return SpmMatmul.apply(a, b, trans_b, out_dtype, (bm, bn, bk))
+    return _matmul(a, b, trans_b, out_dtype, bm, bn, bk)
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """Whether every operand lies on the CPU (the plain version runs)."""
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _matmul(a, b, trans_b, out_dtype, bm=None, bn=None, bk=None):
+    """The checked call's dispatch: the plain version on the CPU, the
+    kernel on CUDA."""
+    if _on_cpu(a, b):
         return matmul_plain(a, b, out_dtype, trans_b=trans_b)
+    return _launch(a, b, trans_b, out_dtype, bm, bn, bk)
+
+
+def _launch(a, b, trans_b, out_dtype, bm=None, bn=None, bk=None):
+    """Launch the CUDA kernel ``route`` picks, or raise."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"spm_matmul runs on one CUDA device or the CPU: "
                          f"{a.device}, {b.device}")
@@ -355,6 +382,65 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False,
     matmul.launches += 1
     matmul.paths[path] += 1
     return c
+
+
+def _unit(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with unit stride along its last dim (a copy only if not)."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def grad_a(dc: torch.Tensor, b: torch.Tensor, trans_b: bool,
+           a_dtype: torch.dtype) -> torch.Tensor:
+    """dA = dC @ B^T of C = A @ B: a ``trans_b`` call on B as it lies
+    ([K, N]); for a ``trans_b`` forward (B given as [N, K]) a plain
+    call."""
+    return matmul(_unit(dc), b, trans_b=not trans_b, out_dtype=a_dtype)
+
+
+def grad_b(a: torch.Tensor, dc: torch.Tensor, trans_b: bool,
+           b_dtype: torch.dtype) -> torch.Tensor:
+    """dB of C = A @ B, in B's layout: A^T @ dC ([K, N]), or for a
+    ``trans_b`` forward dC^T @ A ([N, K]).  The wrapper needs unit
+    stride along each operand's last dim, so the smaller of A and dC is
+    copied transposed; copying A gives A^T @ dC, copying dC gives
+    dC^T @ A, and the other of the two layouts is a transposed view of
+    the result."""
+    if a.numel() <= dc.numel():
+        g = matmul(a.t().contiguous(), _unit(dc), out_dtype=b_dtype)
+        return g.t() if trans_b else g
+    g = matmul(dc.t().contiguous(), _unit(a), out_dtype=b_dtype)
+    return g if trans_b else g.t()
+
+
+class SpmMatmul(torch.autograd.Function):
+    """spm_matmul under autograd.  The forward is the wrapper's call;
+    the backward makes dA and dB (``grad_a``, ``grad_b``) through the
+    same wrapper (grad mode is off in a backward, so they take its direct
+    route): on CUDA both are kernel launches, on the CPU both run the
+    plain version.
+
+    An fp32 output of bf16 operands (the loss's logits) brings an fp32
+    dC: the backward rounds it to the operands' dtype once and feeds
+    both products the bf16 copy, which keeps them on the bf16 tensor
+    core paths (the kernel takes two operands of one dtype) at the cost
+    of dC's rounding, 2^-9 of each element, inside fp32 sums whose
+    result is rounded to bf16 anyway."""
+
+    @staticmethod
+    def forward(ctx, a, b, trans_b, out_dtype, pins):
+        ctx.save_for_backward(a, b)
+        ctx.trans_b = trans_b
+        return _matmul(a, b, trans_b, out_dtype, *pins)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype)
+        da = grad_a(dc, b, ctx.trans_b, a.dtype) \
+            if ctx.needs_input_grad[0] else None
+        db = grad_b(a, dc, ctx.trans_b, b.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return da, db, None, None, None
 
 
 matmul.launches = 0

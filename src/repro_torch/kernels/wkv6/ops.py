@@ -155,17 +155,29 @@ def _check(r, k, v, w_log, u) -> None:
         raise ValueError("empty sequence")
 
 
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """Whether every operand lies on the CPU (the plain version runs)."""
+    return all(t.device.type == "cpu" for t in ts)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         w_log: torch.Tensor, u: torch.Tensor, *,
         chunk: Optional[int] = None):
     """r,k,v,w_log: [B,S,H,K]; u: [H,K].  Returns (y [B,S,H,K] in r's
-    dtype, final state [B,H,K,K] fp32)."""
+    dtype, final state [B,H,K,K] fp32).  On CUDA under grad mode, inputs
+    that need a gradient raise: the kernel has no backward, and a
+    detached result would train nothing without a word."""
     _check(r, k, v, w_log, u)
     B, S, H, K = r.shape
     resolve_chunk(S, K, chunk)      # a bad plan fails on every device
     ts = (r, k, v, w_log, u)
-    if all(t.device.type == "cpu" for t in ts):
+    if _on_cpu(*ts):
         return wkv_plain(r, k, v, w_log, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "wkv6 has no backward on CUDA: the kernel's result would carry "
+            "no gradient.  RWKV training waits for a wkv6 gradient "
+            "(ROADMAP.md, Queue 1 item 7, what it leaves)")
     if r.device.type != "cuda" or any(t.device != r.device for t in ts):
         raise ValueError("wkv6 runs on one CUDA device or the CPU: "
                          f"{[str(t.device) for t in ts]}")

@@ -73,7 +73,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core.gpu_mapping import gpu_wcet, serve_step_schedule
+from repro_torch.core.gpu_mapping import serve_step_wcet
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
@@ -120,8 +120,7 @@ def plan_wcet_s(cfg, plan: dict, batch: int, n_params: int) -> float:
     """The per-step WCET bound for the decode weight pass under the
     served plan's tile pins: the one source of both the printed bound
     and the derived deadline."""
-    sched = serve_step_schedule(batch, cfg.d_model, n_params, plan=plan)
-    return gpu_wcet(sched)
+    return serve_step_wcet(batch, cfg.d_model, n_params, plan=plan)
 
 
 def launch_counts() -> dict:

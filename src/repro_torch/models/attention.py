@@ -10,8 +10,8 @@ Port of the reference's ``models/attention.py``.  What differs:
   ``flash_attention`` kernel with the layer's ``causal``, ``window``
   and ``scale``; its positions are ``arange(S)`` for q and k, which
   matches the kernel's own position masking.  On the CPU it runs
-  ``sdpa``, the reference's jnp form; ``chunk_q``/``chunk_kv`` steer
-  only that path.
+  ``sdpa``, the reference's jnp form (but under autograd: see
+  Training); ``chunk_q``/``chunk_kv`` steer only that path.
 * Decode (one query) has no TPU kernel and stays torch ops, as in the
   reference.  Its cache write is in place (see ``decode_attention``).
 * Encoder-decoder cross-attention (``cross_kv``, ``cross_attention``):
@@ -21,6 +21,13 @@ Port of the reference's ``models/attention.py``.  What differs:
   cached cross K/V) runs ``sdpa``.  The caller states which call it
   makes; the shapes do not decide it.
 * Softmax arithmetic is fp32 regardless of model dtype.
+* Training: under grad mode, when q, k or v needs a gradient, the
+  prefill-form calls run ``flash_attention`` on either device (on the
+  CPU its plain version), whose autograd backward
+  (``flash_ops.attention_grad``) recomputes ``sdpa``'s block form
+  (``attention_block``) under autograd, one block of queries at a
+  time.  The reference's gradient is ``jax.grad`` of its jnp ``sdpa``;
+  it has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_block
 from repro_torch.kernels.spm_matmul import ops as spm_ops
 from repro_torch.models.common import (rmsnorm, rmsnorm_spec, rope_tables,
                                        rotate)
@@ -132,16 +140,6 @@ def _mask_bias(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
-def _block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """Single-block reference attention.
-    q: [B,Sq,KV,G,hd]; k,v: [B,Tk,KV,hd]; bias: [Sq,Tk]."""
-    s = torch.einsum("bqkgh,btkh->bkgqt", q, k).float() * scale
-    s = s + bias
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgqt,btkh->bqkgh", p.to(v.dtype), v)
-
-
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          pos_q: torch.Tensor, pos_k: torch.Tensor, *, causal: bool,
          window: int, scale: float, chunk_q: int = 0,
@@ -160,7 +158,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if chunk_q <= 0 or chunk_q >= Sq:
         bias = _mask_bias(pos_q, pos_k, causal, window)
-        return _block_attn(qg, k, v, bias, scale).reshape(B, Sq, H, hd)
+        return attention_block(qg, k, v, bias, scale).reshape(B, Sq, H, hd)
 
     Tk = k.shape[1]
     use_kv_chunks = 0 < chunk_kv < Tk
@@ -170,7 +168,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pq = pos_q[q0:q0 + chunk_q]
         if not use_kv_chunks:
             bias = _mask_bias(pq, pos_k, causal, window)
-            outs.append(_block_attn(qq, k, v, bias, scale))
+            outs.append(attention_block(qq, k, v, bias, scale))
             continue
         # online softmax over kv chunks
         m = torch.full((B, KV, G, chunk_q), NEG_INF, dtype=torch.float32,
@@ -202,6 +200,18 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # layer-level entry points
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _use_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """A prefill-form call runs ``flash_attention`` on the card, and on
+    either device under autograd (its Function carries the gradient);
+    otherwise (the CPU's serving) the reference's ``sdpa``."""
+    return _on_card(q) or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
+
+
 def _scale(a: AttentionConfig) -> float:
     return a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
 
@@ -214,7 +224,7 @@ def self_attention(p: dict, x: torch.Tensor, a: AttentionConfig,
     ``positions`` is ``arange(S)``."""
     scale = _scale(a)
     q, k, v = qkv_project(p, x, a, positions, theta)
-    if q.is_cuda:
+    if _use_flash(q, k, v):
         o = flash_ops.attention(q, k, v, causal=causal, window=window,
                                 scale=scale)
     else:
@@ -283,8 +293,9 @@ def cross_attention(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
     encoder memory is visible.  x: [B, S, d] -> [B, S, d].
 
     The prefill call on CUDA launches ``flash_attention`` (not causal,
-    Sq = S, Sk = T); the decode call (``decode``, S = 1) and every CPU
-    call run ``sdpa``, the reference's form.  ``tile`` pins the q and
+    Sq = S, Sk = T), as does a CPU prefill call under autograd; the
+    decode call (``decode``, S = 1) and the other CPU calls run
+    ``sdpa``, the reference's form.  ``tile`` pins the q and
     output projections' spm_matmul tile."""
     B, S, d = x.shape
     scale = _scale(a)
@@ -292,7 +303,7 @@ def cross_attention(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
         B, S, a.num_heads, a.head_dim)
     if a.qkv_bias:
         q = q + p["bq"]
-    if q.is_cuda and not decode:
+    if _use_flash(q, mem_k, mem_v) and not decode:
         o = flash_ops.attention(q, mem_k, mem_v, causal=False, window=0,
                                 scale=scale)
     else:

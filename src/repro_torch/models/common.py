@@ -103,7 +103,44 @@ def embed_spec(vocab: int, d_model: int, dtype: str) -> Par:
                dtype=dtype)
 
 
+class EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` with a deterministic backward.  Autograd's own
+    backward of the gather is ``index_put_`` with accumulation, which on
+    the CPU adds a row's duplicates with atomic float adds from many
+    threads (the sum's order, so its bits, change run to run); under
+    ``torch.use_deterministic_algorithms`` the CPU adds them serially,
+    and CUDA runs its sort-based kernel (a stable sort of the indices,
+    then each row's duplicates added in order by one thread, no
+    atomics), the kernel it runs for accumulation anyway.  So the
+    backward switches that mode on around its one ``index_put_``."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        tokens, = ctx.saved_tensors
+        out = torch.zeros(ctx.table_shape, dtype=grad.dtype,
+                          device=grad.device)
+        before = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True)
+        try:
+            out.index_put_((tokens,), grad, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(before[0],
+                                               warn_only=before[1])
+        return out, None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; under autograd (a table that needs a gradient)
+    through ``EmbedLookup``, whose backward is deterministic."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return EmbedLookup.apply(table, tokens)
     return table[tokens]
 
 

@@ -10,6 +10,7 @@ Public API (the reference's, with an explicit ``device`` and seed):
   init_params(cfg, seed, device)         -> random params
   cache_spec(cfg, batch, cache_len)      -> Par tree for decode state
   init_cache(cfg, batch, cache_len, device) -> zero cache
+  train_loss(cfg, params, batch, opts)   -> scalar loss (fp32)
   prefill(cfg, params, batch, opts)      -> (last_logits [B,Vp], cache)
   decode_step(cfg, params, cache, token, pos, opts) -> (logits, cache)
 
@@ -38,8 +39,17 @@ new K/V rows (the shared blocks' included) and the recurrent states
 (RWKV's, Mamba2's conv and SSM), so a captured decode graph's next
 replay reads them.
 
+Training: ``train_loss`` (``forward_hidden`` then the chunked
+``lm_loss``, plus the MoE balance term) is differentiated by autograd.
+Its products run through ``spm_matmul``'s and its prefill attention
+through ``flash_attention``'s ``autograd.Function``, so on CUDA the
+forward and backward products are kernel launches; each loss chunk's
+fp32 logits are recomputed in the backward rather than kept
+(``torch.utils.checkpoint``), and with ``RunOptions.remat`` so is each
+unit, as the reference's ``jax.checkpoint`` does.
+
 Entry points default to ``device="cuda"`` and take the CPU only when
-asked.  Training (``lm_loss``/``train_loss``) comes with a later slice.
+asked.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
@@ -56,10 +67,10 @@ from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import rmsnorm, rmsnorm_spec
+from repro_torch.models.common import embed_lookup, rmsnorm, rmsnorm_spec
 from repro_torch.models.spec import Par, init_tree, stack
 from repro_torch.models.spec import param_count as spec_param_count
-from repro_torch.models.spec import tree_map
+from repro_torch.models.spec import tree_from_items, tree_items, tree_map
 
 Device = Union[str, torch.device]
 
@@ -169,7 +180,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            batch: Optional[dict] = None) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if (cfg.frontend.kind == "patches" and cfg.frontend.num_positions
@@ -201,8 +212,55 @@ def compute_logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return logits
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _chunk_loss(cfg: ModelConfig, xx: torch.Tensor, head: torch.Tensor,
+                tt: torch.Tensor) -> torch.Tensor:
+    """Sum over one chunk's rows of logsumexp(logits) - logits[target]:
+    xx [R, d] against the [V, d] table (spm_matmul, ``trans_b``, fp32
+    out), the padded vocabulary masked to -1e30 (its rows of the table
+    get exactly zero gradient)."""
+    logits = spm_ops.matmul(xx, head, trans_b=True, out_dtype=torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tt[:, None]).squeeze(-1)
+    return torch.sum(lse - gold)
+
+
+def lm_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            targets: torch.Tensor, opts: RunOptions) -> torch.Tensor:
+    """Chunked softmax cross-entropy (fp32 reductions).  x: [B,S,d].
+
+    The reference's scan keeps every chunk's fp32 logits for its
+    backward (16,384 x 151,936 x 4 B = 9.96 GB for qwen2 at batch 4 x
+    4096); under autograd each chunk is recomputed in the backward
+    instead (one more logits product per chunk), so one chunk's logits
+    live at a time.  The value is the same."""
+    B, S, d = x.shape
+    head = _head_table(cfg, params)
+    C = opts.loss_chunk if (opts.loss_chunk and S % opts.loss_chunk == 0
+                            and S > opts.loss_chunk) else S
+    recompute = _needs_grad(x, head)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, C):
+        xx = x[:, s0:s0 + C].reshape(B * C, d)
+        tt = targets[:, s0:s0 + C].reshape(B * C).long()
+        if recompute:
+            part = checkpoint(_chunk_loss, cfg, xx, head, tt,
+                              use_reentrant=False)
+        else:
+            part = _chunk_loss(cfg, xx, head, tt)
+        tot = tot + part
+    return tot / (B * S)
+
+
 # ---------------------------------------------------------------------------
-# full-sequence unit application (prefill)
+# full-sequence unit application (train / prefill)
 
 
 def _to_cache_buf(k: torch.Tensor, cache_len: int,
@@ -367,6 +425,19 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
     return x, aux, (cache if collect else None)
 
 
+def _unit_params(sp: dict, n_units: int) -> list:
+    """Each unit's parameter views, every stacked leaf unbound once.
+    Under autograd, indexing a stacked leaf once per unit makes each
+    index's backward fill a gradient the size of the whole stack (for
+    qwen2, 24 fills of ~0.7 GB a step, then their sum); an unbind's
+    backward is one ``stack``."""
+    if n_units == 0:
+        return []
+    parts = {path: torch.unbind(leaf) for path, leaf in tree_items(sp)}
+    return [tree_from_items(sp, {path: u[i] for path, u in parts.items()})
+            for i in range(n_units)]
+
+
 def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
                     x: torch.Tensor, x0: torch.Tensor,
                     positions: torch.Tensor, opts: RunOptions,
@@ -374,11 +445,17 @@ def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
                     shared: Optional[dict], cache_len: int):
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(stage.n_units):
-        x, d_aux, c = _apply_unit_full(cfg, blk.tree_index(sp, i),
-                                       stage.unit, x, x0, positions, opts,
-                                       collect, memory, shared, i,
-                                       cache_len)
+    remat = opts.remat and not collect and torch.is_grad_enabled()
+    for i, up in enumerate(_unit_params(sp, stage.n_units)):
+        args = (cfg, up, stage.unit, x, x0, positions, opts, collect,
+                memory, shared, i, cache_len)
+        if remat:
+            # the reference's jax.checkpoint of the unit body: its
+            # activations are recomputed in the backward, not kept
+            x, d_aux, c = checkpoint(_apply_unit_full, *args,
+                                     use_reentrant=False)
+        else:
+            x, d_aux, c = _apply_unit_full(*args)
         aux = aux + d_aux
         caches.append(c)
     if not collect:
@@ -432,6 +509,20 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
         caches[f"stage{si}"] = c_i
     x = rmsnorm(x, params["final_norm"])
     return x, aux, (caches if collect else None)
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict,
+               opts: RunOptions = DEFAULT_OPTS) -> torch.Tensor:
+    """Scalar fp32 loss of one batch (``tokens``, ``targets``; whisper's
+    ``frames``): the chunked cross-entropy plus ``aux_weight`` times
+    the MoE layers' balance loss."""
+    x, aux, _ = forward_hidden(cfg, params, batch, opts, collect=False)
+    loss = lm_loss(cfg, params, x, batch["targets"], opts)
+    return loss + opts.aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

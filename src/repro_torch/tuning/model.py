@@ -18,7 +18,7 @@ reference's ``tuning/model.py``, for the port's serve).
                                with them (``RunOptions.mm_tiles``),
                                resolved through the KERNEL plan cache
                                (spm_matmul namespace) and fed to
-                               ``core.gpu_mapping.serve_step_schedule``,
+                               ``core.gpu_mapping.serve_step_wcet``,
                                so the WCET bound tracks the served plan.
 
 Candidates: on the CPU, the reference's grid over the chunking and the
@@ -129,7 +129,7 @@ def kernel_pins(cfg, problem: ModelProblem) -> Dict[str, int]:
     the plan the wrapper launches for that shape otherwise) and flatten
     it into the model-plan pin fields.  These pins are the decode
     products' tile and parameterize the WCET schedule
-    (core.gpu_mapping.serve_step_schedule)."""
+    (core.gpu_mapping.serve_step_wcet)."""
     from repro_torch.tuning.runtime import resolve_plan
     plan = resolve_plan("spm_matmul", decode_matmul_problem(cfg, problem),
                         {"bm": None, "bn": None, "bk": None})
