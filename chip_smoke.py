@@ -174,12 +174,29 @@ Phases, one result line each; any failure exits non-zero:
             preemption and a resume, bit-identical in the parameters
             and the optimizer state to an undisturbed run.
 
+10. dryrun  the port's dry run and roofline on the production meshes,
+            each command in a subprocess of its own on the host's CPU
+            (a ``fake`` process group of 256 or 512 ranks, ``meta``
+            DTensors: full-size models, no memory):
+            ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
+            --shape train_4k --multi-pod both`` (16x16 and 2x16x16),
+            ``python -m repro_torch.launch.roofline_run --arch
+            qwen2-0.5b --shape decode_32k``, and the same two for
+            zamba2-7b at prefill_32k on 16x16.  Each record's status
+            must be ok; it prints the per-device FLOPs, the collective
+            bytes by kind and the roofline terms at the H100's rates
+            (``repro_torch.analysis.roofline``; a dry-run record's
+            memory term from its unfused traced bytes, a roofline
+            record's from the analytic bytes model).
+
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
 any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
 ``python3 chip_smoke.py 9`` runs phases 1, 2 and 9 only and prints no
-result lines (``chiprun_out/chip_smoke_train.json``).
+result lines (``chiprun_out/chip_smoke_train.json``); ``python3
+chip_smoke.py 10`` runs phases 1 and 10 only, likewise
+(``chiprun_out/chip_smoke_dryrun.json``).
 """
 import gc
 import json
@@ -1069,7 +1086,40 @@ def phase_serve(arch):
     print(f"phase 5 serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
           f"tokens in [0, {want['vocab']}), prefill "
           f"{res['prefill_s'] * 1e3:.3f} ms (one graph replay)", flush=True)
-    return launches, dict(res, paths=paths)
+    shares = serve_flop_shares(arch, res)
+    print(f"phase 5 serve {arch}: model FLOPs as a share of 989 TFLOP/s: "
+          f"the reference's analysis.flops.model_flops (2 x active params x "
+          f"tokens) prefill {shares['reference_prefill']:.4f}, decode "
+          f"step (median) {shares['reference_decode']:.4f}; "
+          f"launch/train.py's dense-decoder count (params x tokens + "
+          f"causal attention) over 3, the forward's, prefill "
+          f"{shares['port_prefill'] or '-'}", flush=True)
+    return launches, dict(res, paths=paths, flop_shares=shares)
+
+
+def serve_flop_shares(arch, res):
+    """A served model's prefill and median decode step as shares of the
+    bf16 peak under the reference's ``model_flops`` (batch 4, the
+    prompt), and the prefill under the forward third of
+    ``launch/train.py``'s count for a dense decoder (it counts every
+    layer's attention and every prompt token; None for the other
+    families)."""
+    import dataclasses
+    from repro_torch.analysis.flops import model_flops
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import train
+    cfg, P = get_config(arch), SERVES[arch]["prompt"]
+    peak = PEAK_FLOPS[torch.bfloat16]
+    pre = dataclasses.replace(SHAPES["prefill_32k"], global_batch=4,
+                              seq_len=P)
+    dec = dataclasses.replace(SHAPES["decode_32k"], global_batch=4)
+    step = float(np.median(res["decode_s"]))
+    return {"reference_prefill": model_flops(cfg, pre)
+            / res["prefill_s"] / peak,
+            "reference_decode": model_flops(cfg, dec) / step / peak,
+            "port_prefill": round(train.model_flops(cfg, 4, P) / 3
+                                  / res["prefill_s"] / peak, 4)
+            if cfg.family in ("dense", "vlm") else None}
 
 
 def phase_capture(dev, arch, timing=True, phase=5):
@@ -1914,8 +1964,12 @@ def phase_train(dev):
           f"step median {js['median'] * 1e3:.2f} ms, p99 "
           f"{res['p99_s'] * 1e3:.2f} ms, CoV {js['cov']:.4f} over steps 3-"
           f"{TRAIN_STEPS}; {res['tokens_per_s']:,.0f} tokens/s; model FLOPs "
-          f"{res['model_flops']:.4g} a step, {res['peak_flop_share']:.4f} "
-          f"of the bf16 peak; peak memory {res['peak_memory'] / 2**30:.2f} "
+          f"a step, as a share of 989 TFLOP/s: launch/train.py's "
+          f"(6 x params x tokens + causal attention) "
+          f"{res['model_flops']:.4g}, {res['peak_flop_share']:.4f}; the "
+          f"reference's analysis.flops.model_flops (6 x active params x "
+          f"tokens) {res['reference_model_flops']:.4g}, "
+          f"{res['reference_peak_flop_share']:.4f}; peak memory {res['peak_memory'] / 2**30:.2f} "
           f"GiB (torch.cuda.max_memory_allocated); deadline "
           f"{res['deadline']['deadline_s'] * 1e3:.1f} ms, overruns "
           f"{res['deadline']['overruns']}", flush=True)
@@ -2181,6 +2235,89 @@ def phase_train_resume(dev):
             "preempted_at": first.final_state.step, "bit_identical": same}
 
 
+# phase 10: (module, arch, shape, extra arguments); each its own process
+DRYRUNS = [
+    ("repro_torch.launch.dryrun", "qwen2-0.5b", "train_4k",
+     ["--multi-pod", "both"]),
+    ("repro_torch.launch.roofline_run", "qwen2-0.5b", "decode_32k", []),
+    ("repro_torch.launch.dryrun", "zamba2-7b", "prefill_32k", []),
+    ("repro_torch.launch.roofline_run", "zamba2-7b", "prefill_32k", []),
+]
+DRYRUN_TIMEOUT_S = 600
+
+
+def piece_collectives(rec):
+    """A roofline record's collective bytes by kind: each piece's times
+    its multiplier."""
+    out = {}
+    for pc in rec["pieces"]:
+        for kind, v in pc["collectives"].items():
+            out[kind] = out.get(kind, 0.0) + pc["multiplier"] * v["bytes"]
+    return out
+
+
+def phase_dryrun():
+    """Phase 10: the dry run and the roofline, each command in a
+    subprocess (the process group is global to a process, and this one
+    holds the card); every record must say ok."""
+    import shutil
+    from repro_torch.analysis.roofline import roofline_terms
+    out = OUT_DIR / "dryrun"
+    if out.exists():
+        shutil.rmtree(out)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    records = {}
+    for module, arch, shape, extra in DRYRUNS:
+        sub = out / module.rsplit(".", 1)[1]
+        cmd = [sys.executable, "-m", module, "--arch", arch, "--shape",
+               shape, "--out", str(sub)] + extra
+        t0 = time.time()
+        r = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=DRYRUN_TIMEOUT_S)
+        print(f"phase 10 dryrun: python -m {' '.join(cmd[2:])}: exit "
+              f"{r.returncode} in {time.time() - t0:.1f} s", flush=True)
+        files = sorted(sub.glob(f"{arch}__{shape}*.json"))
+        if r.returncode != 0 or not files:
+            print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+        if not files:
+            fail(f"{module} {arch} {shape} wrote no record")
+        for f in files:
+            rec = json.loads(f.read_text())
+            key = f"{sub.name}:{f.stem}"
+            records[key] = rec
+            if rec["status"] != "ok":
+                fail(f"{key}: status {rec['status']}: {rec.get('error')}")
+            if "pieces" in rec:
+                flops = rec["composed"]["flops"]
+                colls = piece_collectives(rec)
+                terms = rec["terms"]
+                what = (f"{len(rec['pieces'])} pieces composed; memory "
+                        f"term from the analytic bytes "
+                        f"{rec['analytic_bytes']['total']:.4g}; useful "
+                        f"FLOP ratio {rec['useful_ratio']:.4f}")
+            else:
+                flops = rec["flops"]
+                colls = {k: v["bytes"] for k, v in
+                         rec["collectives"].items()}
+                terms = roofline_terms(flops, rec["bytes_accessed"],
+                                       rec["collective_bytes"])
+                rec["terms_h100"] = terms
+                what = (f"{rec['n_devices']} devices; memory term from the "
+                        f"unfused traced bytes {rec['bytes_accessed']:.4g}; "
+                        f"{rec['view_gathers']} view gathers")
+            print(f"phase 10 dryrun {key}: status {rec['status']} "
+                  f"({rec['total_s']} s); per-device FLOPs {flops:.4g}; "
+                  f"collective bytes {colls}; {what}; H100 roofline: "
+                  f"compute {terms['compute_s']:.4g} s, memory "
+                  f"{terms['memory_s']:.4g} s, collective "
+                  f"{terms['collective_s']:.4g} s, {terms['dominant']}-"
+                  f"bound", flush=True)
+        if r.returncode != 0:
+            fail(f"{' '.join(cmd[2:])} exited {r.returncode}")
+    return records
+
+
 def path_counts():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.spm_matmul import ops as mm_ops
@@ -2251,6 +2388,14 @@ def phase_train_phases(dev):
 
 
 def main():
+    if sys.argv[1:] == ["10"]:
+        # the dry run alone, after the device: no result lines
+        phase_device()
+        OUT_DIR.mkdir(exist_ok=True)
+        dry = phase_dryrun()
+        (OUT_DIR / "chip_smoke_dryrun.json").write_text(json.dumps(
+            dry, indent=1))
+        return
     if sys.argv[1:] == ["9"]:
         # the training phase alone, after the device and the build: a
         # quicker check of that path, with no result lines
@@ -2290,6 +2435,7 @@ def main():
     tuning.reset()
     train_rows, train = phase_train_phases(dev)
     rows += train_rows
+    dry = phase_dryrun()
     kernels = kernel_summary(rows, launches, replayed, train["launches"])
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
@@ -2297,6 +2443,7 @@ def main():
         "models": models,
         "kernels": kernels, "report": report, "tune": tuned,
         "train": {k: v for k, v in train.items() if k != "cases"},
+        "dryrun": dry,
         "serve": {arch: {"prefill_ms": res["prefill_s"] * 1e3,
                          "decode_ms": [t * 1e3 for t in res["decode_s"]],
                          "jitter": res["jitter"],

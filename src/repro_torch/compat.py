@@ -29,6 +29,7 @@ HOPPER_CAPABILITY = (9, 0)
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
+    "int32": torch.int32,
 }
 
 

@@ -1,11 +1,10 @@
 """Configuration system of the PyTorch port: a copy of the JAX
 package's ``configs/base.py`` (the port imports nothing of it).
 
-``ModelConfig.param_count`` is left out: the reference counts through
-its analysis package; the port counts from its own parameter spec
-(``repro_torch.models.lm.param_count``).  The ``kernels`` field is
-copied and, as in the reference, read nowhere: the port routes its
-kernels by device.
+``ModelConfig.param_count`` counts through the port's own analysis
+package (``repro_torch.analysis.flops``), lazily, as the reference's
+does.  The ``kernels`` field is copied and, as in the reference, read
+nowhere: the port routes its kernels by device.
 
 ModelConfig is a frozen dataclass covering every assigned architecture
 family (dense / GQA / sliding-window / MoE / SSM / RWKV / enc-dec / VLM
@@ -189,6 +188,11 @@ class ModelConfig:
             f"{self.name}: num_layers={self.num_layers} not divisible by "
             f"pattern {p}")
         return self.num_layers // p if self.num_layers % p == 0 else self.num_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS = 6*N*D)."""
+        from repro_torch.analysis.flops import param_count  # lazy: cycle
+        return param_count(self)
 
 
 # ---------------------------------------------------------------------------

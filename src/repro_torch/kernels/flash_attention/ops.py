@@ -138,13 +138,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
-    """Whether every input lies on the CPU (the plain version runs)."""
-    return all(t.device.type == "cpu" for t in ts)
+    """Whether every operand lies on the CPU or on ``meta`` (a DTensor's
+    device is its local shard's): the plain version runs.  ``meta``
+    holds no data, so only the plain version can trace shapes there."""
+    return all(t.device.type in ("cpu", "meta") for t in ts)
 
 
 def _attention(q, k, v, causal, window, scale, bq=None, bk=None):
-    """The checked call's dispatch: the plain version on the CPU, the
-    kernel on CUDA."""
+    """The checked call's dispatch: the plain version on the CPU and on
+    ``meta``, the kernel on CUDA."""
     if _on_cpu(q, k, v):
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale)
@@ -205,8 +207,10 @@ def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dk = torch.zeros_like(k, dtype=torch.float32,
+                          memory_format=torch.contiguous_format)
+    dv = torch.zeros_like(v, dtype=torch.float32,
+                          memory_format=torch.contiguous_format)
     with torch.enable_grad():
         for q0 in range(0, Sq, chunk_q):
             q1 = min(Sq, q0 + chunk_q)

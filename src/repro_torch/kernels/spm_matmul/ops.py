@@ -335,14 +335,21 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False,
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
-    """Whether every operand lies on the CPU (the plain version runs)."""
-    return all(t.device.type == "cpu" for t in ts)
+    """Whether every operand lies on the CPU or on ``meta`` (a DTensor's
+    device is its local shard's): the plain version runs.  ``meta``
+    holds no data, so only the plain version can trace shapes there."""
+    return all(t.device.type in ("cpu", "meta") for t in ts)
 
 
 def _matmul(a, b, trans_b, out_dtype, bm=None, bn=None, bk=None):
-    """The checked call's dispatch: the plain version on the CPU, the
-    kernel on CUDA."""
+    """The checked call's dispatch: the plain version on the CPU and on
+    ``meta``, the kernel on CUDA."""
     if _on_cpu(a, b):
+        if a.device.type == "meta":
+            # no values to round: the dry run traces the product in the
+            # operands' dtype, as the kernel reads them (the plain
+            # version's fp32 upcast would double every gather it counts)
+            return torch.matmul(a, b.t() if trans_b else b).to(out_dtype)
         return matmul_plain(a, b, out_dtype, trans_b=trans_b)
     return _launch(a, b, trans_b, out_dtype, bm, bn, bk)
 

@@ -156,8 +156,10 @@ def _check(r, k, v, w_log, u) -> None:
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
-    """Whether every operand lies on the CPU (the plain version runs)."""
-    return all(t.device.type == "cpu" for t in ts)
+    """Whether every operand lies on the CPU or on ``meta`` (a DTensor's
+    device is its local shard's): the plain version runs.  ``meta``
+    holds no data, so only the plain version can trace shapes there."""
+    return all(t.device.type in ("cpu", "meta") for t in ts)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

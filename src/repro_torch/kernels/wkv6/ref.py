@@ -26,9 +26,9 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     uu = u.to(f32)[None, :, :, None]
     rf, kf, vf = r.to(f32), k.to(f32), v.to(f32)
     decay = torch.exp(w_log.to(f32))
-    y = torch.empty((B, S, H, K), dtype=f32, device=r.device)
+    ys = []
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
-        y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uu * kv)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uu * kv))
         s = decay[:, t, :, :, None] * s + kv
-    return y.to(r.dtype), s
+    return torch.stack(ys, dim=1).to(r.dtype), s

@@ -25,8 +25,10 @@ grad-wrt-input and grad-wrt-weight each stream every weight) x
 
 It prints the first and last loss, the step times (median, p99, CoV
 over the steps after the first two, which pay the first calls), tokens
-per second, the model-FLOP share of the card's bf16 peak, the peak
-device memory, the kernel launches per step, the deadline summary and
+per second, the model-FLOP share of the card's bf16 peak under two
+definitions (``model_flops``: 6 x params x tokens plus causal
+attention; the reference's ``analysis.flops.model_flops``: 6 x active
+params x tokens), the peak device memory, the kernel launches per step, the deadline summary and
 the card's name and power limit.  ``main`` returns them.
 
 The loss is chunked every ``LOSS_CHUNK`` positions, where the
@@ -48,7 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.configs import TrainConfig, get_config, reduce_config
+from repro_torch.analysis import flops as analysis_flops
+from repro_torch.configs import (ShapeConfig, TrainConfig, get_config,
+                                  reduce_config)
 from repro_torch.core.gpu_mapping import serve_step_wcet
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.kernels import _build
@@ -107,6 +111,13 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     attn = (3 * 2 * batch * a.num_heads * seq * seq * a.head_dim
             * cfg.num_layers if a is not None else 0)
     return 6.0 * param_count(cfg) * batch * seq + attn
+
+
+def reference_model_flops(cfg, batch: int, seq: int) -> float:
+    """The reference's definition (``analysis.flops.model_flops``):
+    6 x active parameters x tokens, no attention term."""
+    return analysis_flops.model_flops(
+        cfg, ShapeConfig("train", seq, batch, "train"))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -174,6 +185,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     js = jitter_stats(steady)
     p99 = float(np.percentile(steady, 99))
     flops = model_flops(cfg, args.batch, args.seq)
+    ref_flops = reference_model_flops(cfg, args.batch, args.seq)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     ident = compat.device_identity() if dev.type == "cuda" else {}
@@ -191,10 +203,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"  CoV {js.cov:.4f} over steps 3-{len(times)}; "
           f"{tokens / js.median:,.0f} tokens/s")
     share = flops / (js.median * BF16_PEAK_FLOPS)
+    ref_share = ref_flops / (js.median * BF16_PEAK_FLOPS)
     if dev.type == "cuda":
         total = torch.cuda.get_device_properties(dev).total_memory
-        print(f"model FLOPs {flops:.4g} a step: {share:.4f} of the bf16 "
-              f"peak ({BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s, datasheet); "
+        print(f"model FLOPs {flops:.4g} a step (6 x params x tokens + "
+              f"causal attention): {share:.4f} of the bf16 peak "
+              f"({BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s, datasheet); the "
+              f"reference's analysis.flops.model_flops (6 x active params "
+              f"x tokens) {ref_flops:.4g}: {ref_share:.4f}; "
               f"peak memory {peak_mem / 2**30:.2f} GiB "
               f"(torch.cuda.max_memory_allocated) of "
               f"{total / 2**30:.0f}")
@@ -213,7 +229,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return {"loss": hist["loss"], "step_s": times.tolist(),
             "jitter": js.as_dict(), "p99_s": p99,
             "tokens_per_s": tokens / js.median, "model_flops": flops,
-            "peak_flop_share": share, "peak_memory": peak_mem,
+            "peak_flop_share": share, "reference_model_flops": ref_flops,
+            "reference_peak_flop_share": ref_share, "peak_memory": peak_mem,
             "launches_per_step": per_step, "grad_norm": grad_norms,
             "wcet_s": wcet_s,
             "deadline": s, "n_params": n_p, "device": str(dev),

@@ -201,7 +201,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    return t.is_cuda
+    """A CUDA tensor, or a ``meta`` one: the dry run's stand-ins trace
+    the program the card runs."""
+    return t.is_cuda or t.device.type == "meta"
 
 
 def _use_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:

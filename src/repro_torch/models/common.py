@@ -10,8 +10,10 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.spec import Par
+from repro_torch.sharding.rules import redistribute
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +140,13 @@ class EmbedLookup(torch.autograd.Function):
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; under autograd (a table that needs a gradient)
-    through ``EmbedLookup``, whose backward is deterministic."""
+    through ``EmbedLookup``, whose backward is deterministic.  A DTensor
+    table (the dry run) is gathered whole, as a ZeRO-sharded weight is
+    before use, and looked up locally; its gradient is reduce-scattered
+    back to the table's shards."""
+    if isinstance(table, DTensor):
+        return F.embedding(tokens, redistribute(
+            table, [Replicate()] * table.device_mesh.ndim))
     if torch.is_grad_enabled() and table.requires_grad:
         return EmbedLookup.apply(table, tokens)
     return table[tokens]

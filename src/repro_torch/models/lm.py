@@ -57,6 +57,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
@@ -71,6 +72,7 @@ from repro_torch.models.common import embed_lookup, rmsnorm, rmsnorm_spec
 from repro_torch.models.spec import Par, init_tree, stack
 from repro_torch.models.spec import param_count as spec_param_count
 from repro_torch.models.spec import tree_from_items, tree_items, tree_map
+from repro_torch.sharding.rules import placements_for, redistribute
 
 Device = Union[str, torch.device]
 
@@ -98,12 +100,30 @@ class RunOptions:
     # None = the kernel's default plan for each shape.  (The reference
     # has no such field: its model path runs no kernel.)
     mm_tiles: Optional[Tuple[int, int]] = None
-    # activation sharding constraints of the reference: stored, unused
-    # until the multi-device slice.
+    # activation sharding constraints (resolved specs keyed by role,
+    # ``launch.specs.act_shardings``); None = no constraint.  Keys: "x"
+    # (residual stream [B,S,d]), "x_sp" (block outputs under seqpar),
+    # "logits" ([B,C,V]), "kv" (cache [B,S,KV,hd]).  Read by ``_wsc``.
     shardings: Optional[dict] = None
 
 
 DEFAULT_OPTS = RunOptions()
+
+
+def _wsc(x: torch.Tensor, opts: RunOptions, key: str) -> torch.Tensor:
+    """The reference's sharding constraint: a DTensor is redistributed
+    to the placements ``opts.shardings[key]`` names on its own mesh; a
+    plain tensor (every single-device run) is returned as it is.
+
+    These constraints are the mesh-scale 'static schedule': they pin the
+    activation layout the same way the paper's management core pins
+    scratchpad residency."""
+    if not opts.shardings or not isinstance(x, DTensor):
+        return x
+    spec = opts.shardings.get(key)
+    if spec is None:
+        return x
+    return redistribute(x, placements_for(spec, x.device_mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +199,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-           batch: Optional[dict] = None) -> torch.Tensor:
+           batch: Optional[dict] = None,
+           opts: RunOptions = DEFAULT_OPTS) -> torch.Tensor:
     x = embed_lookup(params["embed"], tokens)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -187,7 +208,7 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             and batch is not None and "patch_embeds" in batch):
         pe = batch["patch_embeds"].to(x.dtype)
         x[:, :pe.shape[1]] = pe
-    return x
+    return _wsc(x, opts, "x")
 
 
 def _head_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -217,18 +238,23 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
 
 
 def _chunk_loss(cfg: ModelConfig, xx: torch.Tensor, head: torch.Tensor,
-                tt: torch.Tensor) -> torch.Tensor:
+                tt: torch.Tensor, opts: RunOptions,
+                batch: int) -> torch.Tensor:
     """Sum over one chunk's rows of logsumexp(logits) - logits[target]:
-    xx [R, d] against the [V, d] table (spm_matmul, ``trans_b``, fp32
-    out), the padded vocabulary masked to -1e30 (its rows of the table
-    get exactly zero gradient)."""
+    xx [R, d] (R = ``batch`` x chunk) against the [V, d] table
+    (spm_matmul, ``trans_b``, fp32 out), the padded vocabulary masked to
+    -1e30 (its rows of the table get exactly zero gradient)."""
     logits = spm_ops.matmul(xx, head, trans_b=True, out_dtype=torch.float32)
+    if opts.shardings and isinstance(logits, DTensor):
+        R, V = logits.shape
+        logits = _wsc(logits.reshape(batch, R // batch, V), opts,
+                      "logits").reshape(R, V)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, tt[:, None]).squeeze(-1)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = logits.gather(-1, tt[:, None])
     return torch.sum(lse - gold)
 
 
@@ -251,10 +277,10 @@ def lm_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
         xx = x[:, s0:s0 + C].reshape(B * C, d)
         tt = targets[:, s0:s0 + C].reshape(B * C).long()
         if recompute:
-            part = checkpoint(_chunk_loss, cfg, xx, head, tt,
+            part = checkpoint(_chunk_loss, cfg, xx, head, tt, opts, B,
                               use_reentrant=False)
         else:
-            part = _chunk_loss(cfg, xx, head, tt)
+            part = _chunk_loss(cfg, xx, head, tt, opts, B)
         tot = tot + part
     return tot / (B * S)
 
@@ -273,14 +299,14 @@ def _to_cache_buf(k: torch.Tensor, cache_len: int,
             # ring layout: position p lives in slot p % L; the last L
             # positions cover every slot exactly once (cyclic shift)
             q0 = S - L
-            return torch.roll(k[:, q0:S], q0 % L, dims=1)
+            return _wsc(torch.roll(k[:, q0:S], q0 % L, dims=1), opts, "kv")
         cache_len = L
     if cache_len <= k.shape[1]:
-        return k
+        return _wsc(k, opts, "kv")
     buf = torch.zeros((k.shape[0], cache_len) + tuple(k.shape[2:]),
                       dtype=k.dtype, device=k.device)
     buf[:, :k.shape[1]] = k
-    return buf
+    return _wsc(buf, opts, "kv")
 
 
 def _rwkv_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -410,14 +436,14 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
         att, kv = res if collect else (res, None)
         if cfg.use_post_norm:
             att = rmsnorm(att, p["ln_attn_post"])
-        x = x + att
+        x = x + _wsc(att, opts, "x_sp")
         h = rmsnorm(x, p["ln_ffn"])
         f, al = _ffn(cfg, p, h, dsc.use_moe, opts)
         if al is not None:
             aux = aux + al
         if cfg.use_post_norm:
             f = rmsnorm(f, p["ln_ffn_post"])
-        x = x + f
+        x = x + _wsc(f, opts, "x_sp")
         if collect:
             cache[f"pos{i}"] = {
                 "k": _to_cache_buf(kv[0], cache_len, opts, dsc.window),
@@ -456,6 +482,7 @@ def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
                                      use_reentrant=False)
         else:
             x, d_aux, c = _apply_unit_full(*args)
+        x = _wsc(x, opts, "x")
         aux = aux + d_aux
         caches.append(c)
     if not collect:
@@ -491,7 +518,7 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
     (0 without MoE)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = _embed(cfg, params, tokens, batch)
+    x = _embed(cfg, params, tokens, batch, opts)
     memory = None
     if cfg.family == "encdec":
         x = x + params["dec_pos"][:S]
@@ -660,7 +687,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     is what ``compat.donated_jit`` (buffer donation) buys the
     reference.  whisper's decoder position is a device gather at
     ``pos``, so a captured graph replays it at each new position."""
-    x = _embed(cfg, params, token[:, None])
+    x = _embed(cfg, params, token[:, None], None, opts)
     if cfg.family == "encdec":
         x = x + params["dec_pos"].index_select(
             0, attn_mod.position_index(pos, x.device))

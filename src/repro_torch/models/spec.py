@@ -7,6 +7,11 @@ A leaf is a ``Par``.  Model modules compose nested dicts of ``Par``;
 ``stack`` prepends the "stack" dimension for repeated layers.  Trees
 are plain nested dicts, walked in sorted-key order (the order
 ``jax.tree`` flattens the reference's dicts in).
+
+``shape_tree`` is the dry run's realization: ``meta`` tensors where the
+reference makes ``ShapeDtypeStruct``s, and with sharding rules
+DTensors over a ``DeviceMesh`` whose local shards are ``meta``, so no
+memory is ever allocated for the full-size models.
 """
 from __future__ import annotations
 
@@ -105,6 +110,51 @@ def init_tree(tree, gen: torch.Generator,
     ``gen`` in sorted-path order, so a seed fixes every value."""
     return tree_from_items(tree, {path: _init_leaf(p, gen, device)
                                   for path, p in tree_items(tree)})
+
+
+def is_par(x) -> bool:
+    return isinstance(x, Par)
+
+
+def meta_tensor(shape, dtype, rules=None, axes=None,
+                mesh=None) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape``; with ``rules``, a DTensor of that
+    global shape on ``mesh`` (default ``rules.mesh``), placed as
+    ``rules`` resolve ``axes``, whose local shard is ``meta``."""
+    dt = torch_dtype(dtype)
+    shape = tuple(shape)
+    if rules is None:
+        return torch.empty(shape, dtype=dt, device="meta")
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = rules.mesh if mesh is None else mesh
+    placements = rules.placements_for(axes, shape)
+    local = list(shape)
+    for size, pl in zip(mesh.shape, placements):
+        if isinstance(pl, Shard):
+            local[pl.dim] //= size
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(torch.empty(local, dtype=dt, device="meta"),
+                              mesh, placements, run_check=False,
+                              shape=shape, stride=tuple(stride))
+
+
+def shape_tree(tree, rules=None, mesh=None) -> dict:
+    """``meta`` tensors (DTensors placed by ``rules`` if given) for a
+    spec tree: the dry run's stand-ins, nothing allocated."""
+    return tree_map(lambda p: meta_tensor(p.shape, p.dtype, rules, p.axes,
+                                          mesh), tree)
+
+
+def pspec_tree(tree, rules) -> dict:
+    """Each leaf's resolved spec entries (``rules.spec_for``)."""
+    return tree_map(lambda p: rules.spec_for(p.axes, p.shape), tree)
+
+
+def param_bytes(tree) -> int:
+    return int(sum(math.prod(p.shape) * torch_dtype(p.dtype).itemsize
+                   for _, p in tree_items(tree)))
 
 
 def param_count(tree) -> int:

@@ -11,13 +11,15 @@ reference's leaf order (``models.spec.tree_items``).
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.spec import tree_from_items, tree_items, tree_map
+from repro_torch.models.spec import (Par, tree_from_items, tree_items,
+                                     tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +51,16 @@ def adamw_init(params: dict) -> dict:
                                   device=p.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def adamw_init_spec(spec_tree) -> dict:
+    """Par-tree for the optimizer state (the dry run's stand-ins)."""
+    f32 = lambda p: replace(p, dtype="float32", init="zeros")
+    return {
+        "m": tree_map(f32, spec_tree),
+        "v": tree_map(f32, spec_tree),
+        "count": Par((), (), init="zeros", dtype="int32"),
+    }
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -111,6 +123,26 @@ def value_and_grad(loss_fn: Callable, params: dict, batch: dict):
         for (path, _), leaf, g in zip(items, leaves, grads)})
 
 
+def loss_and_grads(loss_fn: Callable, params: dict, batch: dict,
+                   microbatch: int = 0):
+    """(loss, grads) of one batch; with ``microbatch`` > 1 the batch is
+    cut along its first axis and the microbatches' gradients are summed
+    in fp32, then averaged."""
+    if not (microbatch and microbatch > 1):
+        return value_and_grad(loss_fn, params, batch)
+    per = next(iter(batch.values())).shape[0] // microbatch
+    first = next(p for _, p in tree_items(params))
+    loss = torch.zeros((), dtype=torch.float32, device=first.device)
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    for i in range(microbatch):
+        mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+        l, g = value_and_grad(loss_fn, params, mb)
+        loss = loss + l
+        grads = tree_map(torch.add, grads, g)
+    return loss / microbatch, tree_map(lambda g: g / microbatch, grads)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     opts: Optional[lm_mod.RunOptions] = None):
     """Returns step(params, opt_state, batch, loss_scale=1.0) ->
@@ -135,22 +167,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         # poisons gradients too (the realistic fault shape); scale 1.0
         # is an IEEE no-op, keeping healthy steps bit-exact
         loss_fn = lambda p, b: base_loss_fn(p, b) * loss_scale
-        if tcfg.microbatch and tcfg.microbatch > 1:
-            nm = tcfg.microbatch
-            per = next(iter(batch.values())).shape[0] // nm
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=opt_state["count"].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(nm):
-                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-                l, g = value_and_grad(loss_fn, params, mb)
-                loss = loss + l
-                grads = tree_map(torch.add, grads, g)
-            loss = loss / nm
-            grads = tree_map(lambda g: g / nm, grads)
-        else:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+        loss, grads = loss_and_grads(loss_fn, params, batch,
+                                     tcfg.microbatch)
         gnorm = global_norm(grads)
         finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         if finite:

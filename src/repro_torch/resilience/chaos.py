@@ -29,6 +29,11 @@ Fault taxonomy (``Fault.kind``):
                 the cache must degrade to empty, not crash.
 ==============  ======================================================
 
+A port chaos run with ``cache_corrupt`` sets ``REPRO_PLAN_CACHE``:
+unset, the fault damages the default plan cache,
+``~/.cache/repro_torch/tuning_plans.json`` (the file ``PlanCache``
+reads), whose tuned plans a later serve relies on.
+
 Every injection is emitted as an ``obs`` instant on the ``chaos``
 track (``chaos_<kind>``), so a Chrome trace of a chaos run shows the
 fault next to the recovery it provoked.

@@ -7,7 +7,7 @@ VMEM rule, and of the paper's scratchpad-capacity rule: an infeasible
 plan is rejected *offline*, never discovered at runtime — by the rules
 the wrappers apply at launch (``core.gpu_mapping.smem_plan``,
 ``flash_smem_plan``, ``wkv_smem_plan``).  Survivors are ranked by the
-reference's roofline bound (``kernel_bound_s``, copied here) at the
+reference's roofline bound (``analysis.roofline.kernel_bound_s``) at the
 H100's datasheet rates with the worst-case derates of ``GPUChip``
 (``worst_tc_eff``, ``worst_hbm_derate``), plus a small per-block launch
 term in place of the reference's per-grid-step term, so plans that
@@ -34,6 +34,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
+from repro_torch.analysis.roofline import kernel_bound_s
 from repro_torch.compat import torch_dtype
 from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, H100,
                                           WKV_TC_ROWS, GPUChip,
@@ -53,20 +54,6 @@ PEAK_FLOPS_FP32 = 67e12
 # pays a small fixed cost per block, so at equal traffic fewer blocks
 # should outrank more.
 BLOCK_LAUNCH_S = 1e-8
-
-
-def kernel_bound_s(flops: float, bytes_accessed: float, *,
-                   peak_flops: float = H100.peak_flops,
-                   hbm_bw: float = H100.hbm_bw,
-                   mxu_eff: float = 1.0,
-                   hbm_derate: float = 1.0) -> float:
-    """Two-term roofline bound for a single kernel, in seconds (the
-    reference's ``analysis/roofline.py::kernel_bound_s``, with the
-    H100's rates as defaults): max(compute, memory).  ``mxu_eff`` and
-    ``hbm_derate`` apply worst-case derates (``GPUChip.worst_tc_eff``,
-    ``worst_hbm_derate``)."""
-    return max(flops / (peak_flops * mxu_eff),
-               bytes_accessed / (hbm_bw * hbm_derate))
 
 
 def _elem_bytes(dtype: str) -> int:

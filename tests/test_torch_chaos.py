@@ -135,6 +135,26 @@ def test_cache_corrupt_hits_the_ports_plan_cache(tmp_path, monkeypatch):
     assert path.read_bytes() == b"\x00\xffnot json at all\x9c"
 
 
+def test_cache_corrupt_without_the_variable_hits_the_default_cache(
+        tmp_path, monkeypatch):
+    """``REPRO_PLAN_CACHE`` unset: the fault damages exactly the file
+    ``PlanCache`` reads, the default under the expanded ``HOME`` (the
+    reference writes under a literal ``./~`` instead, which its cache
+    never reads)."""
+    from repro_torch.tuning.plan_cache import PlanCache
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv(CACHE_PATH_ENV, raising=False)
+    monkeypatch.chdir(tmp_path)
+    target = PlanCache().path
+    assert target == tmp_path / ".cache" / "repro_torch" / "tuning_plans.json"
+    tr = _trainer(steps=2, chaos=FaultPlan([Fault(1, "cache_corrupt")]))
+    tr.run(2)
+    assert target.read_bytes() == b"\x00\xffnot json at all\x9c"
+    assert not (tmp_path / "~").exists()
+    with pytest.warns(RuntimeWarning, match="unreadable"):
+        assert len(PlanCache()) == 0
+
+
 # ------------------------------------------ the copies, against the reference
 
 def test_fault_taxonomy_matches_reference():

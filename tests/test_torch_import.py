@@ -52,3 +52,18 @@ def test_forbidden_pattern_spares_repro_torch():
     assert _FORBIDDEN.match("    import repro")
     assert not _FORBIDDEN.match("from repro_torch.models import lm")
     assert not _FORBIDDEN.match("import repro_torch")
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    code = (
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.roofline_run, repro_torch.launch.specs\n"
+        "import repro_torch.analysis.pieces, repro_torch.analysis.comm\n"
+        "print(dist.is_initialized())\n"
+        "raise SystemExit(1 if dist.is_initialized() else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "False"
