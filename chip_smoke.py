@@ -189,14 +189,57 @@ Phases, one result line each; any failure exits non-zero:
             memory term from its unfused traced bytes, a roofline
             record's from the analytic bytes model).
 
+11. multidevice  the multi-device layer and the MoE and large dense
+            configs at full width, with no plan cache:
+            (a) ``repro_torch.launch.serve.serve`` of
+            ``dataclasses.replace(get_config(arch), num_layers=N)`` at
+            full width (weights drawn on the card, as ``--full`` draws
+            them; bf16, batch 4, prompt 256, 32 new tokens, prefill and
+            decode on captured graphs as in phase 5):
+            qwen3-moe-235b-a22b at 4 layers, llama4-maverick-400b-a17b
+            at 2 (one MoE and one dense layer), deepseek-67b and
+            qwen2-72b at 4.  Each as phase 5 holds its serves: every
+            token in range, the decode products on split-K and the
+            prefill products on wgmma, flash_attention on its tensor-core
+            kernel (group 16 for qwen3-moe, 8 for the others, head dim
+            128), the wrappers launching for exactly two prefills and
+            two decode steps; it prints decode ms/step (median, p99,
+            CoV), prefill ms, the WCET margin and the peak memory.
+            qwen3-moe's decode graph and llama4's prefill graph are
+            traced by family, the expert products (the batched einsums
+            ``gecd,edf``) a family of their own: the cuBLAS kernels one
+            eager call of ``ffn._expert_ffn`` launches at the served
+            shapes, read off the profiler, whose count in the replay
+            must be that call's times the MoE layers for the family to
+            be exact.  (b) in a process of its own, rank 0 of a
+            one-rank NCCL group: ``moe_ffn_ep`` on one qwen3-moe MoE
+            layer at full width (bf16, tokens 4 x 256) on a 1x1 CUDA
+            mesh, held element by element (phase 3's rule) to
+            ``moe_ffn(impl="gather")`` with ``group_size`` 1024, the
+            grouping EP uses, and the same check must catch the busiest
+            expert's output slots shifted by one; (c) in the same
+            process, reduced qwen2-0.5b's parameters saved by
+            ``CheckpointManager`` and restored with ``shardings=`` onto
+            the mesh, every leaf a DTensor on cuda and bit-identical,
+            and ``compressed_grad_mean`` at pod size 1 returning its
+            input.  (d) ``python -m repro_torch.launch.dryrun --arch
+            qwen3-moe-235b-a22b --shape train_4k --variant moe_ep
+            --multi-pod both`` and the same for llama4-maverick-400b-a17b
+            at decode_32k, on the host's CPU beside phase 10's commands,
+            all at once after the card's timed work: every record ok,
+            with its collectives' counts and bytes by kind.
+
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
-any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``.
+any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``,
+phase 11's record to ``chiprun_out/chip_smoke_multidevice.json``.
 ``python3 chip_smoke.py 9`` runs phases 1, 2 and 9 only and prints no
 result lines (``chiprun_out/chip_smoke_train.json``); ``python3
 chip_smoke.py 10`` runs phases 1 and 10 only, likewise
-(``chiprun_out/chip_smoke_dryrun.json``).
+(``chiprun_out/chip_smoke_dryrun.json``); ``python3 chip_smoke.py 11``
+runs phases 1, 2 and 11 only, likewise
+(``chiprun_out/chip_smoke_multidevice.json``).
 """
 import gc
 import json
@@ -387,6 +430,37 @@ def matmul_cases():
                           None, {}, True))
     cases.append(("pixtral logits (lm_head^T)", B, pd, pV, True, bf, f32, {},
                   True))
+    # phase 11's full-width serves (prompt 256, prefill M = 4 x 256):
+    # deepseek-67b and qwen2-72b at d 8192 (FFN 22,016 and 29,568),
+    # qwen3-moe-235b-a22b's attention (64 heads of 128 over d 4096; its
+    # experts are einsums), llama4-maverick-400b-a17b at d 5120 (dense
+    # FFN 16,384, shared expert 8192); each one's logits, taken at the
+    # last position (M = 4), against its own table (llama4's 202,048
+    # rows padded to 202,112)
+    for phase, m in (("decode", B), ("prefill", BP)):
+        for what, k, n in (("d8192 q/o proj", 8192, 8192),
+                           ("d8192 k/v proj", 8192, 1024),
+                           ("deepseek gate/up", 8192, 22_016),
+                           ("deepseek down", 22_016, 8192),
+                           ("qwen2-72b gate/up", 8192, 29_568),
+                           ("qwen2-72b down", 29_568, 8192),
+                           ("qwen3-moe q proj", 4096, 8192),
+                           ("qwen3-moe k/v proj", 4096, 512),
+                           ("qwen3-moe o proj", 8192, 4096),
+                           ("llama4 q/o proj", 5120, 5120),
+                           ("llama4 k/v proj", 5120, 1024),
+                           ("llama4 dense gate/up", 5120, 16_384),
+                           ("llama4 dense down", 16_384, 5120),
+                           ("llama4 shared gate/up", 5120, 8192),
+                           ("llama4 shared down", 8192, 5120)):
+            cases.append((f"{phase} {what}", m, k, n, False, bf, None, {},
+                          True))
+    for what, k, n in (("deepseek", 8192, 102_400),
+                       ("qwen3-moe", 4096, 151_936),
+                       ("qwen2-72b", 8192, 152_064),
+                       ("llama4", 5120, 202_112)):
+        cases.append((f"{what} logits (lm_head^T)", B, k, n, True, bf, f32,
+                      {}, True))
     cases.append(("logits at M=B*P", BP, d, V, True, bf, f32, {}, False))
     for m in (1, 2, 48, 259):
         cases.append((f"ragged M={m}", m, d, d, False, bf, None, {},
@@ -420,6 +494,11 @@ def flash_cases():
               True, 0, bf, True),
              ("pixtral prefill", 4, 1024, 1024, 32, 8, 128, True, 0, bf,
               True),
+             ("qwen3-moe prefill (group 16)", 4, 256, 256, 64, 4, 128, True,
+              0, bf, True),
+             ("deepseek, qwen2-72b prefill", 4, 256, 256, 64, 8, 128, True,
+              0, bf, True),
+             ("llama4 prefill", 4, 256, 256, 40, 8, 128, True, 0, bf, True),
              ("cross Sq 448 Sk 1500", 4, 448, 1500, 8, 8, 64, False, 0, bf,
               False),
              ("cross fp32 Sq 100 Sk 300", 2, 100, 300, 8, 8, 64, False, 0,
@@ -1023,17 +1102,36 @@ OUT_DIR = ROOT / "chiprun_out"
 # qwen2-0.5b's serve writes its REPRO_TRACE here
 SERVE_TRACE = OUT_DIR / "serve_trace_qwen2-0.5b.json"
 G = 32
-# prefill graph replays timed per served arch, greedy tokens compared
-# between the graphs and eager calls
+# prefill graph replays timed per served arch (3 for phase 11's), greedy
+# tokens compared between the graphs and eager calls
 PREFILL_REPLAYS = {"qwen2-0.5b": 10, "rwkv6-1.6b": 10, "gemma3-12b": 3,
                    "zamba2-7b": 3, "whisper-base": 10, "pixtral-12b": 3}
 PARITY_TOKENS = 8
 
 
 def serve_argv(arch):
-    return ["--arch", arch, "--full", "--batch", "4", "--prompt-len",
-            str(SERVES[arch]["prompt"]), "--gen", str(G), "--device",
-            "cuda"]
+    want = serve_want(arch)
+    return ["--arch", want.get("arch", arch), "--full", "--batch", "4",
+            "--prompt-len", str(want["prompt"]), "--gen", str(G),
+            "--device", "cuda"]
+
+
+def serve_want(key):
+    """What a served key must do: phase 5's ``SERVES`` or phase 11's
+    ``WIDE_SERVES``."""
+    return SERVES[key] if key in SERVES else WIDE_SERVES[key]
+
+
+def serve_cfg(key):
+    """The config a served key serves: its arch, at the depth phase 11
+    cuts it to."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if key in SERVES:
+        return get_config(key)
+    want = WIDE_SERVES[key]
+    return dataclasses.replace(get_config(want["arch"]),
+                               num_layers=want["layers"])
 
 
 def release():
@@ -1043,27 +1141,44 @@ def release():
 
 
 def phase_serve(arch):
+    """One served key through the launcher: phase 5's models through
+    ``serve.main`` (the command line), phase 11's through ``serve.serve``
+    on the config cut to its depth (``serve_cfg``), as a caller with a
+    ``ModelConfig`` serves it.  The launch counters are zeroed just
+    before and read just after, the peak device memory likewise."""
+    from repro_torch import compat
     from repro_torch.launch import serve
 
-    want = SERVES[arch]
+    want = serve_want(arch)
+    phase = want.get("phase", 5)
     argv = serve_argv(arch)
     env = f"REPRO_TRACE={SERVE_TRACE} " if arch == "qwen2-0.5b" else ""
-    print(f"phase 5 serve: {env}repro_torch.launch.serve "
-          f"{' '.join(argv)}", flush=True)
+    how = ("repro_torch.launch.serve" if arch in SERVES else
+           f"repro_torch.launch.serve.serve(dataclasses.replace(get_config("
+           f"{want['arch']!r}), num_layers={want['layers']}), args)")
+    print(f"phase {phase} serve: {env}{how} {' '.join(argv)}", flush=True)
     if env:
         SERVE_TRACE.unlink(missing_ok=True)
         os.environ["REPRO_TRACE"] = str(SERVE_TRACE)
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     try:
-        res = serve.main(argv)
+        if arch in SERVES:
+            res = serve.main(argv)
+        else:
+            res = serve.serve(serve_cfg(arch),
+                              serve.build_parser().parse_args(argv),
+                              compat.resolve_device("cuda"))
     finally:
         os.environ.pop("REPRO_TRACE", None)
     launches = serve.launch_counts()
     paths = path_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     replayed = res["replayed_launches"]
-    print(f"phase 5 serve {arch}: wrapper launches {launches}; launched "
-          f"by the timed prefill graph's replay {res['prefill_launches']}; "
-          f"by the timed decode graph's replays {replayed}", flush=True)
+    print(f"phase {phase} serve {arch}: wrapper launches {launches}; "
+          f"launched by the timed prefill graph's replay "
+          f"{res['prefill_launches']}; by the timed decode graph's replays "
+          f"{replayed}", flush=True)
     for name in want["kernels"]:
         if launches[name] == 0:
             fail(f"{name} never launched on the {arch} path")
@@ -1083,18 +1198,25 @@ def phase_serve(arch):
     toks = np.stack(toks, 1)
     if not ((toks >= 0) & (toks < want["vocab"])).all():
         fail(f"a generated token is outside [0, {want['vocab']})")
-    print(f"phase 5 serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
+    j = res["jitter"]
+    print(f"phase {phase} serve {arch}: ok, {toks.shape[0]}x{toks.shape[1]} "
           f"tokens in [0, {want['vocab']}), prefill "
-          f"{res['prefill_s'] * 1e3:.3f} ms (one graph replay)", flush=True)
+          f"{res['prefill_s'] * 1e3:.3f} ms (one graph replay); decode "
+          f"ms/step median {j['median'] * 1e3:.4f}, p99 "
+          f"{j['p99'] * 1e3:.4f}, CoV {j['cov']:.4f}, WCET margin "
+          f"{j['wcet_margin']:.4f}; peak memory {peak_gib:.2f} GiB "
+          f"(max_memory_allocated, the init's included)", flush=True)
     shares = serve_flop_shares(arch, res)
-    print(f"phase 5 serve {arch}: model FLOPs as a share of 989 TFLOP/s: "
-          f"the reference's analysis.flops.model_flops (2 x active params x "
-          f"tokens) prefill {shares['reference_prefill']:.4f}, decode "
-          f"step (median) {shares['reference_decode']:.4f}; "
-          f"launch/train.py's dense-decoder count (params x tokens + "
-          f"causal attention) over 3, the forward's, prefill "
-          f"{shares['port_prefill'] or '-'}", flush=True)
-    return launches, dict(res, paths=paths, flop_shares=shares)
+    print(f"phase {phase} serve {arch}: model FLOPs as a share of 989 "
+          f"TFLOP/s: the reference's analysis.flops.model_flops (2 x "
+          f"active params x tokens) prefill "
+          f"{shares['reference_prefill']:.4f}, decode step (median) "
+          f"{shares['reference_decode']:.4f}; launch/train.py's "
+          f"dense-decoder count (params x tokens + causal attention) over "
+          f"3, the forward's, prefill {shares['port_prefill'] or '-'}",
+          flush=True)
+    return launches, dict(res, paths=paths, flop_shares=shares,
+                          peak_gib=peak_gib)
 
 
 def serve_flop_shares(arch, res):
@@ -1106,9 +1228,9 @@ def serve_flop_shares(arch, res):
     families)."""
     import dataclasses
     from repro_torch.analysis.flops import model_flops
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import SHAPES
     from repro_torch.launch import train
-    cfg, P = get_config(arch), SERVES[arch]["prompt"]
+    cfg, P = serve_cfg(arch), serve_want(arch)["prompt"]
     peak = PEAK_FLOPS[torch.bfloat16]
     pre = dataclasses.replace(SHAPES["prefill_32k"], global_batch=4,
                               seq_len=P)
@@ -1122,19 +1244,26 @@ def serve_flop_shares(arch, res):
             if cfg.family in ("dense", "vlm") else None}
 
 
-def phase_capture(dev, arch, timing=True, phase=5):
-    """The serve's model, weights and prompt again (``serve.setup``,
+def phase_capture(dev, arch, timing=True, phase=5, traces=None,
+                  probe=None):
+    """The serve's model, weights and prompt again (``serve.setup_model``,
     seed 0, the plan the serve resolves) through
     ``serve.compile_step_fns``: the prefill graph's logits against an
     eager ``lm.prefill``'s (bit for bit), greedy tokens through the two
     graphs against eager calls, then (``timing``) the prefill graph's
-    replays timed by CUDA events, and the traces of phase 6."""
+    replays timed by CUDA events, and the traces of phase 6 (``traces``:
+    which graphs, by default the decode graph and, for gemma3-12b and
+    zamba2-7b, the prefill graph; ``probe(cfg, params)``, if given,
+    returns the trace's families and what it read)."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     args = serve.build_parser().parse_args(serve_argv(arch))
-    cfg, _, _, opts, params, batch = serve.setup(args, dev)
+    cfg = serve_cfg(arch)
+    _, _, opts, params, batch = serve.setup_model(cfg, args, dev)
     P, V = args.prompt_len, cfg.vocab_size
+    families, probed = (TRACE_FAMILIES, None) if probe is None \
+        else probe(cfg, params)
 
     def greedy(logits, stepper):
         toks = [torch.argmax(logits[:, :V], dim=-1)]
@@ -1166,7 +1295,7 @@ def phase_capture(dev, arch, timing=True, phase=5):
         fail(f"{arch}: greedy tokens through the graphs differ from "
              f"eager ones")
     if cfg.padded_vocab != V:
-        check_padded_logits(arch, cfg, captured,
+        check_padded_logits(arch, cfg, phase, captured,
                             step(graph_toks[:, -1].to(dev),
                                  P + PARITY_TOKENS - 1))
     del eager, cache
@@ -1177,25 +1306,32 @@ def phase_capture(dev, arch, timing=True, phase=5):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     replay_ms = []
-    for _ in range(PREFILL_REPLAYS[arch]):
+    for _ in range(PREFILL_REPLAYS.get(arch, 3)):
         start.record()
         prefill_fn(batch)
         end.record()
         torch.cuda.synchronize()
         replay_ms.append(start.elapsed_time(end))
     tok = graph_toks[:, -1].to(dev)
-    out = {"prefill_replay_ms": replay_ms,
-           "decode_trace": trace_replays(
-               f"{arch} decode step (graph replay, batch 4, {P}-token "
-               f"prompt)", lambda i: step(tok, P + PARITY_TOKENS + i), 3)}
-    if arch in ("gemma3-12b", "zamba2-7b"):
+    if traces is None:
+        traces = ("decode", "prefill") if arch in (
+            "gemma3-12b", "zamba2-7b") else ("decode",)
+    trace_phase = 6 if phase == 5 else phase
+    out = {"prefill_replay_ms": replay_ms, "probe": probed}
+    if "decode" in traces:
+        out["decode_trace"] = trace_replays(
+            f"{arch} decode step (graph replay, batch 4, {P}-token "
+            f"prompt)", lambda i: step(tok, P + PARITY_TOKENS + i), 3,
+            phase=trace_phase, families=families)
+    if "prefill" in traces:
         out["prefill_trace"] = trace_replays(
             f"{arch} prefill (graph replay, 4 x {P} tokens)",
-            lambda i: prefill_fn(batch), 1)
+            lambda i: prefill_fn(batch), 1, phase=trace_phase,
+            families=families)
     return out
 
 
-def check_padded_logits(arch, cfg, prefill_logits, decode_logits):
+def check_padded_logits(arch, cfg, phase, prefill_logits, decode_logits):
     """A padded vocabulary's tail, after the prefill replay and after a
     decode replay: every padded logit exactly -1e30, and no argmax over
     the whole padded row there."""
@@ -1205,7 +1341,7 @@ def check_padded_logits(arch, cfg, prefill_logits, decode_logits):
         tail = logits[:, V:]
         masked = bool((tail == -1e30).all())
         top = int(torch.argmax(logits, dim=-1).max())
-        print(f"phase 5 capture {arch}: {what} replay's padded logits "
+        print(f"phase {phase} capture {arch}: {what} replay's padded logits "
               f"[:, {V}:{cfg.padded_vocab}] all -1e30 {masked}; largest "
               f"argmax over the padded row {top}", flush=True)
         if not masked or top >= V:
@@ -1253,17 +1389,20 @@ def trace_replays(what, run, n, phase=6, families=TRACE_FAMILIES):
         for i in range(n):
             run(1 + n + i)
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
+            count[e.name] = count.get(e.name, 0) + 1 / n
     patterns = families
     families = dict.fromkeys([f for f, _ in patterns] + ["other"], 0.0)
+    launches = dict.fromkeys(families, 0.0)
     for name, ms in by_name.items():
         fam = next((f for f, pats in patterns
                     if any(p in name for p in pats)), "other")
         families[fam] += ms
+        launches[fam] += count[name]
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(f"phase {phase} trace: {what}: {replay_ms:.3f} ms a replay, kernels "
@@ -1276,7 +1415,7 @@ def trace_replays(what, run, n, phase=6, families=TRACE_FAMILIES):
         fail(f"the profiler saw no kernel of the {what}")
     return {"replay_ms": replay_ms, "kernel_ms": busy,
             "busy_share": busy / replay_ms, "families_ms": families,
-            "top_kernels_ms": dict(top)}
+            "families_launches": launches, "top_kernels_ms": dict(top)}
 
 
 def phase_predictability(serves, captures):
@@ -1547,7 +1686,7 @@ def check_serve_paths(arch, launches, paths, plan, tuned=False):
     each product under the served plan's pins must say the same.  On a
     tuned cache (``tuned``) the paths must be those ``launch_plan``
     gives, the cached plans' pins in them."""
-    want = SERVES[arch]
+    want = serve_want(arch)
     per_prefill = want["per_prefill"]["spm_matmul"]
     expect = {"flash_attention": 0, "wkv6": 0}
     expect.update({k: 2 * n for k, n in want["per_prefill"].items()})
@@ -1560,7 +1699,7 @@ def check_serve_paths(arch, launches, paths, plan, tuned=False):
     elif planned != expect_paths:
         fail(f"{arch}: launch_plan with no cache gives the paths "
              f"{planned}, not {expect_paths}")
-    phase = 8 if tuned else 5
+    phase = 8 if tuned else want.get("phase", 5)
     print(f"phase {phase} serve {arch}: kernel paths {paths} (2 prefills "
           f"and 2 decode steps through the wrappers; launch_plan gives "
           f"{planned})", flush=True)
@@ -1607,12 +1746,10 @@ def serve_paths(arch, plan):
     steps of ``arch``'s serve make under ``plan``, as
     ``ops.launch_plan`` resolves each product (pins, then the active
     plan cache)."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.spm_matmul import ops
-    cfg = get_config(arch)
     counts = dict.fromkeys(ops.matmul.paths, 0)
     for m, k, n, tb, c, pinned in serve_products(
-            cfg, 4, SERVES[arch]["prompt"]):
+            serve_cfg(arch), 4, serve_want(arch)["prompt"]):
         pins = (plan["mm_bm"], plan["mm_bn"]) if pinned else (None, None)
         path = ops.launch_plan(m, k, n, torch.bfloat16, tb, True,
                                *pins)["path"]
@@ -2256,30 +2393,71 @@ def piece_collectives(rec):
     return out
 
 
-def phase_dryrun():
-    """Phase 10: the dry run and the roofline, each command in a
-    subprocess (the process group is global to a process, and this one
-    holds the card); every record must say ok."""
+def start_dryruns(runs, out_name):
+    """Start each dry-run or roofline command of ``runs`` in a process
+    of its own on the host's CPU, all at once (the process group is
+    global to a process, and this one holds the card); their output
+    goes to a log beside their records.  Returns what
+    ``finish_dryruns`` waits for."""
     import shutil
-    from repro_torch.analysis.roofline import roofline_terms
-    out = OUT_DIR / "dryrun"
+    out = OUT_DIR / out_name
     if out.exists():
         shutil.rmtree(out)
+    out.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    records = {}
-    for module, arch, shape, extra in DRYRUNS:
+    started = []
+    for i, (module, arch, shape, extra) in enumerate(runs):
         sub = out / module.rsplit(".", 1)[1]
         cmd = [sys.executable, "-m", module, "--arch", arch, "--shape",
                shape, "--out", str(sub)] + extra
-        t0 = time.time()
-        r = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                           text=True, timeout=DRYRUN_TIMEOUT_S)
-        print(f"phase 10 dryrun: python -m {' '.join(cmd[2:])}: exit "
-              f"{r.returncode} in {time.time() - t0:.1f} s", flush=True)
-        files = sorted(sub.glob(f"{arch}__{shape}*.json"))
-        if r.returncode != 0 or not files:
-            print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+        log = out / f"{i}.log"
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=fh,
+                                    stderr=subprocess.STDOUT)
+        started.append((module, arch, shape, sub, cmd, log, proc,
+                        time.time()))
+    return started
+
+
+def phase_dryrun(runs=DRYRUNS, phase=10, out_name="dryrun"):
+    """Phase 10: the dry run and the roofline (``start_dryruns``);
+    every record must say ok."""
+    return finish_dryruns(start_dryruns(runs, out_name), phase)
+
+
+def finish_dryruns(started, phase):
+    """Wait for ``start_dryruns``'s processes (each within
+    DRYRUN_TIMEOUT_S of the first's start) and read their records:
+    every one must say ok.  Any process still running when a check
+    fails is killed."""
+    try:
+        return _read_dryruns(started, phase)
+    finally:
+        stop_dryruns(started)
+
+
+def stop_dryruns(started):
+    for *_, proc, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _read_dryruns(started, phase):
+    from repro_torch.analysis.roofline import roofline_terms
+    records = {}
+    for module, arch, shape, sub, cmd, log, proc, t0 in started:
+        try:
+            code = proc.wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.time() - started[0][-1])))
+        except subprocess.TimeoutExpired:
+            fail(f"{' '.join(cmd[2:])} outlived {DRYRUN_TIMEOUT_S} s")
+        print(f"phase {phase} dryrun: python -m {' '.join(cmd[2:])}: exit "
+              f"{code} within {time.time() - t0:.1f} s", flush=True)
+        files = sorted(sub.glob(f"*{arch}__{shape}*.json"))
+        if code != 0 or not files:
+            print(log.read_text()[-6000:], flush=True)
         if not files:
             fail(f"{module} {arch} {shape} wrote no record")
         for f in files:
@@ -2298,24 +2476,341 @@ def phase_dryrun():
                         f"FLOP ratio {rec['useful_ratio']:.4f}")
             else:
                 flops = rec["flops"]
-                colls = {k: v["bytes"] for k, v in
-                         rec["collectives"].items()}
+                colls = {k: f"{v['count']} ops, {v['bytes']:.4g} B"
+                         for k, v in rec["collectives"].items()}
                 terms = roofline_terms(flops, rec["bytes_accessed"],
                                        rec["collective_bytes"])
                 rec["terms_h100"] = terms
                 what = (f"{rec['n_devices']} devices; memory term from the "
                         f"unfused traced bytes {rec['bytes_accessed']:.4g}; "
                         f"{rec['view_gathers']} view gathers")
-            print(f"phase 10 dryrun {key}: status {rec['status']} "
+            print(f"phase {phase} dryrun {key}: status {rec['status']} "
                   f"({rec['total_s']} s); per-device FLOPs {flops:.4g}; "
                   f"collective bytes {colls}; {what}; H100 roofline: "
                   f"compute {terms['compute_s']:.4g} s, memory "
                   f"{terms['memory_s']:.4g} s, collective "
                   f"{terms['collective_s']:.4g} s, {terms['dominant']}-"
                   f"bound", flush=True)
-        if r.returncode != 0:
-            fail(f"{' '.join(cmd[2:])} exited {r.returncode}")
+        if code != 0:
+            fail(f"{' '.join(cmd[2:])} exited {code}")
     return records
+
+
+# ------------------------------------------------------- multidevice
+
+# phase 11(a): full width at reduced depth (bf16, batch 4, prompt 256, 32
+# new tokens), the depth cut with ``dataclasses.replace(cfg,
+# num_layers=...)`` because the whole models (135-800 GB) do not fit in
+# 80 GB: qwen3-moe-235b-a22b's 4 layers hold 4 x 4.83 GB of experts,
+# llama4-maverick-400b-a17b's 2 (moe_every=2: one MoE and one dense
+# layer) 32.2 GB of experts and its two 202,048 x 5120 tables,
+# deepseek-67b's and qwen2-72b's 4 layers 1.38 and 1.76 GB a layer.
+# Per key as in SERVES; "traces": the graphs phase 11 traces.
+WIDE_SERVES = {
+    # q, k, v and o a layer (the routed experts are einsums), the logits
+    "qwen3-moe-235b-a22b@4L": {
+        "arch": "qwen3-moe-235b-a22b", "layers": 4, "prompt": 256,
+        "vocab": 151_936, "kernels": ("spm_matmul", "flash_attention"),
+        "per_prefill": {"spm_matmul": 4 * 4 + 1, "flash_attention": 4},
+        "mm_per_step": 4 * 4 + 1, "phase": 11, "traces": ("decode",)},
+    # the MoE layer's attention and shared expert, the dense layer's
+    # attention and FFN: 7 products each
+    "llama4-maverick-400b-a17b@2L": {
+        "arch": "llama4-maverick-400b-a17b", "layers": 2, "prompt": 256,
+        "vocab": 202_048, "kernels": ("spm_matmul", "flash_attention"),
+        "per_prefill": {"spm_matmul": 7 * 2 + 1, "flash_attention": 2},
+        "mm_per_step": 7 * 2 + 1, "phase": 11, "traces": ("prefill",)},
+    "deepseek-67b@4L": {
+        "arch": "deepseek-67b", "layers": 4, "prompt": 256,
+        "vocab": 102_400, "kernels": ("spm_matmul", "flash_attention"),
+        "per_prefill": {"spm_matmul": 7 * 4 + 1, "flash_attention": 4},
+        "mm_per_step": 7 * 4 + 1, "phase": 11, "traces": ()},
+    "qwen2-72b@4L": {
+        "arch": "qwen2-72b", "layers": 4, "prompt": 256,
+        "vocab": 152_064, "kernels": ("spm_matmul", "flash_attention"),
+        "per_prefill": {"spm_matmul": 7 * 4 + 1, "flash_attention": 4},
+        "mm_per_step": 7 * 4 + 1, "phase": 11, "traces": ()},
+}
+EXPERT_FAMILY = "expert products (cuBLAS batched, gecd,edf)"
+PROBE_CALLS = 10
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "nvjet")
+# phase 11(b): one qwen3-moe MoE layer, bf16, tokens 4 x 256
+EP_TOKENS = (4, 256)
+# phase 11(d): the moe_ep variant's dry runs (each its own process)
+EP_DRYRUNS = [
+    ("repro_torch.launch.dryrun", "qwen3-moe-235b-a22b", "train_4k",
+     ["--variant", "moe_ep", "--multi-pod", "both"]),
+    ("repro_torch.launch.dryrun", "llama4-maverick-400b-a17b",
+     "decode_32k", ["--variant", "moe_ep", "--multi-pod", "both"]),
+]
+MULTIDEVICE_TIMEOUT_S = 600
+
+
+def _moe_leaves(params):
+    """The first MoE layer's expert weights (its unit's slice of the
+    stacked leaves) and the number of MoE layers."""
+    from repro_torch.models.spec import tree_items
+    found = [(path, t) for path, t in tree_items(params)
+             if path.endswith("moe/we_gate")]
+    prefix = found[0][0][:-len("we_gate")]
+    p = {path[len(prefix):]: t[0] for path, t in tree_items(params)
+         if path.startswith(prefix) and path[len(prefix):].startswith("we_")}
+    return p, sum(t.shape[0] for _, t in found)
+
+
+def expert_probe(kind):
+    """A ``phase_capture`` probe: the kernels cuBLAS launches for the
+    MoE layer's expert products (``ffn._expert_ffn``: the einsums
+    ``gecd,edf->gecf`` and back) at the served ``kind``'s shapes, read
+    off one eager call under the profiler, become a trace family of
+    their own ahead of TRACE_FAMILIES; the same call's time by CUDA
+    events is the expert products' ms for one layer."""
+    def probe(cfg, params):
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import ffn
+        p, n_moe = _moe_leaves(params)
+        m = cfg.moe
+        tokens = 4 if kind == "decode" else 4 * 256
+        gs = min(m.group_size, tokens)
+        while tokens % gs:
+            gs -= 1
+        shape = (tokens // gs, m.num_experts, m.capacity(gs), cfg.d_model)
+        xe = torch.randn(shape, device=p["we_gate"].device).to(
+            p["we_gate"].dtype)
+        ffn._expert_ffn(p, xe, cfg.activation)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROBE_CALLS):
+                ffn._expert_ffn(p, xe, cfg.activation)
+            torch.cuda.synchronize()
+        seen = [e.name for e in sorted(
+            prof.events(), key=lambda e: e.time_range.start)
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(g in e.name for g in GEMM_NAMES)]
+        # a call's products: gate (and up) and down.  A profiler session
+        # that follows others in the process can miss the kernels of its
+        # first milliseconds, so one call's kernels are the last call's
+        products = 3 if "we_up" in p else 2
+        names = seen[-products:]
+        if len(names) < products:
+            fail(f"the profiler saw {len(seen)} cuBLAS launches over "
+                 f"{PROBE_CALLS} calls of {cfg.name}'s expert products, "
+                 f"fewer than one call's {products}")
+        ms = time_ms(lambda x: ffn._expert_ffn(p, x, cfg.activation),
+                     [(xe,)])
+        print(f"phase 11 probe {cfg.name} {kind}: the expert products on "
+              f"[G, E, C, d] = {list(shape)} launch {len(names)} cuBLAS "
+              f"kernels ({sorted(set(names))}); one layer's "
+              f"_expert_ffn {ms:.4f} ms (CUDA events); {n_moe} MoE layers",
+              flush=True)
+        families = ((EXPERT_FAMILY, tuple(set(seen))),) + TRACE_FAMILIES
+        return families, {"shape": list(shape), "kernels": names,
+                          "moe_layers": n_moe, "layer_ms": ms}
+    return probe
+
+
+def multidevice_rank(out_path):
+    """Phase 11(b) and (c), in a process of their own as rank 0 of a
+    one-rank NCCL group (a ``fake`` group moves no data): (b)
+    ``moe_ffn_ep`` on one qwen3-moe MoE layer at full width on a 1x1
+    CUDA mesh, held element by element to ``moe_ffn(impl="gather")``
+    with ``group_size`` the shard's N (EP dispatches a shard's tokens as
+    one group), and the same check made to catch one expert's output
+    slots shifted by one; (c) a checkpoint of reduced qwen2-0.5b written
+    by ``CheckpointManager.save`` (the trainer's, phase 9(d)'s code)
+    restored with ``shardings=`` onto the mesh: every leaf a DTensor on
+    cuda, bit-identical; and ``compressed_grad_mean`` at pod size 1
+    returning its input.  Writes its numbers to ``out_path``."""
+    import dataclasses
+    import shutil
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels.tolerance import check
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models import ffn, lm
+    from repro_torch.models.spec import init_tree, shape_tree, tree_items
+    from repro_torch.models.spec import tree_map
+    from repro_torch.optim.compression import compressed_grad_mean
+    import torch.distributed as dist
+
+    out = Path(out_path)
+    init_world("nccl", 0, 1, str(out.parent / "multidevice_store"))
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    dev = torch.device(mesh.device_type)        # the rank's own card
+    rec = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend()}
+
+    # (b) EP against gather on the same grouping
+    cfg = get_config("qwen3-moe-235b-a22b")
+    B, S = EP_TOKENS
+    m = cfg.moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    p = init_tree(ffn.moe_spec(cfg.d_model, m, cfg.activation, "bfloat16"),
+                  gen, dev)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    xd = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+    with implicit_replication():
+        y_ep, _ = ffn.moe_ffn(p, xd, m, cfg.activation, "ep", ("data",))
+    y_ep = y_ep.to_local()
+    same_group = dataclasses.replace(m, group_size=B * S)
+    want, _ = ffn.moe_ffn(p, x, same_group, cfg.activation, "gather")
+    ratio, diff = check(y_ep, want, torch.bfloat16)
+    # the planted fault: the busiest expert's output slots shifted by one
+    gates = torch.softmax(x.reshape(-1, cfg.d_model).float() @ p["router"],
+                          -1)
+    busiest = int(torch.bincount(torch.topk(gates, m.top_k).indices
+                                 .reshape(-1), minlength=m.num_experts)
+                  .argmax())
+    combine = ffn._gather_combine
+
+    def shifted(ye, *a):
+        ye = ye.clone()
+        ye[:, busiest] = torch.roll(ye[:, busiest], 1, dims=1)
+        return combine(ye, *a)
+
+    ffn._gather_combine = shifted
+    try:
+        with implicit_replication():
+            y_bad, _ = ffn.moe_ffn(p, xd, m, cfg.activation, "ep",
+                                   ("data",))
+    finally:
+        ffn._gather_combine = combine
+    fault, _ = check(y_bad.to_local(), want, torch.bfloat16)
+    rec["ep"] = {"tokens": [B, S], "capacity": m.capacity(B * S),
+                 "err_ratio": ratio, "max_abs_err": diff,
+                 "bit_identical": bool(torch.equal(y_ep, want)),
+                 "fault_ratio": fault, "busiest_expert": busiest,
+                 "finite": bool(torch.isfinite(y_ep).all())}
+    del p, x, xd, y_ep, y_bad, want
+    torch.cuda.empty_cache()
+
+    # (c) the re-mesh restore onto the one-rank CUDA mesh
+    small = reduce_config(train_cfg(), layers=2, d_model=128, vocab=512)
+    params = lm.init_params(small, seed=0, device=dev)
+    ckpt = out.parent / "multidevice_ckpt"
+    if ckpt.exists():
+        shutil.rmtree(ckpt)
+    CheckpointManager(str(ckpt)).save(3, {"params": params})
+    rules = rules_for(mesh, small, SHAPES["train_4k"])
+    sh = {"params": tree_map(lambda t: (mesh, t.placements),
+                             shape_tree(lm.model_spec(small), rules))}
+    restored, step = CheckpointManager(str(ckpt)).restore(
+        {"params": params}, shardings=sh)
+    leaves = list(tree_items(restored["params"]))
+    bits = all(torch.equal(t.full_tensor().reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8))
+               for (_, t), (_, want) in zip(leaves, tree_items(params)))
+    rec["restore"] = {
+        "step": step, "leaves": len(leaves),
+        "dtensor_on_cuda": all(isinstance(t, DTensor)
+                               and t.to_local().device.type == "cuda"
+                               for _, t in leaves),
+        "bit_identical": bits}
+    pod_mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    rec["compressed_mean_pod1_is_input"] = \
+        compressed_grad_mean(params, pod_mesh) is params
+    out.write_text(json.dumps(rec, indent=1))
+    dist.destroy_process_group()
+
+
+def phase_multidevice(dev):
+    """Phase 11 on the card: (a) the four full-width serves at reduced
+    depth, each with its launches, paths, tokens, decode and prefill
+    times and peak memory, qwen3-moe's decode graph and llama4's
+    prefill graph traced with the expert products as a family; (b) and
+    (c) in a subprocess (``multidevice_rank``).  (d), the moe_ep
+    variant's dry runs (EP_DRYRUNS), runs on the host's CPU after it.
+    Returns the phase's record, the serves' wrapper launches and what
+    their timed graph replays launched."""
+    serves, captures = {}, {}
+    for key, want in WIDE_SERVES.items():
+        serves[key] = phase_serve(key)
+        release()
+        if want["traces"]:
+            kind = want["traces"][0]
+            captures[key] = phase_capture(dev, key, phase=11,
+                                          traces=want["traces"],
+                                          probe=expert_probe(kind))
+            tr = captures[key][f"{kind}_trace"]
+            probed = captures[key]["probe"]
+            want_n = len(probed["kernels"]) * probed["moe_layers"]
+            got_n = round(tr["families_launches"][EXPERT_FAMILY], 6)
+            print(f"phase 11 trace {key} {kind}: expert products "
+                  f"{tr['families_ms'][EXPERT_FAMILY]:.4f} ms of "
+                  f"{tr['replay_ms']:.4f} a replay, {got_n:g} launches "
+                  f"(the probe's {len(probed['kernels'])} x "
+                  f"{probed['moe_layers']} MoE layers = {want_n}: "
+                  f"{'exact' if got_n == want_n else 'the names are shared with other kernels; an upper bound'})",
+                  flush=True)
+            captures[key]["expert_family_exact"] = got_n == want_n
+            release()
+
+    out = OUT_DIR / "multidevice_rank.json"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-c",
+           f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+           f"import chip_smoke; chip_smoke.multidevice_rank({str(out)!r})"]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=MULTIDEVICE_TIMEOUT_S,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    print(f"phase 11 multidevice rank (one-rank NCCL group): exit "
+          f"{r.returncode} in {time.time() - t0:.1f} s", flush=True)
+    if r.returncode != 0 or not out.exists():
+        print(r.stdout[-3000:], r.stderr[-5000:], flush=True)
+        fail("the one-rank multidevice process failed")
+    rank = json.loads(out.read_text())
+    ep, rs = rank["ep"], rank["restore"]
+    print(f"phase 11 ep: moe_ffn_ep on a 1x1 {rank['backend']} mesh "
+          f"(world size {rank['world_size']}), qwen3-moe layer bf16 "
+          f"tokens {ep['tokens']} (C {ep['capacity']}) against "
+          f"moe_ffn(gather) with group_size {ep['tokens'][0] * ep['tokens'][1]}: "
+          f"error {ep['err_ratio']:.4f} of its allowance (max abs "
+          f"{ep['max_abs_err']:.3e}, bit-identical {ep['bit_identical']}); "
+          f"expert {ep['busiest_expert']}'s slots shifted by one "
+          f"{ep['fault_ratio']:.2f}", flush=True)
+    if not (ep["finite"] and ep["err_ratio"] < 1):
+        fail("moe_ffn_ep disagrees with the gather dispatch on the card")
+    if not ep["fault_ratio"] > 1:
+        fail("the EP check misses a shifted expert slot")
+    print(f"phase 11 restore: {rs['leaves']} leaves of reduced qwen2-0.5b "
+          f"(step {rs['step']}) restored with shardings= onto the 1x1 "
+          f"cuda mesh: DTensors on cuda {rs['dtensor_on_cuda']}, "
+          f"bit-identical {rs['bit_identical']}; compressed_grad_mean at "
+          f"pod size 1 returns its input "
+          f"{rank['compressed_mean_pod1_is_input']}", flush=True)
+    if not (rs["dtensor_on_cuda"] and rs["bit_identical"]
+            and rank["compressed_mean_pod1_is_input"]):
+        fail("the sharded restore or the compressed mean at pod 1 failed")
+
+    launches = {k: sum(l[k] for l, _ in serves.values())
+                for k in next(iter(serves.values()))[0]}
+    record = {
+        "serve": {key: {"prefill_ms": res["prefill_s"] * 1e3,
+                        "decode_ms": [t * 1e3 for t in res["decode_s"]],
+                        "jitter": res["jitter"], "wcet_ms": res["wcet_s"] * 1e3,
+                        "peak_gib": res["peak_gib"], "plan": res["plan"],
+                        "launches": l, "paths": res["paths"],
+                        "prefill_launches": res["prefill_launches"],
+                        "replayed_launches": res["replayed_launches"],
+                        "flop_shares": res["flop_shares"],
+                        **captures.get(key, {})}
+                  for key, (l, res) in serves.items()},
+        "rank": rank}
+    replayed = {k: sum(r["replayed_launches"][k] + r["prefill_launches"][k]
+                       for _, r in serves.values()) for k in launches}
+    return record, launches, replayed
 
 
 def path_counts():
@@ -2388,6 +2883,18 @@ def phase_train_phases(dev):
 
 
 def main():
+    if sys.argv[1:] == ["11"]:
+        # the multi-device layer and the wide serves alone, after the
+        # device and the build: no result lines
+        os.environ["REPRO_AUTOTUNE"] = "0"
+        dev, _ = phase_device()
+        phase_build()
+        OUT_DIR.mkdir(exist_ok=True)
+        multi, _, _ = phase_multidevice(dev)
+        multi["dryrun"] = phase_dryrun(EP_DRYRUNS, 11, "dryrun_moe_ep")
+        (OUT_DIR / "chip_smoke_multidevice.json").write_text(json.dumps(
+            multi, indent=1, default=str))
+        return
     if sys.argv[1:] == ["10"]:
         # the dry run alone, after the device: no result lines
         phase_device()
@@ -2435,7 +2942,21 @@ def main():
     tuning.reset()
     train_rows, train = phase_train_phases(dev)
     rows += train_rows
-    dry = phase_dryrun()
+    # phase 11 launches what the code launches untuned, as phase 9 does
+    multi, wide_launches, wide_replayed = phase_multidevice(dev)
+    # the dry runs of phases 10 and 11 on the host's CPU, all at once,
+    # after the card's timed work
+    ten = start_dryruns(DRYRUNS, "dryrun")
+    eleven = start_dryruns(EP_DRYRUNS, "dryrun_moe_ep")
+    try:
+        dry = finish_dryruns(ten, 10)
+        multi["dryrun"] = finish_dryruns(eleven, 11)
+    finally:
+        stop_dryruns(eleven)
+    (OUT_DIR / "chip_smoke_multidevice.json").write_text(json.dumps(
+        multi, indent=1, default=str))
+    launches = {k: n + wide_launches[k] for k, n in launches.items()}
+    replayed = {k: n + wide_replayed[k] for k, n in replayed.items()}
     kernels = kernel_summary(rows, launches, replayed, train["launches"])
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),

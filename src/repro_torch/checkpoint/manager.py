@@ -20,7 +20,14 @@ Guarantees:
   * transient-I/O tolerance: every read/write primitive is wrapped in
     `resilience.retry_transient` (OSError family only — corruption is
     not transient and is never retried),
-  * retention: keep_n newest checkpoints are retained.
+  * retention: keep_n newest checkpoints are retained,
+  * multi-process: a tree with DTensor leaves is saved by every rank of
+    the running process group, each leaf gathered whole; rank 0 alone
+    writes, and every rank waits at a barrier until the checkpoint is
+    published (before `save` returns, or in `wait()` for a background
+    save).  `restore(..., shardings=)` lays each leaf out on a mesh of
+    the caller's (the elastic re-mesh path): the device count may
+    differ from the one that saved.
 
 Layout:  <dir>/step_<N>/  { manifest.json, arr_<i>.npy ... }
          <dir>/latest     (text file with the step number)
@@ -44,6 +51,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.spec import tree_from_items, tree_items
 from repro_torch.resilience.retry import retry_transient
@@ -95,6 +104,8 @@ class CheckpointManager:
         self.fault_hook: Optional[Callable[[str, Any], None]] = None
         self._thread: Optional[threading.Thread] = None
         self._bg_error: Optional[BaseException] = None
+        # a background save of DTensor leaves owes the group a barrier
+        self._barrier_due = False
 
     # ----------------------------------------------------------- obs/io
 
@@ -123,22 +134,41 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:
         """Write ``tree`` (nested dicts of tensors) as step ``step``.
         The host copies are taken here, before any background write
-        starts."""
+        starts.  DTensor leaves are gathered whole on every rank (a
+        collective: every rank of the group calls ``save``); rank 0
+        writes them, and every rank waits for the write at a barrier."""
         self.wait()               # never overlap two writers (same dir)
-        host = [(path, _to_host(leaf)) for path, leaf in tree_items(tree)]
+        items = list(tree_items(tree))
+        grouped = any(isinstance(leaf, DTensor) for _, leaf in items)
+        if grouped:
+            items = [(path, leaf.full_tensor()
+                      if isinstance(leaf, DTensor) else leaf)
+                     for path, leaf in items]
+        writes = not grouped or dist.get_rank() == 0
+        host = [(path, _to_host(leaf)) for path, leaf in items] \
+            if writes else []
         if blocking:
-            self._write(step, host)
+            if writes:
+                self._write(step, host)
+            if grouped:
+                dist.barrier()
             return
-        self._thread = threading.Thread(
-            target=self._write_bg, args=(step, host), daemon=True)
-        self._thread.start()
+        self._barrier_due = grouped
+        if writes:
+            self._thread = threading.Thread(
+                target=self._write_bg, args=(step, host), daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
-        """Join any in-flight background save; if it failed, re-raise
-        its exception here (a lost checkpoint must never be silent)."""
+        """Join any in-flight background save (and, for DTensor leaves,
+        meet the group at its barrier); if it failed, re-raise its
+        exception here (a lost checkpoint must never be silent)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier_due:
+            self._barrier_due = False
+            dist.barrier()
         if self._bg_error is not None:
             err, self._bg_error = self._bg_error, None
             raise err
@@ -257,7 +287,8 @@ class CheckpointManager:
             self._read_leaf(d, i, manifest)
         return True
 
-    def _restore_step(self, step: int, leaves_like: list) -> list:
+    def _restore_step(self, step: int, leaves_like: list,
+                      shard_leaves: list) -> list:
         d = self.dir / f"step_{step}"
         if not d.is_dir():
             raise CheckpointCorruptError(f"{d}: no such checkpoint")
@@ -268,31 +299,50 @@ class CheckpointManager:
                 f"needs {len(leaves_like)}")
         dtypes = manifest.get("dtypes")
         out = []
-        for i, like in enumerate(leaves_like):
+        for i, (like, sh) in enumerate(zip(leaves_like, shard_leaves)):
             arr = self._read_leaf(d, i, manifest)
             t = _from_storage(arr, dtypes[i] if dtypes else str(arr.dtype))
             if tuple(t.shape) != tuple(like.shape):
                 raise CheckpointCorruptError(
                     f"{d}/arr_{i}.npy: shape {tuple(t.shape)} != "
                     f"{tuple(like.shape)}")
-            out.append(t.to(device=like.device, dtype=like.dtype))
+            if sh is None:
+                out.append(t.to(device=like.device, dtype=like.dtype))
+                continue
+            # every rank read the whole leaf: each keeps its own shard
+            mesh, placements = sh
+            out.append(distribute_tensor(
+                t.to(device=mesh.device_type, dtype=like.dtype), mesh,
+                placements, src_data_rank=None))
         return out
 
-    def restore(self, like_tree: Any, step: Optional[int] = None):
+    def restore(self, like_tree: Any, step: Optional[int] = None,
+                shardings: Any = None):
         """Restore into the structure, devices and dtypes of
-        ``like_tree``; returns (tree, step).
+        ``like_tree``; returns (tree, step).  ``shardings`` (a tree
+        matching ``like_tree`` of ``(DeviceMesh, placements)``) lays
+        each leaf out as a DTensor on its mesh's device type instead:
+        the elastic re-mesh path.
 
         With ``step=None`` this is self-healing: candidates are tried
         newest-first and a corrupt/partial checkpoint falls back to the
         next intact one (instant ``ckpt_fallback`` per skip).  An
         explicit ``step`` is an exact request — corruption raises."""
         items = list(tree_items(like_tree))
+        if shardings is None:
+            shard_leaves = [None] * len(items)
+        else:
+            by_path = dict(tree_items(shardings))
+            if set(by_path) != {path for path, _ in items}:
+                raise ValueError("shardings must match like_tree's leaves")
+            shard_leaves = [by_path[path] for path, _ in items]
         candidates = [step] if step is not None else self._candidates()
         assert candidates, "no checkpoint found"
         last_err: Optional[Exception] = None
         for i, s in enumerate(candidates):
             try:
-                out = self._restore_step(s, [leaf for _, leaf in items])
+                out = self._restore_step(s, [leaf for _, leaf in items],
+                                         shard_leaves)
                 self._instant("ckpt_restored", step=s, fallbacks=i)
                 return tree_from_items(like_tree, {
                     path: t for (path, _), t in zip(items, out)}), s

@@ -108,3 +108,15 @@ def device_identity() -> dict:
             "gpu": torch.cuda.get_device_name(0),
             "capability": f"{major}.{minor}",
             "power_limit_w": _power_limit_w()}
+
+
+def all_gather_autograd(t: torch.Tensor, gather_dim: int, group
+                        ) -> torch.Tensor:
+    """A differentiable all-gather of ``t`` along ``gather_dim`` over
+    ``group``: functional collectives' ``all_gather_single_autograd``
+    (torch 2.13), ``all_gather_tensor_autograd`` before it took that
+    name."""
+    import torch.distributed._functional_collectives as funcol
+    fn = getattr(funcol, "all_gather_single_autograd", None) \
+        or funcol.all_gather_tensor_autograd
+    return fn(t, gather_dim, group)

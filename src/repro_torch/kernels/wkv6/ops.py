@@ -179,7 +179,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "wkv6 has no backward on CUDA: the kernel's result would carry "
             "no gradient.  RWKV training waits for a wkv6 gradient "
-            "(ROADMAP.md, Queue 1 item 7, what it leaves)")
+            "(ROADMAP.md, Queue 1: a wkv6 gradient)")
     if r.device.type != "cuda" or any(t.device != r.device for t in ts):
         raise ValueError("wkv6 runs on one CUDA device or the CPU: "
                          f"{[str(t.device) for t in ts]}")

@@ -7,14 +7,21 @@ run's entry points (``launch/dryrun.py``, ``launch/roofline_run.py``)
 call it.  The production meshes run over the ``fake`` backend (a
 ``FakeStore``, one process standing for rank 0 of 256 or 512): their
 tensors are ``meta`` and their collectives are traced, never sent.
-The process group is global to the process, so tests and
-``chip_smoke.py`` run a dry run in a subprocess of its own.
+A ``fake`` group moves no data, so a mesh over real tensors runs over
+a real group: ``init_world`` starts one rank of it (gloo on the CPU,
+NCCL on the card; the ranks meet through a ``FileStore``), and
+``make_mesh`` lays a ``DeviceMesh`` of named axes over the running
+group, as the reference's tests do with ``compat.make_mesh`` over host
+devices.  The process group is global to the process, so tests and
+``chip_smoke.py`` run a dry run, or a group of ranks, in subprocesses
+of their own.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch import compat
@@ -54,6 +61,22 @@ def init_fake_world(n: int) -> None:
                             rank=0)
 
 
+def init_world(backend: str, rank: int, world_size: int,
+               store_path: str) -> None:
+    """Start this process's process group as ``rank`` of
+    ``world_size`` over ``backend`` ("gloo" or "nccl"); the ranks meet
+    through a ``FileStore`` at ``store_path`` (no port to pick, so
+    groups started side by side never meet by mistake).  Under NCCL the
+    rank takes the card of its index."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running")
+    if backend == "nccl":
+        torch.cuda.set_device(compat.resolve_device(f"cuda:{rank}"))
+    dist.init_process_group(backend,
+                            store=dist.FileStore(store_path, world_size),
+                            rank=rank, world_size=world_size)
+
+
 def _device_mesh(device_type: str, ms: MeshShape):
     from torch.distributed.device_mesh import init_device_mesh
     n = 1
@@ -72,6 +95,15 @@ def make_production_mesh(*, multi_pod: bool = False):
     (2, 16, 16) with pod added, over the ``fake`` group that
     ``init_fake_world`` started."""
     return _device_mesh("cpu", production_shape(multi_pod))
+
+
+def make_mesh(sizes: Sequence[int], names: Sequence[str],
+              device_type: str = "cpu"):
+    """A ``DeviceMesh`` of axes ``names`` with ``sizes`` over the process
+    group that is running (``init_world``): the reference's
+    ``compat.make_mesh``.  Its size must be the group's."""
+    return _device_mesh(device_type, MeshShape(tuple(names),
+                                               dict(zip(names, sizes))))
 
 
 def make_host_mesh(device: Optional[str] = None):

@@ -55,6 +55,13 @@ host clock around work that ends in ``torch.cuda.synchronize()``.
       --arch qwen3-moe-235b-a22b --dtype float32          # reduced MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
+``main`` serves the registered arch its flags name (``--full``: the
+published size, ignoring ``--layers`` as the reference's serve does;
+else reduced); ``serve(cfg, args, device)`` serves any ``ModelConfig``
+with the same flags, e.g. a published width at fewer layers
+(``dataclasses.replace(get_config(arch), num_layers=4)``), drawing its
+weights on the device under ``--full``.
+
 Set ``REPRO_TRACE=/path/serve.json`` to record the prefill and every
 decode step as spans on the ``serve`` track (plus a per-step latency
 counter and the ``deadline_*`` instants) and dump a Chrome trace at
@@ -268,18 +275,32 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args: argparse.Namespace, dev: torch.device):
-    """The model, plan and prompt ``args`` serve on ``dev``: ``(cfg,
-    plan, plan_source, opts, params, batch)``.  Weights and prompt are
-    drawn from seed 0; an encoder-decoder model's ``frames`` [B, P,
-    d_model] (fp32 normals) from the same generator after the tokens,
-    as the reference's serve draws them."""
+def model_config(args: argparse.Namespace):
+    """The ``ModelConfig`` ``args`` name: the registered arch at full
+    size under ``--full`` (which ignores ``--layers``, as the
+    reference's serve does), else reduced; in ``--dtype`` if given."""
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced_config(cfg, args)
     if args.dtype:
         compat.torch_dtype(args.dtype)
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    return cfg
+
+
+def setup(args: argparse.Namespace, dev: torch.device):
+    """The model ``args`` name and what ``setup_model`` gives for it:
+    ``(cfg, plan, plan_source, opts, params, batch)``."""
+    cfg = model_config(args)
+    return (cfg,) + setup_model(cfg, args, dev)
+
+
+def setup_model(cfg, args: argparse.Namespace, dev: torch.device):
+    """The plan and prompt ``args`` serve ``cfg`` with on ``dev``:
+    ``(plan, plan_source, opts, params, batch)``.  Weights and
+    prompt are drawn from seed 0; an encoder-decoder model's ``frames``
+    [B, P, d_model] (fp32 normals) from the same generator after the
+    tokens, as the reference's serve draws them."""
     B, P, G = args.batch, args.prompt_len, args.gen
 
     problem = ModelProblem(
@@ -312,13 +333,20 @@ def setup(args: argparse.Namespace, dev: torch.device):
     if init_dev != dev:
         params = tree_map(lambda t: t.to(dev), params)
         batch = {k: v.to(dev) for k, v in batch.items()}
-    return cfg, plan, plan_source, opts, params, batch
+    return plan, plan_source, opts, params, batch
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
     dev = compat.resolve_device(args.device)
-    cfg, plan, plan_source, opts, params, batch = setup(args, dev)
+    return serve(model_config(args), args, dev)
+
+
+def serve(cfg, args: argparse.Namespace, dev: torch.device) -> dict:
+    """Serve ``cfg`` as ``args`` ask (batch, prompt, new tokens, plan
+    and deadline flags; ``--full`` draws the weights on ``dev``): the
+    banner, and a dict of tokens, times, jitter, launches and plan."""
+    plan, plan_source, opts, params, batch = setup_model(cfg, args, dev)
     B, P, G = args.batch, args.prompt_len, args.gen
     total = P + G
 

@@ -12,19 +12,25 @@ outside any Pallas kernel; a shared expert is a dense layer (through
 ``spm_matmul``).  Every shape is static and nothing reads a device value
 on the host (no ``nonzero``, boolean indexing or ``.item()``), so a
 decode step that routes through experts can be captured as one CUDA
-graph.  ``moe_ffn_ep`` (expert parallelism over a mesh) comes with the
-multi-device slice.
+graph.  ``moe_ffn_ep`` is the reference's expert parallelism over a
+device mesh, written on local shards with ``torch.distributed``'s
+functional collectives.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import compat
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.attention import linear
 from repro_torch.models.common import activate, is_gated
 from repro_torch.models.spec import Par
+from repro_torch.sharding.rules import (axis_sizes, placements_for,
+                                        redistribute)
 
 
 def dense_ffn_spec(d_model: int, d_ff: int, activation: str,
@@ -170,13 +176,108 @@ def _gather_combine(ye: torch.Tensor, route, G: int, S: int,
     return y
 
 
+def _on_mesh(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """``t`` laid out as ``spec`` on ``mesh``: a DTensor is
+    redistributed; a plain tensor, the same on every rank, is taken as
+    replicated and sliced where ``spec`` shards it (no data moves)."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return redistribute(t, placements_for(spec, mesh))
+
+
 def moe_ffn_ep(p: dict, x: torch.Tensor, m: MoEConfig, activation: str,
                x_sharding) -> torch.Tensor:
-    """Expert parallelism over a device mesh (the reference's
-    ``shard_map`` form): it comes with the port's multi-device slice."""
-    raise NotImplementedError(
-        "moe_ffn_ep needs a device mesh; it comes with the port's "
-        "multi-device slice")
+    """Explicit expert parallelism, the reference's ``shard_map`` form as
+    a function on local shards: the MultiVic dataflow at mesh scale.
+    Expert weights stay STATIONARY in their 2-D shards (the paper's B
+    blocks pinned in scratchpads) and the small thing, capacity-bounded
+    token buffers, moves on a static all-to-all schedule.  The per-shard
+    capacity is the compile-time worst case for dynamic routing (paper
+    §3).
+
+    ``x``: the residual stream [B, S, d] as a DTensor; its mesh is the
+    experts' mesh.  ``x_sharding``: the stream's resolved spec (its
+    batch entry is kept).  Each shard dispatches all its N tokens as
+    one group of capacity ``m.capacity(N)``.  Where the model axis
+    divides S, tokens are split over it and an all-to-all over
+    ``model`` takes [E, C, d] to [E/model_n, model_n*C, d] (the
+    experts' owners) and back; otherwise (decode) every model rank
+    holds the tokens, runs its E/model_n experts and a sum over
+    ``model`` follows.  With ``data`` > 1 the local experts' weight
+    d-slices are gathered over ``data``.  Every shape is static.
+    Returns y [B, S, d] laid out as the tokens were dispatched."""
+    if not isinstance(x, DTensor):
+        raise ValueError("moe_ffn_ep needs x as a DTensor: its mesh is "
+                         "the experts' mesh")
+    if x_sharding is None:
+        raise ValueError("moe_ffn_ep needs the residual stream's spec")
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    model_n = sizes.get("model", 1)
+    data_ax = "data" if "data" in sizes else None
+    data_n = sizes["data"] if data_ax else 1
+    B, S, d = x.shape
+    E = m.num_experts
+    if E % model_n:
+        raise ValueError(f"{E} experts do not divide over {model_n} "
+                         f"model ranks")
+    El = E // model_n
+    # shard the tokens' sequence dim over "model" for dispatch if it
+    # divides
+    seq_ax = "model" if (model_n > 1 and S % model_n == 0) else None
+    model_ax = "model" if model_n > 1 else None
+    x_spec = (x_sharding[0] if len(x_sharding) else None, seq_ax, None)
+
+    xl = _on_mesh(x, mesh, x_spec).to_local()
+    router = _on_mesh(p["router"], mesh, ()).to_local()
+    w = {k: _on_mesh(p[k], mesh, (model_ax, None, data_ax)
+                     if k == "we_down" else (model_ax, data_ax, None)
+                     ).to_local()
+         for k in ("we_gate", "we_up", "we_down") if k in p}
+    bl, sl, _ = xl.shape
+    N = bl * sl
+    xf = xl.reshape(1, N, d)
+    logits = torch.einsum("gnd,de->gne", xf.float(), router)
+    gates = torch.softmax(logits, dim=-1)
+    C = m.capacity(N)
+    xe, route = _gather_dispatch(xf, gates, m, C)
+    buf = xe[0]                                          # [E, C, d]
+    if seq_ax:
+        # tokens -> expert owners; experts stay put.  The all-to-all
+        # sends rows [j*El, (j+1)*El) to model rank j and stacks what
+        # it receives by source rank: [model_n, El, C, d]
+        model_g = mesh.get_group("model")
+        buf = funcol.all_to_all_single_autograd(buf.contiguous(), None,
+                                                None, model_g)
+        buf = buf.reshape(model_n, El, C, d).transpose(0, 1).reshape(
+            El, model_n * C, d)
+    elif model_ax:
+        # tokens replicated over "model" (decode): each rank runs its
+        # own slice of the experts; the results are summed below
+        model_g = mesh.get_group("model")
+        lo = mesh.get_local_rank("model") * El
+        buf = buf[lo:lo + El]
+    if data_n > 1:
+        # this layer's d-slices of the LOCAL experts (the double-
+        # buffered analogue of the paper's per-round B-block DMA)
+        data_g = mesh.get_group("data")
+        w = {k: compat.all_gather_autograd(
+            v, 2 if k == "we_down" else 1, data_g) for k, v in w.items()}
+    ye = _expert_ffn(w, buf[None], activation)[0]
+    if seq_ax:
+        ye = ye.reshape(El, model_n, C, d).transpose(0, 1).contiguous()
+        ye = funcol.all_to_all_single_autograd(
+            ye.reshape(E, C, d), None, None, model_g)
+    elif model_ax:
+        ye = torch.cat([ye.new_zeros((lo, C, d)), ye,
+                        ye.new_zeros((E - lo - El, C, d))])
+    y = _gather_combine(ye[None], route, 1, N, d).reshape(bl, sl, d)
+    if model_ax and not seq_ax:
+        y = funcol.all_reduce(y, "sum", model_g)
+    return DTensor.from_local(y, mesh, placements_for(x_spec, mesh),
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def _expert_ffn(p: dict, xe: torch.Tensor, activation: str) -> torch.Tensor:
@@ -194,8 +295,10 @@ def moe_ffn(p: dict, x: torch.Tensor, m: MoEConfig, activation: str,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y, aux_loss).  Static shapes throughout.
     impl: "einsum" (GShard-faithful baseline) | "gather" (optimized) |
-    "ep" (expert parallelism; without a mesh it runs "gather", as in the
-    reference).  ``tile`` pins the shared expert's spm_matmul (bm, bn)."""
+    "ep" (expert parallelism over the mesh of a DTensor ``x``, which
+    raises without ``x_sharding``; a plain ``x`` with no ``x_sharding``
+    runs "gather", as in the reference).  ``tile`` pins the shared
+    expert's spm_matmul (bm, bn)."""
     B, S, d = x.shape
     tokens = B * S
     gs = min(m.group_size, tokens)
@@ -215,9 +318,14 @@ def moe_ffn(p: dict, x: torch.Tensor, m: MoEConfig, activation: str,
     ce = torch.mean(top1, dim=1)                              # [G,E]
     aux = m.num_experts * torch.mean(torch.sum(me * ce, dim=-1))
 
-    if impl == "ep" and x_sharding is not None:
-        y = moe_ffn_ep(p, x, m, activation, x_sharding).reshape(G, gs, d)
-    elif impl in ("gather", "ep"):      # "ep" without mesh -> gather
+    if impl == "ep" and (x_sharding is not None or isinstance(x, DTensor)):
+        # on the tokens as dispatched; the shared expert reads each
+        # token alone, so it runs on x as it lies
+        y = moe_ffn_ep(p, x, m, activation, x_sharding)
+        if "shared" in p:
+            y = y + dense_ffn(p["shared"], x, activation, tile)
+        return y, aux
+    if impl in ("gather", "ep"):        # "ep" without mesh -> gather
         xe, route = _gather_dispatch(xg, gates, m, C)
         y = _gather_combine(_expert_ffn(p, xe, activation), route, G, gs, d)
     else:

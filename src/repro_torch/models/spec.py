@@ -99,9 +99,11 @@ def _init_leaf(p: Par, gen: torch.Generator,
         # last dimension, also for 3-D projections such as wq [d, H, hd]
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         scale = 1.0 / math.sqrt(max(1, fan_in))
+    # scaled in place: a full-width expert leaf's fp32 draw (llama4's
+    # we_gate: 21.5 GB) is then the one fp32 copy the init holds
     x = torch.randn(p.shape, generator=gen, device=device,
                     dtype=torch.float32)
-    return (scale * x).to(dt)
+    return x.mul_(scale).to(dt)
 
 
 def init_tree(tree, gen: torch.Generator,

@@ -1,18 +1,71 @@
-"""int8 gradient compression of the port: the single-device round trip
-of the reference's ``optim/compression.py``.
+"""int8 gradient compression for the cross-pod data-parallel axis: the
+port of the reference's ``optim/compression.py``.
 
-Scheme (per leaf): scale = max(|g|) / 127, q = round(g / scale) as
-int8, g_hat = q * scale; |g_hat - g| <= scale / 2 per element.  The
-mesh-axis mean ``compressed_grad_mean`` comes with the multi-device
-slice.
+At multi-pod scale the "pod" axis rides the slowest links, and the
+gradient all-reduce across pods is pure data parallelism, the classic
+place for lossy compression.  Scheme (per leaf):
+
+    scale  = max over pods of max(|g|), clamped at 1e-20, / 127
+    q      = round(g / scale) : int8       (half to even, as jnp.round)
+    g_hat  = sum over pods of q as int32 * scale / n_pods
+
+Only the ``pod`` mesh dimension's group reduces, over the leaves' local
+shards; the other mesh dimensions are left to DTensor, as the
+reference's ``shard_map`` leaves them to GSPMD (``auto``): a leaf's
+max(|g|) is the whole pod's, reduced over the dims that shard it.
+
+Error bound: |g_hat - mean(g)| <= scale/2 per element (uniform
+quantization), property-tested in ``tests/test_torch_compression.py``.
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.spec import tree_map
+
+
+def _compress_psum_leaf(g: torch.Tensor, group) -> torch.Tensor:
+    """One leaf's compressed mean over ``group`` (the process group of
+    the pod mesh dimension)."""
+    amax = g.float().abs().amax()
+    local = g.to_local() if isinstance(g, DTensor) else g
+    if isinstance(amax, DTensor):         # the pod's whole leaf
+        amax = amax.full_tensor()
+    amax = funcol.all_reduce(amax, "max", group)
+    scale = torch.clamp(amax, min=1e-20) / 127.0
+    q = torch.clamp(torch.round(local.float() / scale), -127,
+                    127).to(torch.int8)
+    total = funcol.all_reduce(q.to(torch.int32), "sum", group)
+    n = funcol.all_reduce(torch.ones((), dtype=torch.int32,
+                                     device=local.device), "sum", group)
+    out = (total.float() * scale / n).to(g.dtype)
+    if isinstance(g, DTensor):
+        return DTensor.from_local(out, g.device_mesh, g.placements,
+                                  run_check=False, shape=g.shape,
+                                  stride=g.stride())
+    return out
+
+
+def compressed_grad_mean(grads: Any, mesh, axis: str = "pod") -> Any:
+    """Mean of per-pod gradients with an int8 wire format.
+
+    ``grads``: a tree of per-pod partial gradients (already reduced
+    within the pod), tensors or DTensors on ``mesh``.  Returned as it
+    is when ``mesh`` has no ``axis`` or it has size 1."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names or mesh.size(names.index(axis)) == 1:
+        return grads
+    group = mesh.get_group(axis)
+    return tree_map(lambda g: _compress_psum_leaf(g, group), grads)
 
 
 def quantize_roundtrip(g: torch.Tensor) -> torch.Tensor:
-    """Quantize to int8 with the leaf's max-scale, dequantize."""
+    """Single-device model of the wire format (for tests and error
+    analysis): quantize to int8 with the leaf's max-scale, dequantize."""
     gf = g.float()
     scale = torch.clamp(gf.abs().max(), min=1e-20) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)

@@ -167,14 +167,6 @@ def test_aux_loss_is_near_one_for_a_balanced_router():
     assert 0.5 < float(aux) < 4.0
 
 
-def test_ep_with_a_mesh_waits_for_the_multi_device_slice():
-    m = JaxMoEConfig(num_experts=4, top_k=1, expert_ff=16, group_size=8)
-    _, pp = _moe_params(m, 32, "gelu", 0)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        pffn.moe_ffn(pp, torch.zeros(1, 8, 32), port_cfg(m), "gelu", "ep",
-                     x_sharding=object())
-
-
 @pytest.mark.parametrize("shared", [0, 64])
 @pytest.mark.parametrize("activation", ["swiglu", "gelu"])
 def test_moe_spec_matches_reference(shared, activation):

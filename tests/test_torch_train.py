@@ -586,7 +586,8 @@ def test_card_wkv_under_grad_mode_raises(monkeypatch):
     _fake_card(monkeypatch)
     x = torch.randn(1, 8, 2, 32, requires_grad=True)
     u = torch.zeros(2, 32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: a wkv6 gradient"):
         wkv_ops.wkv(x, x.detach(), x.detach(), -torch.ones(1, 8, 2, 32), u)
 
 

@@ -492,10 +492,14 @@ def test_launch_plan_without_an_entry_is_the_untuned_launch(caches, shape):
 
 
 def test_main_path_products_cover_the_served_models():
-    assert len(MAIN_PRODUCTS) == 64
+    assert len(MAIN_PRODUCTS) == 97
     for arch, B, P in (("qwen2-0.5b", 4, 256), ("rwkv6-1.6b", 4, 256),
                        ("gemma3-12b", 4, 2048), ("zamba2-7b", 4, 512),
-                       ("whisper-base", 4, 1536), ("pixtral-12b", 4, 1024)):
+                       ("whisper-base", 4, 1536), ("pixtral-12b", 4, 1024),
+                       # chip_smoke.py phase 11's full-width serves
+                       ("qwen3-moe-235b-a22b", 4, 256),
+                       ("llama4-maverick-400b-a17b", 4, 256),
+                       ("deepseek-67b", 4, 256), ("qwen2-72b", 4, 256)):
         cfg = get_config(arch)
         for m, k, n, tb, _ in port_model.decode_products(cfg, B):
             assert (m, k, n, tb) in MAIN_PRODUCTS
