@@ -34,7 +34,15 @@ Phases, one result line each; any failure exits non-zero:
             block takes its time.  flash_attention's cases carry Sq and
             Sk apart: whisper's cross-attention shapes (Sq != Sk, both
             ways round, bf16 and fp32, unmasked) run beside the main
-            path's.  Then the kernel's time, the plain version's, a
+            path's.  wkv6's backward (``csrc/wkv6_bwd.cu``) at
+            rwkv6-1.6b's training shape [4, 4096, 32, 64] (bf16, the
+            model's decays), the serve shape, an fp32 case with the
+            final state's gradient, a ragged S and K 32, 64 and 128,
+            each of dr, dk, dv, dw_log and du against ``wkv_grad_plain``
+            (``tolerance.check_wkv_grad``), twice for the same bits,
+            catching its planted faults (the adjoint not carried across
+            a chunk boundary, dw_log's decay off by one position, du
+            dropped).  Then the kernel's time, the plain version's, a
             PyTorch library call's where one computes the same function
             (a yardstick the port never calls) and the bound from the
             datasheet rates.
@@ -173,6 +181,27 @@ Phases, one result line each; any failure exits non-zero:
             (d) a reduced bf16 run with a NaN step, then a save, a
             preemption and a resume, bit-identical in the parameters
             and the optimizer state to an undisturbed run.
+            (e) phase 4's reduced fp32 rwkv6-1.6b (2 layers: wkv6's
+            forward and backward kernels in fp32), zamba2-7b (15) and
+            qwen3-moe-235b-a22b (2): as (b), the losses at lr 1e-4,
+            printed beside how far gradients perturbed by 1e-6 of each
+            leaf's largest magnitude move the CPU's own losses at 1e-4
+            and at (b)'s 1e-2.  (f) ``train.train`` of full-width
+            rwkv6-1.6b (24 layers, bf16, batch 4 x 4096, 12 steps,
+            remat), counters zeroed just before and read just after:
+            every step must launch spm_matmul by path, wkv6's forward
+            kernel (twice a layer: the step and remat's recompute) and
+            its backward kernel (once a layer) as reckoned from the
+            code; the last loss and the first step's batch's under the
+            trained parameters below the first; step ms (median, p99,
+            CoV), tokens/s, the model-FLOP shares, peak memory and
+            overruns printed; one more step traced by kernel family.
+            (g) the same for zamba2-7b at 15 layers and
+            qwen3-moe-235b-a22b at 1 layer (``dataclasses.replace(cfg,
+            num_layers=N)``, full width; batch 4 x 1024, 6 steps, no
+            remat), where only the first step's batch's loss must fall
+            (6 steps on new batches of a 32,000- or 151,936-token
+            permutation chain move it by about the batches' spread).
 
 10. dryrun  the port's dry run and roofline on the production meshes,
             each command in a subprocess of its own on the host's CPU
@@ -864,6 +893,113 @@ def run_wkv(dev, gen):
     return rows
 
 
+def wkv_bwd_cases():
+    """(label, B, S, H, K, dtype, decay, with dS_T, main_path): the
+    backward at rwkv6-1.6b's training shape (TRAIN_4K's sequence, batch
+    cut to 4) and at the serve shape, an fp32 case with the final
+    state's gradient, a ragged S, and K 32, 64 (the reference's
+    conformance shapes) and 128."""
+    from repro_torch.kernels import CONFORMANCE_SHAPES
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("train", TRAIN_B, TRAIN_S, 32, 64, bf, "model", False, True),
+             ("serve shape", 4, 256, 32, 64, bf, "model", False, False),
+             ("fp32, dS_T", 2, 256, 4, 64, f32, "model", True, False),
+             ("ragged S=100", 2, 100, 2, 64, bf, "model", True, False),
+             ("K=128", 2, 256, 4, 128, bf, "model", False, False)]
+    for b, s, h, k, _, dt in CONFORMANCE_SHAPES["wkv6"]:
+        cases.append(("conformance", b, s, h, k, getattr(torch, dt),
+                      "reference", True, False))
+    return cases
+
+
+def run_wkv_bwd(dev, gen):
+    """wkv6's backward kernel (``csrc/wkv6_bwd.cu``) against its plain
+    version (``ops.wkv_grad_plain``: autograd through the exact
+    recurrence) gradient by gradient (``tolerance.check_wkv_grad``), run
+    twice for the same bits, with the backward's planted faults caught;
+    then its time, the plain version's (CUDA events around the checked
+    call: autograd's loop over every position is not captured) and the
+    bound."""
+    from repro_torch.core.gpu_mapping import WKV_BWD_ROWS
+    from repro_torch.kernels.tolerance import (allowance, check_wkv_grad,
+                                               wkv_bwd_planted_faults,
+                                               wkv_inputs)
+    from repro_torch.kernels.wkv6 import ops
+    rows = []
+    for label, B, S, H, K, dt, decay, with_ds, main in wkv_bwd_cases():
+        args = wkv_inputs(B, S, H, K, dt, decay, gen, dev)
+        dy = torch.randn(B, S, H, K, generator=gen, device=dev).to(dt)
+        ds = (0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
+              if with_ds else None)
+        before = ops.wkv.bwd_launches
+        got = ops.wkv_bwd(*args, dy, ds)
+        torch.cuda.synchronize()
+        if ops.wkv.bwd_launches != before + 1:
+            fail(f"wkv6 backward {label}: the wrapper counted "
+                 f"{ops.wkv.bwd_launches - before} launches")
+        again = ops.wkv_bwd(*args, dy, ds)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"wkv6 backward {label}: two runs differ")
+        del again
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ops.wkv_grad_plain(*args, dy, ds)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        ratio, diff, shares = check_wkv_grad(got, want, dt)
+        if not (all(torch.isfinite(g).all() for g in got) and ratio < 1):
+            fail(f"wkv6 backward {label}: error at {ratio:.3f} of its "
+                 f"allowance ({shares})")
+        L = WKV_BWD_ROWS[K]
+        faults = {name: check_wkv_grad(f, want, dt)[0]
+                  for name, f in wkv_bwd_planted_faults(
+                      ops.wkv_bwd, *args, dy, ds,
+                      L if S > L else S // 2).items()}
+        for name, fault in faults.items():
+            if not fault > 1:
+                fail(f"wkv6 backward {label}: the check misses '{name}' "
+                     f"({fault:.3f} of its allowance)")
+        del want
+        atol_frac, rtol = allowance(torch.float32, "wkv6_bwd")
+        row = {"kernel": "wkv6_bwd", "case": label, "shape": [B, S, H, K],
+               "rows": L, "dtype": str(dt), "decay": decay,
+               "dstate": with_ds, "deterministic": True,
+               "err_ratio": ratio, "err_shares": shares,
+               "fault_ratio": min(faults.values()), "faults": faults,
+               "max_abs_err": diff, "fp32_rtol": rtol,
+               "fp32_atol_frac": atol_frac, "main_path": main}
+        ins = args + (dy,) + ((ds,) if with_ds else ())
+        nbytes = (sum(t.numel() * t.element_size() for t in ins)
+                  + sum(g.numel() * g.element_size() for g in got))
+        copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
+        sets = [args + (dy, ds)] + [
+            tuple(None if t is None else t.clone()
+                  for t in args + (dy, ds)) for _ in range(copies - 1)]
+        del got
+        row["ms"] = time_ms(lambda *a: ops.wkv_bwd(*a), sets, min_reps=5)
+        del sets
+        row["plain_ms"] = plain_ms
+        row["library_ms"] = None    # no one PyTorch call computes it
+        # five [K, K] products a row: the forward walk's state update,
+        # S dy, dS v, k dS and r^T dy
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 10 * B * S * H * K * K, torch.float32)
+        rows.append(row)
+        print(f"  wkv6_bwd {label:14s} B{B} S{S} H{H} K{K} {str(dt)[6:]} "
+              f"{decay} decay{', dS_T' if with_ds else ''}, {L}-row "
+              f"chunks: err {ratio:.3f} of allowance ("
+              + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
+              + "; faults " + ", ".join(f"{n} {f:.1f}"
+                                        for n, f in faults.items())
+              + f")  max abs {diff:.2e}  kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); library: none", flush=True)
+        release()
+    return rows
+
+
 WKV_STEPS = ("w landed", "scan, r k v landed", "exp2(total), k', diagonal",
              "off-diagonal A", "r exp2(e), kd", "dS (warp 0)",
              "first cluster barrier", "fold", "second cluster barrier",
@@ -912,7 +1048,8 @@ def wkv_step_shares(args, route):
 def phase_kernels(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = run_matmul(dev, gen) + run_flash(dev, gen) + run_wkv(dev, gen)
+    rows = (run_matmul(dev, gen) + run_flash(dev, gen) + run_wkv(dev, gen)
+            + run_wkv_bwd(dev, gen))
     print(f"phase 3 kernels: {len(rows)} cases within tolerance",
           flush=True)
     return rows
@@ -934,13 +1071,16 @@ REDUCED_FRAMES = 96
 REDUCED_PATCHES = 16
 
 
-def phase_model(dev, arch):
+def reduced_model(arch):
+    """Phase 4's reduced fp32 ``arch`` (``MODELS``' layers, d 128, vocab
+    512) and its parameters drawn on the CPU from seed 0: the RWKV bonus
+    and token-shift mixes made non-zero, tied-block, encoder and
+    cross-attention q/k at their inputs' fan-in."""
     import dataclasses
 
-    from repro_torch import convert
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import lm
-    from repro_torch.models.spec import tree_items, tree_map
+    from repro_torch.models.spec import tree_items
 
     cfg = reduce_config(get_config(arch), layers=MODELS[arch], d_model=128,
                         vocab=512)
@@ -948,9 +1088,6 @@ def phase_model(dev, arch):
     if cfg.attention and cfg.attention.sliding_window:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, sliding_window=REDUCED_WINDOW))
-    B, P, G = 2, 64, 8
-    opts = lm.RunOptions(chunk_q=32, chunk_kv=32, cache_len=P + G,
-                         remat=False)
     cpu_params = lm.init_params(cfg, seed=0, device="cpu")
     # the RWKV bonus and token-shift mixes start at zero: make them count
     gen = torch.Generator().manual_seed(2)
@@ -974,6 +1111,18 @@ def phase_model(dev, arch):
                     cpu_params["stage0"]["pos0"]["cross"]):
             for name in ("wq", "wk"):
                 blk[name].mul_(math.sqrt(a.num_heads / cfg.d_model))
+    return cfg, cpu_params
+
+
+def phase_model(dev, arch):
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.models.spec import tree_map
+
+    cfg, cpu_params = reduced_model(arch)
+    B, P, G = 2, 64, 8
+    opts = lm.RunOptions(chunk_q=32, chunk_kv=32, cache_len=P + G,
+                         remat=False)
     np_params = tree_map(lambda t: t.numpy(), cpu_params)
     gen = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
@@ -1709,6 +1858,8 @@ def check_serve_paths(arch, launches, paths, plan, tuned=False):
     if paths["spm_matmul"] != expect_paths:
         fail(f"{arch}: spm_matmul paths {paths['spm_matmul']}, expected "
              f"{expect_paths}")
+    if paths["wkv6_bwd"]["backward"]:
+        fail(f"{arch}: serving launched wkv6's backward kernel")
     for name in ("flash_attention", "wkv6"):
         got = paths[name]
         if name in want["kernels"] and (
@@ -1777,6 +1928,37 @@ GRAD_STEPS = 5
 # one warm-up step and VARIANT_STEPS timed
 DESCENT_STEPS, SPREAD_BATCHES, DESCENT_MARGIN = 5, 4, 10
 VARIANT_STEPS = 3
+# phase 9(e): phase 4's reduced fp32 families whose gradients the card
+# must give as the CPU does, as 9(b), the losses at FAMILY_GRAD_LR: at
+# 9(b)'s 1e-2, gradients perturbed by NOISE_REL of each leaf's largest
+# magnitude move these models' 5 CPU losses by more than GRAD_TOL (Adam
+# turns a near-zero gradient's sign into a whole step), which is what
+# the comparison would then read, not the card; the phase prints that
+# spread at both rates
+FAMILY_GRADS = ("rwkv6-1.6b", "zamba2-7b", "qwen3-moe-235b-a22b")
+FAMILY_GRAD_LR = 1e-4
+NOISE_REL = 1e-6
+# phase 9(f) and (g): full width, bf16, batch TRAIN_B, AdamW at the
+# launcher's lr, the update donated (written into the state, as the
+# reference's jit donates it: qwen3-moe's 37 GB of state has no room
+# for a second copy), through ``train.train``: (arch, layers (None: all), seq,
+# steps, remat, warm-up steps: 2, so that the peak rate is reached
+# while the steps last; whether the last loss, on a new batch, must be
+# below the first: (g)'s 6 steps of 4 x 1024 tokens cover a few
+# thousand of the 32,000 and 151,936 tokens whose permutation the
+# Markov data follows, so a new batch's loss moves by about the spread
+# between batches, and only the first batch's fall is held).  rwkv6-1.6b: TRAIN_4K's sequence at its full 24 layers;
+# its step holds ~19 GB of state (bf16 parameters and gradients, fp32
+# moments of 1.6 B parameters) and, without remat, ~3 GB of activations
+# a layer (the fp32 token-shift mixes and decays, the group norm, the
+# 7168-wide channel mix), over 80 GB at 24 layers: remat on.  zamba2-7b
+# at phase 4's 15 layers (both tied blocks run; ~1.8 B parameters),
+# qwen3-moe-235b-a22b at 1 layer (every layer is MoE: 4.83 GB of experts
+# a layer; ~3.1 B parameters with the tables are ~37 GB of state, and a
+# second layer's 2.4 B would not fit beside it), both at 4 x 1024
+FAMILY_TRAINS = (("rwkv6-1.6b", None, TRAIN_S, TRAIN_STEPS, True, 2, True),
+                 ("zamba2-7b", 15, 1024, 6, False, 2, False),
+                 ("qwen3-moe-235b-a22b", 1, 1024, 6, False, 2, False))
 # phase 9(d): the reduced bf16 run disturbed by a NaN step at NAN_STEP and
 # a preemption at PREEMPT_STEP, then resumed, against an undisturbed one
 RESUME_STEPS, NAN_STEP, PREEMPT_STEP = 8, 2, 4
@@ -2019,27 +2201,29 @@ def _fan_in_qk(params, cfg):
                         math.sqrt(a.num_heads / cfg.d_model))
 
 
-def phase_train_grads(dev):
-    """Phase 9(b): reduced fp32 qwen2 (2 layers, remat on), one step's
-    gradient of every leaf and 5 steps of loss, card against CPU."""
-    import dataclasses
-
-    from repro_torch.configs import TrainConfig, reduce_config
+def train_grads(dev, cfg, cpu_params, what, phase="9 train grads",
+                lr=1e-2, yardstick=()):
+    """One step's gradient of every leaf and GRAD_STEPS losses of ``cfg``
+    (fp32, remat on, batch 4 x 128 Markov tokens, AdamW at peak ``lr``)
+    from ``cpu_params``, card against CPU: each leaf's worst difference
+    as a share of its largest |gradient| on the CPU, and the losses',
+    under GRAD_TOL.  For each learning rate of ``yardstick``, the CPU's
+    steps run twice more, plain and with every gradient perturbed by
+    NOISE_REL of its leaf's largest magnitude (seeded normals): how far
+    rounding-sized differences in the gradients move the losses at that
+    rate, printed beside the card's difference."""
+    from repro_torch.configs import TrainConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.models import lm
     from repro_torch.models.spec import tree_items, tree_map
     from repro_torch.optim import adamw
-    cfg = dataclasses.replace(reduce_config(
-        train_cfg(), layers=2, d_model=128, vocab=512), dtype="float32")
     opts = lm.RunOptions(chunk_q=32, chunk_kv=32, loss_chunk=32, remat=True)
-    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=2,
-                       total_steps=GRAD_STEPS)
     data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                          global_batch=4, seq_len=128))
-    cpu_params = lm.init_params(cfg, seed=0, device="cpu")
-    _fan_in_qk(cpu_params, cfg)
-    runs = {}
-    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+
+    def run(d, rate, noise=0.0):
+        tcfg = TrainConfig(learning_rate=rate, warmup_steps=2,
+                           total_steps=GRAD_STEPS)
         params = tree_map(lambda t: t.to(d), cpu_params)
         batches = [{k: torch.from_numpy(v).to(d, torch.long)
                     for k, v in data.batch_at(i).items()}
@@ -2047,25 +2231,82 @@ def phase_train_grads(dev):
         _, grads = adamw.value_and_grad(
             lambda p, b: lm.train_loss(cfg, p, b, opts), params, batches[0])
         step = adamw.make_train_step(cfg, tcfg, opts)
+        real = adamw.adamw_update
+        if noise:
+            gen = torch.Generator().manual_seed(5)
+            adamw.adamw_update = lambda g, *a, **k: real(tree_map(
+                lambda t: t + noise * t.abs().max() * torch.randn(
+                    t.shape, generator=gen), g), *a, **k)
         opt, losses = adamw.adamw_init(params), []
-        for b in batches:
-            params, opt, m = step(params, opt, b)
-            losses.append(float(m["loss"]))
-        runs[name] = ({k: g.cpu() for k, g in tree_items(grads)}, losses)
-    worst = max((rel_err(g, runs["cpu"][0][k])[0], k)
-                for k, g in runs["cuda"][0].items())
-    loss_err = max(abs(a - b) / b for a, b in zip(runs["cuda"][1],
-                                                  runs["cpu"][1]))
-    print(f"phase 9 train grads: reduced qwen2-0.5b fp32 (2 layers, remat, "
-          f"batch 4 x 128) card vs CPU: worst leaf gradient {worst[0]:.2e} "
-          f"of its largest magnitude ({worst[1]}; {len(runs['cpu'][0])} "
-          f"leaves; tol {GRAD_TOL:.0e}); {GRAD_STEPS} losses "
-          f"{[round(x, 6) for x in runs['cuda'][1]]}, worst rel err "
-          f"{loss_err:.2e} (tol {GRAD_TOL:.0e})", flush=True)
+        try:
+            for b in batches:
+                params, opt, m = step(params, opt, b)
+                losses.append(float(m["loss"]))
+        finally:
+            adamw.adamw_update = real
+        return {k: g.cpu() for k, g in tree_items(grads)}, losses
+
+    def loss_rel(got, want):
+        return max(abs(a - b) / b for a, b in zip(got, want))
+
+    cpu = run(torch.device("cpu"), lr)
+    card = run(dev, lr)
+    worst = max((rel_err(g, cpu[0][k])[0], k) for k, g in card[0].items())
+    loss_err = loss_rel(card[1], cpu[1])
+    spread = {}
+    for rate in yardstick:
+        plain = cpu[1] if rate == lr else run(torch.device("cpu"), rate)[1]
+        spread[rate] = loss_rel(run(torch.device("cpu"), rate,
+                                    NOISE_REL)[1], plain)
+    print(f"phase {phase}: {what} card vs CPU: worst leaf gradient "
+          f"{worst[0]:.2e} of its largest magnitude ({worst[1]}; "
+          f"{len(cpu[0])} leaves; tol {GRAD_TOL:.0e}); {GRAD_STEPS} "
+          f"losses at lr {lr:g} {[round(x, 6) for x in card[1]]}, worst "
+          f"rel err {loss_err:.2e} (tol {GRAD_TOL:.0e})"
+          + "".join(f"; at lr {rate:g} the CPU's losses with gradients "
+                    f"perturbed by {NOISE_REL:g} of each leaf's largest "
+                    f"magnitude move by {v:.2e}"
+                    for rate, v in spread.items()), flush=True)
     if not worst[0] < GRAD_TOL or not loss_err < GRAD_TOL:
-        fail("card and CPU gradients or losses disagree")
+        fail(f"{what}: card and CPU gradients or losses disagree")
     return {"worst_grad_rel": worst[0], "worst_leaf": worst[1],
-            "loss_rel": loss_err, "losses": runs["cuda"][1]}
+            "loss_rel": loss_err, "losses": card[1], "lr": lr,
+            "perturbed_loss_rel": spread}
+
+
+def phase_train_grads(dev):
+    """Phase 9(b): reduced fp32 qwen2 (2 layers, remat on), one step's
+    gradient of every leaf and 5 steps of loss, card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduce_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(reduce_config(
+        train_cfg(), layers=2, d_model=128, vocab=512), dtype="float32")
+    cpu_params = lm.init_params(cfg, seed=0, device="cpu")
+    _fan_in_qk(cpu_params, cfg)
+    return train_grads(dev, cfg, cpu_params, "reduced qwen2-0.5b fp32 "
+                       "(2 layers, remat, batch 4 x 128)")
+
+
+def phase_family_grads(dev):
+    """Phase 9(e): phase 4's reduced fp32 rwkv6-1.6b (2 layers: wkv6's
+    forward and backward kernels, fp32), zamba2-7b (15: both tied
+    blocks) and qwen3-moe-235b-a22b (2), as 9(b), the losses at
+    FAMILY_GRAD_LR beside the CPU's own spread under perturbed
+    gradients."""
+    out = {}
+    for arch in FAMILY_GRADS:
+        cfg, cpu_params = reduced_model(arch)
+        before = path_counts()["wkv6_bwd"]
+        out[arch] = train_grads(
+            dev, cfg, cpu_params, f"reduced {arch} fp32 ({MODELS[arch]} "
+            f"layers, remat, batch 4 x 128)", phase="9(e) train grads",
+            lr=FAMILY_GRAD_LR, yardstick=(FAMILY_GRAD_LR, 1e-2))
+        if cfg.rwkv is not None and path_counts()["wkv6_bwd"] == before:
+            fail(f"{arch}: wkv6's backward kernel never launched")
+        release()
+    return out
 
 
 # a training step's kernels by family: the attention backward's
@@ -2151,6 +2392,107 @@ def phase_train(dev):
            if k not in ("final_state", "trainer")}
     out.update({"first_batch_loss_after": again, "trace": trace,
                 "variants": variants, "descent": descent})
+    del tr, state, res
+    release()
+    return out, launches
+
+
+# a training step's kernels by family, wkv6's backward apart from its
+# forward
+FAMILY_TRAIN_FAMILIES = (TRAIN_FAMILIES[:2]
+                         + (("wkv6 backward", ("wkv6_bwd",)),)
+                         + TRAIN_FAMILIES[2:])
+
+
+def attention_applications(cfg):
+    """The prefill-form attentions of one forward: a hybrid's shared
+    block once a unit, none in RWKV, else one a layer."""
+    if cfg.attention is None:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.ssm.shared_attn_every
+    return cfg.num_layers
+
+
+def phase_train_family(dev, arch, layers, seq, steps, remat, warmup,
+                       hold_last, part):
+    """Phase 9(f), (g): ``arch`` at full width (``layers`` cut with
+    ``dataclasses.replace``) through ``train.train``, counters zeroed
+    just before and read just after: the last loss must be below the
+    first; every step must launch spm_matmul by path, flash_attention
+    and wkv6's forward and backward as reckoned from the code (the
+    forward launches twice a layer under remat: once in the step, once
+    in the recompute); the step's numbers printed; one more step traced
+    by kernel family.  The first step's batch's loss under the trained
+    parameters must be below the first loss, and with ``hold_last`` so
+    must the last step's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    release()
+    reset_launches()
+    res = train.train(cfg, batch=TRAIN_B, seq=seq, steps=steps, remat=remat,
+                      device=dev, warmup_steps=warmup, donate=True)
+    paths = path_counts()
+    fwd = 2 if remat else 1
+    want = train_paths(train_products(cfg, TRAIN_B, seq, train.LOSS_CHUNK,
+                                      remat))
+    wkv_layers = cfg.num_layers if cfg.rwkv is not None else 0
+    want_flash = fwd * attention_applications(cfg)
+    want_wkv = {"tensor_core": fwd * wkv_layers, "fma": 0}
+    loss, js = res["loss"], res["jitter"]
+    print(f"phase 9{part} train: {arch} at full width, {cfg.num_layers} "
+          f"layers, bf16, batch {TRAIN_B} x {seq}, {steps} steps, remat "
+          f"{remat}: loss {loss[0]:.4f} -> {loss[-1]:.4f} (gradient norm "
+          f"{res['grad_norm'][0]:.4g} -> {res['grad_norm'][-1]:.4g}); step "
+          f"median {js['median'] * 1e3:.2f} ms, p99 {res['p99_s'] * 1e3:.2f}"
+          f" ms, CoV {js['cov']:.4f} over steps 3-{steps}; "
+          f"{res['tokens_per_s']:,.0f} tokens/s; model FLOPs a step "
+          f"{res['model_flops']:.4g} ({res['peak_flop_share']:.4f} of 989 "
+          f"TFLOP/s), the reference's {res['reference_model_flops']:.4g} "
+          f"({res['reference_peak_flop_share']:.4f}); peak memory "
+          f"{res['peak_memory'] / 2**30:.2f} GiB; deadline "
+          f"{res['deadline']['deadline_s'] * 1e3:.1f} ms, overruns "
+          f"{res['deadline']['overruns']}", flush=True)
+    print(f"phase 9{part} train: launches per step {res['launches_per_step'][-1]}"
+          f" (reckoned: spm_matmul {want}, flash_attention {want_flash}, "
+          f"wkv6 {want_wkv}, wkv6 backward {wkv_layers})", flush=True)
+    if not all(map(math.isfinite, loss)):
+        fail(f"{arch}: non-finite losses: {loss}")
+    for i, st in enumerate(res["launches_per_step"]):
+        if (st["spm_matmul"] != want or st["flash_attention"] != want_flash
+                or st["wkv6"] != want_wkv or st["wkv6_bwd"] != wkv_layers):
+            fail(f"{arch} train step {i + 1} launched {st}")
+    launches = {"spm_matmul": sum(paths["spm_matmul"].values()),
+                "flash_attention": sum(paths["flash_attention"].values()),
+                "wkv6": sum(paths["wkv6"].values()),
+                "wkv6_bwd": paths["wkv6_bwd"]["backward"]}
+    # the last loss must be below the first, and so must the first
+    # step's batch's under the trained parameters, as in 9(c)
+    tr, state = res["trainer"], res["final_state"]
+    batch0 = tr.batch_at(0)
+    with torch.no_grad():
+        again = float(lm.train_loss(cfg, state.params, batch0, tr.opts))
+    print(f"phase 9{part} train: {arch}: the first step's batch after "
+          f"training: loss {again:.4f} (first {loss[0]:.4f}, last "
+          f"{loss[-1]:.4f})", flush=True)
+    if not (again < loss[0] and (loss[-1] < loss[0] or not hold_last)):
+        fail(f"{arch}: the loss did not fall: first {loss[0]}, last "
+             f"{loss[-1]}, the first batch after training {again}")
+    trace = trace_replays(
+        f"train step ({arch}, {cfg.num_layers} layers, batch {TRAIN_B} x "
+        f"{seq})", lambda i: tr._step_fn(state.params, state.opt_state,
+                                         batch0), 1, phase=f"9{part}",
+        families=FAMILY_TRAIN_FAMILIES)
+    out = {k: v for k, v in res.items()
+           if k not in ("final_state", "trainer")}
+    out.update({"layers": cfg.num_layers, "seq": seq, "remat": remat,
+                "trace": trace, "launches": launches})
     del tr, state, res
     release()
     return out, launches
@@ -2819,7 +3161,8 @@ def path_counts():
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     return {"spm_matmul": dict(mm_ops.matmul.paths),
             "flash_attention": dict(fa_ops.attention.paths),
-            "wkv6": dict(wkv_ops.wkv.paths)}
+            "wkv6": dict(wkv_ops.wkv.paths),
+            "wkv6_bwd": {"backward": wkv_ops.wkv.bwd_launches}}
 
 
 def reset_launches():
@@ -2829,6 +3172,7 @@ def reset_launches():
     mm_ops.matmul.launches = 0
     fa_ops.attention.launches = 0
     wkv_ops.wkv.launches = 0
+    wkv_ops.wkv.bwd_launches = 0
     for counts in (mm_ops.matmul.paths, fa_ops.attention.paths,
                    wkv_ops.wkv.paths):
         counts.update(dict.fromkeys(counts, 0))
@@ -2846,7 +3190,10 @@ def kernel_summary(rows, launches, replayed, trained):
         "spm_matmul": "src/repro/kernels/spm_matmul/spm_matmul.py:50",
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:75",
-        "wkv6": "src/repro/kernels/wkv6/wkv6.py:84"}
+        "wkv6": "src/repro/kernels/wkv6/wkv6.py:84",
+        # the gradient of that kernel's function, which the reference
+        # takes by jax.grad of its jnp chunked form
+        "wkv6_bwd": "src/repro/kernels/wkv6/wkv6.py:84"}
     out = []
     for name, replaces in replaced.items():
         main = [r for r in rows if r["kernel"] == name and r["main_path"]]
@@ -2858,9 +3205,9 @@ def kernel_summary(rows, launches, replayed, trained):
             "name": name, "route": "cuda",
             "source": str((_build.CSRC / f"{name}.cu").relative_to(ROOT)),
             "replaces": replaces,
-            "launches": launches[name] + trained[name],
-            "train_launches": trained[name],
-            "replayed_launches": replayed[name],
+            "launches": launches.get(name, 0) + trained.get(name, 0),
+            "train_launches": trained.get(name, 0),
+            "replayed_launches": replayed.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in main),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -2878,8 +3225,15 @@ def phase_train_phases(dev):
     grads = phase_train_grads(dev)
     run, launches = phase_train(dev)
     resume = phase_train_resume(dev)
+    families = phase_family_grads(dev)
+    wide = {}
+    for spec, part in zip(FAMILY_TRAINS, "fgg"):
+        wide[spec[0]], moved = phase_train_family(dev, *spec, part)
+        for k, n in moved.items():
+            launches[k] = launches.get(k, 0) + n
     return rows, {"grads": grads, "run": run, "launches": launches,
-                  "resume": resume, "cases": rows}
+                  "resume": resume, "family_grads": families,
+                  "family_runs": wide, "cases": rows}
 
 
 def main():

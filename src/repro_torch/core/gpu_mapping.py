@@ -64,6 +64,8 @@ WKV_TC_ROWS = {32: 64, 64: 64, 128: 16}   # its compiled rows per block
 WKV_TC_PAD = 8          # its row padding, in elements
 WKV_MAX_CLUSTER = 8     # its blocks per cluster, at most
 WKV_PATHS = ("tensor_core", "fma")
+WKV_BWD_THREADS = 256   # csrc/wkv6_bwd.cu: threads of a block
+WKV_BWD_ROWS = {32: 64, 64: 32, 128: 16}   # its compiled chunk rows
 
 # csrc/flash_attention.cu's layouts (the kernels' constants; tests read
 # them back)
@@ -180,6 +182,23 @@ def wkv_smem_plan(chunk: int, K: int, chip: GPUChip = H100, *,
     return {"smem_need": need, "smem_bytes": chip.smem_bytes,
             "fits": need <= chip.smem_bytes,
             "blocks_per_sm": blocks_per_sm(need, threads, chip)}
+
+
+def wkv_bwd_smem_plan(K: int, chip: GPUChip = H100) -> dict:
+    """Shared-memory feasibility of one ``csrc/wkv6_bwd.cu`` block (one
+    (b, h), chunks of ``WKV_BWD_ROWS[K]`` rows L) and the blocks one SM
+    holds.  In fp32: r, k, v, dy, the cumulative log-decay, a = r (S dy)
+    and a - k (dS v) [L, K + 1] each (rows padded by one against bank
+    conflicts); the chunk's incoming state and the carried adjoint
+    [K, K + 1]; the intra-chunk A and dy . v [L, L + 1]; g and r u k per
+    row; the total decay, u, the boundary term Q and du per channel.
+    ``bwd_smem_floats`` in the source is the same sum."""
+    L = WKV_BWD_ROWS[K]
+    need = 4 * (7 * L * (K + 1) + 2 * K * (K + 1) + 2 * L * (L + 1)
+                + 2 * L + 4 * K)
+    return {"rows": L, "smem_need": need, "smem_bytes": chip.smem_bytes,
+            "fits": need <= chip.smem_bytes,
+            "blocks_per_sm": blocks_per_sm(need, WKV_BWD_THREADS, chip)}
 
 
 def flash_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:

@@ -26,6 +26,26 @@ version multiplies the step decays one by one.  The CPU model of that
 arithmetic (``wkv_chunked_direct``) reads 1.3 of the 1e-5 allowance in
 the strong-decay case, and its planted faults read over 1e3 of 1e-4.
 
+wkv6's backward (``csrc/wkv6_bwd.cu``) is held gradient by gradient:
+dr, dk and dv in r's dtype by the rule above (both versions sum in
+fp32 and round once), dw_log and du in fp32 under 1e-4 for both terms
+(``KERNEL_FP32["wkv6_bwd"]``), and dw_log with its rows along the
+sequence, one per (b, h, channel).  The plain version (autograd
+through the exact recurrence) takes dw_t as exp(w_t) <S_{t-1}, dS_t>
+with every state kept; the kernel takes it as a reverse cumulative sum
+of r.dr - k.dk down each channel of a chunk from the boundary term
+<S, dS>.  Those terms are each about <S_t, dS_t>, exp(-w_t) times dw_t,
+and cancel: the sum's rounding scales with the channel's terms, not
+with the row's dw (at t = 0 the true dw is exactly 0, S_{-1} being 0),
+and grows as the decays strengthen.  The CPU model of that arithmetic
+(``wkv_bwd_chunked_model``) reads 0.03-0.2 of the allowance at the
+model's and the reference test's decays, and 1.1 on dw_log at a
+constant decay factor of exp(-4) = 0.018 a step, 30x below the least
+the init draws (0.54, ``models/spec.py``): a check at such decays
+would need a wider allowance (``python -m
+repro_torch.kernels.tolerance``).  The backward's planted faults
+(``wkv_bwd_planted_faults``) read over 1e3.
+
 Run it to print, at the serve prefill shapes on the CPU, the worst error
 of the modelled kernels and of planted faults as shares of the
 allowance (under 1 passes), and for attention that older reading
@@ -47,7 +67,9 @@ ATOL_FRAC = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 # (atol_frac, rtol) of a kernel whose fp32 rounding differs from the rule
-KERNEL_FP32 = {"wkv6": 1e-4}
+KERNEL_FP32 = {"wkv6": 1e-4, "wkv6_bwd": 1e-4}
+# wkv6's gradients, in the order the backward returns them
+WKV_GRADS = ("dr", "dk", "dv", "dw_log", "du")
 
 
 def allowance(dtype: torch.dtype, kernel: Optional[str] = None):
@@ -75,6 +97,120 @@ def check_wkv(got, want, dtype: torch.dtype):
     ry, dy = check(got[0], want[0], dtype, "wkv6")
     rs, ds = check(got[1], want[1], torch.float32, "wkv6")
     return max(ry, rs), max(dy, ds)
+
+
+def check_wkv_grad(got, want, dtype: torch.dtype):
+    """``check`` of wkv6's gradients (dr, dk, dv, dw_log, du) against
+    the plain version's: dr, dk and dv in ``dtype`` (r's), dw_log and du
+    in fp32, under ``wkv6_bwd``'s allowance; dw_log's rows are each
+    (b, h, channel)'s sequence.  (worst share, max abs err, {gradient:
+    share})."""
+    shares, worst_diff = {}, 0.0
+    for name, g, w in zip(WKV_GRADS, got, want):
+        dt = dtype if name in ("dr", "dk", "dv") else torch.float32
+        if name == "dw_log":        # its rows run down the sequence
+            g, w = g.movedim(1, -1), w.movedim(1, -1)
+        shares[name], diff = check(g, w, dt, "wkv6_bwd")
+        worst_diff = max(worst_diff, diff)
+    return max(shares.values()), worst_diff, shares
+
+
+def wkv_bwd_planted_faults(bwd_fn, r, k, v, w_log, u, dy, dstate,
+                           boundary: int) -> dict:
+    """{name: gradients}: wrong wkv6 gradients made from ``bwd_fn`` (the
+    backward kernel on the card, a CPU model here).  The adjoint state
+    not carried across the chunk boundary at ``boundary`` (the rows
+    before it differentiated alone, as if nothing came after them); the
+    decay's reverse sum off by one position (dw_t taking the row's own
+    r_t (S_{t-1} dy_t), i.e. an inclusive sum where the exclusive one is
+    due); du dropped."""
+    full = bwd_fn(r, k, v, w_log, u, dy, dstate)
+    first = bwd_fn(*(a[:, :boundary].contiguous()
+                     for a in (r, k, v, w_log)), u,
+                   dy[:, :boundary].contiguous(), None)
+    cut = [torch.cat([a, b[:, boundary:]], 1)
+           for a, b in zip(first[:4], full[:4])]
+    f32 = torch.float32
+    g = (dy.to(f32) * v.to(f32)).sum(-1, keepdim=True)
+    own = r.to(f32) * (full[0].to(f32) - u * k.to(f32) * g)
+    return {
+        "adjoint not carried across a chunk boundary": (*cut, full[4]),
+        "dw_log's decay off by one position":
+            (*full[:3], full[3] + own, full[4]),
+        "du dropped": (*full[:4], torch.zeros_like(full[4])),
+    }
+
+
+def wkv_bwd_chunked_model(r, k, v, w_log, u, dy, dstate=None,
+                          rows: Optional[int] = None):
+    """The arithmetic of ``csrc/wkv6_bwd.cu`` in plain torch, fp32, at
+    its chunk (``WKV_BWD_ROWS[K]`` unless ``rows``): the states at the
+    chunk boundaries by a forward walk; then backward over the chunks
+    with the adjoint dS carried, the pairs' decays exp(e_t - cw_j) taken
+    directly, dw by the reverse cumulative sum of r.dr - k.dk from the
+    boundary term <S, dS>.  Builds [B, L, L, H, K] per chunk: small
+    shapes only.  Returns (dr, dk, dv in r's dtype, dw_log, du)."""
+    from repro_torch.core.gpu_mapping import WKV_BWD_ROWS
+    f32 = torch.float32
+    B, S, H, K = r.shape
+    L = rows or WKV_BWD_ROWS[K]
+    NC = -(-S // L)
+
+    def chunked(a):
+        a = torch.nn.functional.pad(a.to(f32),
+                                    (0, 0, 0, 0, 0, NC * L - S))
+        return a.reshape(B, NC, L, H, K)
+
+    rc, kc, vc, yc, wc = (chunked(a) for a in (r, k, v, dy, w_log))
+    uf = u.to(f32)
+    st = torch.zeros(B, H, K, K, dtype=f32, device=r.device)
+    saved = []
+    for c in range(NC):
+        saved.append(st)
+        cw = torch.cumsum(wc[:, c], 1)
+        kd = kc[:, c] * torch.exp(cw[:, -1:] - cw)
+        st = torch.exp(cw[:, -1])[..., None] * st + torch.einsum(
+            "bjhk,bjhv->bhkv", kd, vc[:, c])
+    saved.append(st)
+    ds = (torch.zeros_like(st) if dstate is None
+          else dstate.to(f32).clone())
+    grads = [torch.zeros(B, NC, L, H, K, dtype=f32, device=r.device)
+             for _ in range(4)]
+    du = torch.zeros(H, K, dtype=f32, device=r.device)
+    later = torch.tril(torch.ones(L, L, dtype=torch.bool,
+                                  device=r.device), -1)     # t > j
+    for c in reversed(range(NC)):
+        rr, kk, vv, yy = rc[:, c], kc[:, c], vc[:, c], yc[:, c]
+        cw = torch.cumsum(wc[:, c], 1)
+        e, tot = cw - wc[:, c], cw[:, -1]
+        q = (saved[c + 1] * ds).sum(-1)
+        P = torch.exp(torch.where(later[None, :, :, None, None],
+                                  e[:, :, None] - cw[:, None],
+                                  float("-inf")))
+        A = torch.einsum("bthk,bjhk,btjhk->bhtj", rr, kk, P)
+        Bm = torch.einsum("bthv,bjhv->bhtj", yy, vv) * later
+        g = (yy * vv).sum(-1, keepdim=True)
+        dr = (torch.exp(e) * torch.einsum("bhkv,bthv->bthk", saved[c], yy)
+              + torch.einsum("bhtj,bjhk,btjhk->bthk", Bm, kk, P))
+        dk = (torch.exp(tot[:, None] - cw)
+              * torch.einsum("bhkv,bjhv->bjhk", ds, vv)
+              + torch.einsum("bhtj,bthk,btjhk->bjhk", Bm, rr, P))
+        kd = kk * torch.exp(tot[:, None] - cw)
+        dv = (torch.einsum("bjhk,bhkv->bjhv", kd, ds)
+              + torch.einsum("bhtj,bthv->bjhv", A, yy)
+              + (rr * uf * kk).sum(-1, keepdim=True) * yy)
+        a = rr * dr
+        z = a - kk * dk
+        grads[3][:, c] = (q[:, None] + torch.flip(torch.cumsum(
+            torch.flip(z, [1]), 1), [1]) - a)
+        grads[0][:, c] = dr + uf * kk * g
+        grads[1][:, c] = dk + uf * rr * g
+        grads[2][:, c] = dv
+        du += (rr * kk * g).sum((0, 1))
+        ds = torch.exp(tot)[..., None] * ds + torch.einsum(
+            "bthk,bthv->bhkv", rr * torch.exp(e), yy)
+    out = [t.reshape(B, NC * L, H, K)[:, :S] for t in grads]
+    return (*(t.to(r.dtype) for t in out[:3]), out[3], du)
 
 
 def wkv_chunked_direct(r, k, v, w_log, u, chunk: int):
@@ -439,6 +575,37 @@ def wkv_main() -> None:
                           for name, got in faults.items()))
 
 
+def wkv_bwd_main() -> None:
+    from repro_torch.core.gpu_mapping import WKV_BWD_ROWS
+    from repro_torch.kernels.wkv6 import ops
+
+    gen = torch.Generator().manual_seed(0)
+    for B, S, H, K, dt, decay, with_ds in (
+            (1, 256, 4, 64, torch.bfloat16, "model", False),
+            (1, 100, 2, 64, torch.float32, "model", True),
+            (1, 128, 2, 64, torch.float32, "strong", True),
+            (1, 64, 2, 32, torch.float32, "reference", False),
+            (1, 64, 2, 128, torch.float32, "model", True)):
+        args = wkv_inputs(B, S, H, K, dt, decay, gen)
+        dy = torch.randn(B, S, H, K, generator=gen).to(dt)
+        ds = (0.1 * torch.randn(B, H, K, K, generator=gen) if with_ds
+              else None)
+        want = ops.wkv_grad_plain(*args, dy, ds)
+        got = wkv_bwd_chunked_model(*args, dy, ds)
+        L = WKV_BWD_ROWS[K]
+        faults = wkv_bwd_planted_faults(wkv_bwd_chunked_model, *args, dy,
+                                        ds, L if S > L else S // 2)
+        worst, _, shares = check_wkv_grad(got, want, dt)
+        print(f"wkv6 backward B{B} S{S} H{H} K{K} {str(dt)[6:]} {decay} "
+              f"decay, dS_T {'given' if with_ds else 'zero'}, {L}-row "
+              f"chunks: modelled kernel {worst:.3f} ("
+              + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
+              + "), " + ", ".join(
+                  f"{name} {check_wkv_grad(f, want, dt)[0]:.1f}"
+                  for name, f in faults.items()))
+
+
 if __name__ == "__main__":
     main()
     wkv_main()
+    wkv_bwd_main()

@@ -3,10 +3,21 @@
 ``src/repro/kernels/wkv6/wkv6.py::wkv6``.
 
 Dispatch is by device, with no fallback: CPU tensors take the plain
-version (``ref.wkv6_ref``, the exact sequential recurrence); CUDA
-tensors launch a kernel, or the wrapper raises.  Each launch adds one
-to ``wkv.launches`` and one to its path's count in ``wkv.paths``.  Like
-the TPU kernel it takes no initial state.
+version (``ref.wkv6_ref``, the exact sequential recurrence); ``meta``
+tensors (the dry run's) the chunked torch form at the caller's chunk
+(``ref.wkv6_chunked``, what the reference's dry run traces: its op
+count does not grow with the sequence); CUDA tensors launch a kernel,
+or the wrapper raises.  Each launch adds one to ``wkv.launches`` and
+one to its path's count in ``wkv.paths``.  Like the TPU kernel it
+takes no initial state.
+
+Under grad mode, when an operand needs a gradient, a CUDA call goes
+through ``WKV6``: its forward launches the kernel as above and keeps
+r, k, v, w_log and u; its backward launches ``csrc/wkv6_bwd.cu``
+(``wkv_bwd``), which adds one to ``wkv.bwd_launches``.  It launches or
+raises: the plain version is never differentiated on the card.  CPU
+and ``meta`` operands are differentiated by autograd through their
+torch forms.  ``wkv_grad_plain`` is the backward's plain version.
 
 On CUDA, ``route`` picks one of two kernels before the launch:
 ``tensor_core`` for bf16 r, k and v with every operand on a 16-byte
@@ -41,10 +52,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.gpu_mapping import (WKV_MAX_CLUSTER, WKV_PATHS,
-                                          WKV_TC_ROWS, wkv_smem_plan)
+from repro_torch.core.gpu_mapping import (WKV_BWD_ROWS, WKV_MAX_CLUSTER,
+                                          WKV_PATHS, WKV_TC_ROWS,
+                                          wkv_smem_plan)
 from repro_torch.kernels import _build
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import wkv6_chunked, wkv6_ref
 
 DEFAULT_CHUNK = 128
 HEAD_DIMS = (32, 64, 128)
@@ -61,6 +73,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {"tensor_core": ("wkv6_tc_launch",
                            [_P] * 7 + [_I] * 5 + [_P]),
            "fma": ("wkv6_launch", [_P] * 7 + [_I] * 6 + [_P])}
+# the backward's C entry in csrc/wkv6_bwd.cu: r, k, v, w, u, dy, dstate,
+# dr, dk, dv, dw, du, scratch, B, S, H, K, rows, bf16, the stream
+BWD_ENTRY = ("wkv6_bwd_launch", [_P] * 13 + [_I] * 6 + [_P])
 
 
 @functools.lru_cache(maxsize=256)
@@ -129,9 +144,11 @@ def launch_plan(B: int, S: int, H: int, K: int, dtype: torch.dtype,
 
 
 def _lib(path: str):
-    """The C entry of ``path``'s kernel, argument types set once."""
-    name, argtypes = ENTRIES[path]
-    fn = getattr(_build.load("wkv6"), name)
+    """The C entry of ``path``'s kernel (``"backward"``: the backward's),
+    argument types set once."""
+    source, (name, argtypes) = (("wkv6_bwd", BWD_ENTRY) if path == "backward"
+                                else ("wkv6", ENTRIES[path]))
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -157,36 +174,37 @@ def _check(r, k, v, w_log, u) -> None:
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
     """Whether every operand lies on the CPU or on ``meta`` (a DTensor's
-    device is its local shard's): the plain version runs.  ``meta``
-    holds no data, so only the plain version can trace shapes there."""
+    device is its local shard's): a torch form runs, not a kernel."""
     return all(t.device.type in ("cpu", "meta") for t in ts)
 
 
-def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        w_log: torch.Tensor, u: torch.Tensor, *,
-        chunk: Optional[int] = None):
-    """r,k,v,w_log: [B,S,H,K]; u: [H,K].  Returns (y [B,S,H,K] in r's
-    dtype, final state [B,H,K,K] fp32).  On CUDA under grad mode, inputs
-    that need a gradient raise: the kernel has no backward, and a
-    detached result would train nothing without a word."""
-    _check(r, k, v, w_log, u)
-    B, S, H, K = r.shape
-    resolve_chunk(S, K, chunk)      # a bad plan fails on every device
-    ts = (r, k, v, w_log, u)
-    if _on_cpu(*ts):
-        return wkv_plain(r, k, v, w_log, u)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "wkv6 has no backward on CUDA: the kernel's result would carry "
-            "no gradient.  RWKV training waits for a wkv6 gradient "
-            "(ROADMAP.md, Queue 1: a wkv6 gradient)")
-    if r.device.type != "cuda" or any(t.device != r.device for t in ts):
+def _meta_chunk(S: int, chunk: Optional[int]) -> int:
+    """The chunk ``meta`` operands are traced at: the caller's (default
+    128) clamped to ``S``, down to a divisor of ``S``."""
+    c = min(chunk or DEFAULT_CHUNK, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _check_card(ts) -> None:
+    if ts[0].device.type != "cuda" or any(t.device != ts[0].device
+                                          for t in ts):
         raise ValueError("wkv6 runs on one CUDA device or the CPU: "
                          f"{[str(t.device) for t in ts]}")
+    K = ts[0].shape[-1]
     if K not in HEAD_DIMS:
         raise ValueError(f"head dim {K} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("wkv6 needs contiguous operands")
+
+
+def _launch(r, k, v, w_log, u, chunk: Optional[int]):
+    """One launch of the forward kernel on checked CUDA operands:
+    (y, final state)."""
+    B, S, H, K = r.shape
+    ts = (r, k, v, w_log, u)
+    _check_card(ts)
     aligned = all(t.data_ptr() % 16 == 0 for t in ts)
     route = launch_plan(B, S, H, K, r.dtype, aligned, chunk)
     path = route["path"]
@@ -208,5 +226,100 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
+def wkv_bwd(r, k, v, w_log, u, dy, dstate=None):
+    """One launch of the backward kernel (``csrc/wkv6_bwd.cu``) on CUDA
+    operands: (dr, dk, dv in r's dtype; dw_log, du in fp32).  ``dy`` is
+    y's gradient (made contiguous here: a group norm's backward may hand
+    it strided), ``dstate`` the final state's, or None for zero.  du is
+    summed over the batch here, each (b, h)'s sum from the kernel, in a
+    fixed order."""
+    B, S, H, K = r.shape
+    dy = dy.contiguous()
+    ts = (r, k, v, w_log, u, dy)
+    _check_card(ts)
+    if dy.shape != r.shape or dy.dtype != r.dtype:
+        raise TypeError(f"dy must match r: {tuple(dy.shape)} {dy.dtype}")
+    if dstate is not None:
+        dstate = dstate.to(torch.float32).contiguous()
+        _check_card((r, dstate))
+        if tuple(dstate.shape) != (B, H, K, K):
+            raise ValueError(f"dstate must be [B,H,K,K]: "
+                             f"{tuple(dstate.shape)}")
+    rows = WKV_BWD_ROWS[K]
+    chunks = -(-S // rows)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w_log)
+    du = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+    scratch = torch.empty((B * H, chunks + 1, K, K), dtype=torch.float32,
+                          device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _lib("backward")(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+        u.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        scratch.data_ptr(), B, S, H, K, rows,
+        int(r.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err} "
+                           f"({tuple(r.shape)}, rows {rows})")
+    wkv.bwd_launches += 1
+    return dr, dk, dv, dw, du.sum(0)
+
+
+def wkv_grad_plain(r, k, v, w_log, u, dy, dstate=None):
+    """The backward's plain version: ``torch.autograd.grad`` through
+    ``wkv6_ref`` (the exact recurrence, fp32) of y against ``dy`` and the
+    final state against ``dstate`` (None: zero).  Returns (dr, dk, dv,
+    dw_log, du)."""
+    ins = [t.detach().requires_grad_() for t in (r, k, v, w_log, u)]
+    with torch.enable_grad():
+        y, state = wkv6_ref(*ins)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, ins, grads)
+
+
+class WKV6(torch.autograd.Function):
+    """wkv6 under autograd on the card: the forward kernel, and the
+    backward kernel for the gradients of r, k, v, w_log and u."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, chunk):
+        y, state = _launch(r, k, v, w_log, u, chunk)
+        ctx.save_for_backward(r, k, v, w_log, u)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w_log, u = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        return (*wkv_bwd(r, k, v, w_log, u, dy, dstate), None)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        w_log: torch.Tensor, u: torch.Tensor, *,
+        chunk: Optional[int] = None):
+    """r,k,v,w_log: [B,S,H,K]; u: [H,K].  Returns (y [B,S,H,K] in r's
+    dtype, final state [B,H,K,K] fp32).  On CUDA under grad mode, with
+    an operand that needs a gradient, through ``WKV6``."""
+    _check(r, k, v, w_log, u)
+    B, S, H, K = r.shape
+    resolve_chunk(S, K, chunk)      # a bad plan fails on every device
+    ts = (r, k, v, w_log, u)
+    if _on_cpu(*ts):
+        if any(t.device.type == "meta" for t in ts):
+            return wkv6_chunked(r, k, v, w_log, u, _meta_chunk(S, chunk))
+        return wkv_plain(r, k, v, w_log, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return WKV6.apply(r, k, v, w_log, u, chunk)
+    return _launch(r, k, v, w_log, u, chunk)
+
+
 wkv.launches = 0
+wkv.bwd_launches = 0
 wkv.paths = dict.fromkeys(PATHS, 0)

@@ -42,9 +42,10 @@ import time
 import traceback
 
 OUT_DEFAULT = "experiments/dryrun_torch"
-# a sweep's limit for one cell's trace: the plain versions run on meta
-# DTensors op by op, and wkv6's is a loop over every position, so an
-# RWKV cell's full sequence takes far longer than its one-chunk pieces
+# a sweep's limit for one cell's trace, a guard: the plain versions run
+# on meta DTensors op by op; wkv6 traces its chunked form there, whose op
+# count does not grow with the sequence (kernels/wkv6/ops.py), so an
+# RWKV cell's full sequence traces in seconds, as the others do
 CELL_TIMEOUT_S = 600
 MESHES = {"single": ("single",), "multi": ("multi",),
           "both": ("single", "multi")}

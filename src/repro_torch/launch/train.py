@@ -1,22 +1,31 @@
 """Training launcher of the port (the reference's ``launch/train.py``,
 with its flags and ``--device``).
 
-CPU-friendly reduced configs by default; ``--full`` builds the
-published architecture, which on the port trains on one card for a
-model that fits there (qwen2-0.5b: 494,032,768 parameters; the step's
-state is ~5.9 GB: bf16 parameters and gradients, fp32 moments).
+``train(cfg, ...)`` trains any config, as ``serve.serve`` serves one;
+``main`` is the command line over it.  CPU-friendly reduced configs by
+default; ``--full`` builds the published architecture, which on the
+port trains on one card for a model that fits there (qwen2-0.5b:
+494,032,768 parameters, the step's state ~5.9 GB: bf16 parameters and
+gradients, fp32 moments; rwkv6-1.6b: 1,599,719,424 and ~19 GB, with
+``--remat``).  A model that does not fit at full depth trains at full
+width through ``train(dataclasses.replace(get_config(arch),
+num_layers=N), ...)``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 20 --seq 64                                  # reduced
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --full --steps 12 --batch 4 --seq 4096               # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --full --steps 12 --batch 4 --seq 4096 --remat
 
 On CUDA every forward and backward product of the step is an
-``spm_matmul`` launch and every prefill-form attention a
+``spm_matmul`` launch, every prefill-form attention a
 ``flash_attention`` launch (its backward, ``attention_grad``,
-recomputes the attention under autograd); an RWKV model raises
-(``wkv6`` has no backward).  The kernels are built before the first
-step.  The step deadline follows the
+recomputes the attention under autograd), and every RWKV layer's WKV a
+``wkv6`` forward launch and a ``csrc/wkv6_bwd.cu`` backward launch
+(with ``--remat`` the forward launches twice a layer: once in the step,
+once in the recompute).  The kernels are built before the first step.
+The step deadline follows the
 reference's recipe: 3 x the one-pass WCET bound (the weight pass over
 batch x seq tokens, tiled by ``tuning.model.kernel_pins``; forward,
 grad-wrt-input and grad-wrt-weight each stream every weight) x
@@ -28,8 +37,10 @@ over the steps after the first two, which pay the first calls), tokens
 per second, the model-FLOP share of the card's bf16 peak under two
 definitions (``model_flops``: 6 x params x tokens plus causal
 attention; the reference's ``analysis.flops.model_flops``: 6 x active
-params x tokens), the peak device memory, the kernel launches per step, the deadline summary and
-the card's name and power limit.  ``main`` returns them.
+params x tokens), the peak device memory, the kernel launches per step
+(spm_matmul by path, flash_attention, wkv6 by path and wkv6's
+backward), the deadline summary and
+the card's name and power limit.  ``train`` returns them.
 
 The loss is chunked every ``LOSS_CHUNK`` positions, where the
 reference's launcher takes 64: on the card 64 makes batch x 64-row
@@ -58,6 +69,7 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.spm_matmul import ops as spm_ops
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models.lm import RunOptions, param_count
 from repro_torch.obs import TraceRecorder, jitter_stats, write_chrome_trace
 from repro_torch.resilience.deadline import DeadlineMonitor
@@ -98,18 +110,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deadline = 3 x one-pass WCET bound x slack")
     ap.add_argument("--device", default="cuda",
                     help="cuda (an sm_90 card) or cpu")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each unit's forward in the backward")
     return ap
 
 
 def model_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step of a dense decoder: 6 x
-    parameters x tokens for the weight products (forward,
-    grad-wrt-input, grad-wrt-weight), plus causal attention's two
-    products over half the S x S pairs, forward and backward (3x), in
-    each of its layers."""
+    """Model FLOPs of one training step: 6 x parameters x tokens for the
+    weight products (forward, grad-wrt-input, grad-wrt-weight), plus
+    causal attention's two products over half the S x S pairs, forward
+    and backward (3x), in each attention layer (a hybrid's shared-block
+    applications; none in RWKV).  An MoE model's parameters count every
+    expert: ``reference_model_flops`` counts the active ones."""
     a = cfg.attention
+    # a hybrid model applies its shared attention block once a unit
+    layers = (cfg.num_layers // cfg.ssm.shared_attn_every
+              if cfg.family == "hybrid" else cfg.num_layers)
     attn = (3 * 2 * batch * a.num_heads * seq * seq * a.head_dim
-            * cfg.num_layers if a is not None else 0)
+            * layers if a is not None else 0)
     return 6.0 * param_count(cfg) * batch * seq + attn
 
 
@@ -120,19 +138,26 @@ def reference_model_flops(cfg, batch: int, seq: int) -> float:
         cfg, ShapeConfig("train", seq, batch, "train"))
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    args = build_parser().parse_args(argv)
-    dev = compat.resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = reduced_config(cfg, args)
-    tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=10,
-                       total_steps=args.steps,
-                       microbatch=args.microbatch)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size,
-                      global_batch=args.batch, seq_len=args.seq)
+def train(cfg, *, batch: int, seq: int, steps: int, lr: float = 1e-3,
+          remat: bool = False, device="cuda", microbatch: int = 0,
+          ckpt_dir: Optional[str] = None, deadline_ms: float = 0.0,
+          deadline_slack: float = 50.0, warmup_steps: int = 10,
+          donate: bool = False) -> dict:
+    """Train ``cfg`` (any config: a registered one, a reduced one, or
+    ``dataclasses.replace(get_config(arch), num_layers=N)``) for
+    ``steps`` steps of ``batch`` x ``seq`` Markov tokens on ``device``,
+    with AdamW at peak ``lr`` after ``warmup_steps`` of linear warm-up
+    and ``remat`` (each unit recomputed in the backward); ``donate``
+    updates the state in place (``Trainer.donate``).  Prints the banner and returns the losses, step times,
+    jitter, FLOP shares, peak memory, each step's kernel launches, the
+    deadline summary, the final state and the trainer."""
+    dev = compat.resolve_device(device)
+    tcfg = TrainConfig(learning_rate=lr, warmup_steps=warmup_steps,
+                       total_steps=steps, microbatch=microbatch)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=batch,
+                      seq_len=seq)
     opts = RunOptions(chunk_q=64, chunk_kv=64, loss_chunk=LOSS_CHUNK,
-                      remat=False)
+                      remat=remat)
 
     trace_path = os.environ.get("REPRO_TRACE")
     rec = TraceRecorder(time_unit="us") if trace_path else None
@@ -140,15 +165,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     # WCET-derived step deadline, the reference's recipe: the weight
     # pass over B*S tokens, tiled by the resolved kernel plan; the
     # forward+backward pass streams each weight ~3x, hence the 3x
-    tokens = args.batch * args.seq
-    prob = ModelProblem(args.arch, tokens, args.seq, 1,
-                        layers=0 if args.full else args.layers,
-                        d_model=args.d_model, vocab=args.vocab)
+    tokens = batch * seq
     n_p = param_count(cfg)
-    wcet_s = 3.0 * serve_step_wcet(tokens, cfg.d_model, n_p,
-                                   plan=kernel_pins(cfg, prob))
-    deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms > 0
-                  else wcet_s * args.deadline_slack)
+    wcet_s = 3.0 * serve_step_wcet(
+        tokens, cfg.d_model, n_p,
+        plan=kernel_pins(cfg, ModelProblem(cfg.name, tokens, seq, 1)))
+    deadline_s = (deadline_ms / 1e3 if deadline_ms > 0
+                  else wcet_s * deadline_slack)
     dmon = DeadlineMonitor(deadline_s=deadline_s, trace=rec)
 
     # each step's launches, read from the wrappers' counters, and its
@@ -157,35 +180,36 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     def counts():
         return {"spm_matmul": dict(spm_ops.matmul.paths),
-                "flash_attention": flash_ops.attention.launches}
+                "flash_attention": flash_ops.attention.launches,
+                "wkv6": dict(wkv_ops.wkv.paths),
+                "wkv6_bwd": wkv_ops.wkv.bwd_launches}
 
     last = counts()
 
     def on_metrics(step, metrics):
         now = counts()
         per_step.append({
-            "spm_matmul": {k: n - last["spm_matmul"][k]
-                           for k, n in now["spm_matmul"].items()},
-            "flash_attention": now["flash_attention"]
-            - last["flash_attention"]})
+            key: ({k: n - last[key][k] for k, n in now[key].items()}
+                  if isinstance(now[key], dict) else now[key] - last[key])
+            for key in now})
         last.update(now)
         grad_norms.append(float(metrics["grad_norm"]))
 
     if dev.type == "cuda":
         _build.build()
         torch.cuda.reset_peak_memory_stats(dev)
-    tr = Trainer(cfg, tcfg, dcfg, ckpt_dir=args.ckpt_dir, opts=opts,
+    tr = Trainer(cfg, tcfg, dcfg, ckpt_dir=ckpt_dir, opts=opts,
                  trace=rec, deadline=dmon, device=dev,
-                 on_metrics=on_metrics)
+                 on_metrics=on_metrics, donate=donate)
     last.update(counts())
-    hist = tr.run(args.steps)
+    hist = tr.run(steps)
 
     times = np.array(hist["step_time_s"])
     steady = times[2:] if len(times) > 2 else times
     js = jitter_stats(steady)
     p99 = float(np.percentile(steady, 99))
-    flops = model_flops(cfg, args.batch, args.seq)
-    ref_flops = reference_model_flops(cfg, args.batch, args.seq)
+    flops = model_flops(cfg, batch, seq)
+    ref_flops = reference_model_flops(cfg, batch, seq)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     ident = compat.device_identity() if dev.type == "cuda" else {}
@@ -195,7 +219,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           + (f", power limit {ident['power_limit_w']} W" if ident else "")
           + f"), {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
           f"vocab={cfg.vocab_size} {cfg.dtype}, {n_p:,} params, "
-          f"batch {args.batch} x seq {args.seq}")
+          f"batch {batch} x seq {seq}, remat {remat}")
     print(f"first loss {hist['loss'][0]:.4f} -> last "
           f"{hist['loss'][-1]:.4f} in {hist['wall_s'][0]:.1f}s; gradient "
           f"norm {grad_norms[0]:.4g} -> {grad_norms[-1]:.4g}")
@@ -236,6 +260,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "deadline": s, "n_params": n_p, "device": str(dev),
             "device_name": name, "identity": ident,
             "final_state": tr.final_state, "trainer": tr}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """The command line over ``train``: ``--full`` trains the published
+    config, else a reduced one (``--layers``, ``--d-model``,
+    ``--vocab``)."""
+    args = build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = reduced_config(cfg, args)
+    return train(cfg, batch=args.batch, seq=args.seq, steps=args.steps,
+                 lr=args.lr, remat=args.remat, device=args.device,
+                 microbatch=args.microbatch, ckpt_dir=args.ckpt_dir,
+                 deadline_ms=args.deadline_ms,
+                 deadline_slack=args.deadline_slack)
 
 
 if __name__ == "__main__":

@@ -12,18 +12,20 @@ What differs from the reference:
 * Every product with a weight matrix goes through ``spm_matmul``: its
   hand-written kernel for CUDA tensors, its plain version for CPU
   tensors.  ``tile`` pins the decode step's (bm, bn).
-* A WKV call with no carried state (every prefill) goes to the
-  ``wkv6`` kernel wrapper: the hand-written kernel on CUDA, its plain
-  version (the exact sequential recurrence) on the CPU.  With a carried
-  state (every decode step) the copies of ``wkv6_chunked`` /
-  ``wkv6_sequential`` below run as torch ops, as the reference routes
-  them: the TPU kernel takes no initial state.
+* A WKV call with no carried state (every prefill and every training
+  step) goes to the ``wkv6`` kernel wrapper: the hand-written kernels
+  on CUDA (forward, and under autograd the backward of
+  ``csrc/wkv6_bwd.cu``), the plain version (the exact sequential
+  recurrence) on the CPU, the chunked form on ``meta`` (the dry run).
+  With a carried state (every decode step) the copies of
+  ``wkv6_chunked`` / ``wkv6_sequential`` run as torch ops, as the
+  reference routes them: the TPU kernel takes no initial state.
 
-The chunked form factorizes the interval decay products
-exp(e_t - cw_j); the k-side exponent (-cw_j >= 0) is clamped at
-``_EXP_CLAMP`` to stay finite in fp32, as in the reference.  The
-returned WKV state is cast to x's dtype, so a bf16 model carries it
-between decode steps in bf16, as the reference does.
+The chunked form (``kernels/wkv6/ref.py``, re-exported here) factorizes
+the interval decay products exp(e_t - cw_j); the k-side exponent
+(-cw_j >= 0) is clamped at ``_EXP_CLAMP`` to stay finite in fp32, as in
+the reference.  The returned WKV state is cast to x's dtype, so a bf16
+model carries it between decode steps in bf16, as the reference does.
 """
 from __future__ import annotations
 
@@ -34,10 +36,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RWKVConfig
 from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6.ref import _EXP_CLAMP, wkv6_chunked  # noqa: F401
 from repro_torch.models.attention import linear
 from repro_torch.models.spec import Par
 
-_EXP_CLAMP = 30.0
 _GN_EPS = 64e-5
 
 Tile = Optional[Tuple[int, int]]
@@ -117,49 +119,6 @@ def wkv6_sequential(r, k, v, w_log, u, init_state=None):
         ys.append(torch.einsum("bhk,bhkv->bhv", rt, s + uu * kv))
         s = torch.exp(w_log[:, t].to(f32))[..., None] * s + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
-
-
-def wkv6_chunked(r, k, v, w_log, u, chunk: int, init_state=None):
-    """Chunked WKV6.  Shapes as in wkv6_sequential."""
-    B, S, H, K = r.shape
-    if S % chunk:
-        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
-    NC = S // chunk
-    f32 = torch.float32
-
-    def chunks(a):
-        return a.reshape(B, NC, chunk, H, K).to(f32)
-
-    rc, kc, vc, wc = chunks(r), chunks(k), chunks(v), chunks(w_log)
-    cw = torch.cumsum(wc, dim=2)          # inclusive sums of log-decay
-    e = cw - wc                           # exclusive
-    total = cw[:, :, -1]                  # [B,NC,H,K]
-
-    rq = rc * torch.exp(e)                                   # exp <= 0
-    kk = kc * torch.exp(torch.clamp(-cw, max=_EXP_CLAMP))    # clamped
-    A = torch.einsum("bclhk,bcmhk->bchlm", rq, kk)           # t=l, j=m
-    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=r.device), diagonal=-1)
-    A = torch.where(tril, A, torch.zeros((), dtype=f32, device=r.device))
-    diag = torch.einsum("bclhk,bclhk->bclh", rc * u.to(f32), kc)
-    y_intra = torch.einsum("bchlm,bcmhk->bclhk", A, vc)
-    y_intra = y_intra + diag[..., None] * vc
-
-    # chunk state contributions: sum_j exp(total - cw_j) k_j ^T v_j
-    kdec = kc * torch.exp(total[:, :, None] - cw)            # exp <= 0
-    cstate = torch.einsum("bclhk,bclhv->bchkv", kdec, vc)
-
-    s = (torch.zeros((B, H, K, K), dtype=f32, device=r.device)
-         if init_state is None else init_state.to(f32))
-    prev = []
-    for c in range(NC):
-        prev.append(s)
-        s = s * torch.exp(total[:, c])[..., None] + cstate[:, c]
-    prev = torch.stack(prev, dim=1)                          # [B,NC,H,K,V]
-
-    y_inter = torch.einsum("bclhk,bchkv->bclhv", rq, prev)
-    y = (y_intra + y_inter).reshape(B, S, H, K)
-    return y.to(r.dtype), s
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,12 @@ What differs from the reference:
   chunk count.
 * Softplus is ``logaddexp(x, 0)``, as ``jax.nn.softplus`` computes it
   (``F.softplus`` returns x itself above its threshold).
+* ``ssd_chunked`` masks the pairs above the diagonal before taking the
+  exp, where the reference masks after it.  The forward is the same
+  bits; but there ca_t - ca_j > 0 overflows to inf at full width (a
+  chunk of 256 sums hundreds of log-decays), and the backward through
+  the mask then takes 0 * inf = NaN: full-width zamba2's first training
+  step had no finite gradient.
 * ``mamba_decode`` returns the new states; the model's decode step
   copies them into its cache buffers.
 """
@@ -118,7 +124,10 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     seg = ca[:, :, :, None, :] - ca[:, :, None, :, :]  # [B,NC,L(t),L(j),H]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    seg = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exp: above the diagonal ca_t - ca_j > 0, whose
+    # exp overflows at full width, and 0 * inf would poison the backward
+    seg = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                float("-inf")))
     cb = torch.einsum("bctn,bcjn->bctj", Cc.float(), Bc.float())
     att = (cb[..., None] * seg).to(x.dtype)          # [B,NC,L,L,H]
     y_intra = torch.einsum("bctjh,bcjhp->bcthp", att, xc)

@@ -68,11 +68,24 @@ def global_norm(tree) -> torch.Tensor:
                           for _, leaf in tree_items(tree)))
 
 
+# elements of one slice of a donated leaf's update (its fp32
+# temporaries are a few times this, not the leaf's size)
+DONATE_SLICE = 1 << 24
+
+
 def adamw_update(grads: dict, opt_state: dict, params: dict,
                  tcfg: TrainConfig, lr_fn: Callable,
-                 gnorm: Optional[torch.Tensor] = None):
+                 gnorm: Optional[torch.Tensor] = None,
+                 donate: bool = False):
     """One AdamW step: (new params, new state, {"grad_norm", "lr"}).
-    ``gnorm`` is ``global_norm(grads)`` when the caller has it."""
+    ``gnorm`` is ``global_norm(grads)`` when the caller has it.
+
+    ``donate`` writes the new parameters and moments into the given
+    ones, a slice of the leading axis at a time, as the reference's
+    ``jax.jit(..., donate_argnums=(0, 1))`` lets XLA reuse their
+    buffers: the same bits (the update is elementwise), without a second
+    copy of the state and the fp32 temporaries of a whole leaf at
+    once."""
     count = opt_state["count"] + 1
     lr = lr_fn(opt_state["count"])
     gnorm = global_norm(grads) if gnorm is None else gnorm
@@ -95,9 +108,22 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
         p_new = (p.float() - lr * step).to(p.dtype)
         return p_new, m_new, v_new
 
+    leaves = zip(tree_items(params), tree_items(grads),
+                 tree_items(opt_state["m"]), tree_items(opt_state["v"]))
+    if donate:
+        with torch.no_grad():
+            for (_, p), (_, g), (_, m), (_, v) in leaves:
+                rows = (max(1, DONATE_SLICE * p.shape[0] // p.numel())
+                        if p.dim() and p.numel() else 1)
+                for i in range(0, p.shape[0] if p.dim() else 1, rows):
+                    sl = slice(i, i + rows) if p.dim() else ...
+                    for dst, src in zip((p[sl], m[sl], v[sl]),
+                                        upd(p[sl], g[sl], m[sl], v[sl])):
+                        dst.copy_(src)
+        return params, {"m": opt_state["m"], "v": opt_state["v"],
+                        "count": count}, {"grad_norm": gnorm, "lr": lr}
     out = {path: upd(p, g, m, v) for (path, p), (_, g), (_, m), (_, v)
-           in zip(tree_items(params), tree_items(grads),
-                  tree_items(opt_state["m"]), tree_items(opt_state["v"]))}
+           in leaves}
     part = lambda i: tree_from_items(params, {k: t[i]
                                               for k, t in out.items()})
     new_state = {"m": part(1), "v": part(2), "count": count}
@@ -144,7 +170,8 @@ def loss_and_grads(loss_fn: Callable, params: dict, batch: dict,
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    opts: Optional[lm_mod.RunOptions] = None):
+                    opts: Optional[lm_mod.RunOptions] = None,
+                    donate: bool = False):
     """Returns step(params, opt_state, batch, loss_scale=1.0) ->
     (params, opt_state, metrics); ``batch`` holds tensors on the
     parameters' device.  With ``tcfg.microbatch`` > 1 the batch is cut
@@ -157,7 +184,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     host before any update and returns ``params`` and ``opt_state``
     themselves, bit-exact, with ``metrics["finite"]`` False; the
     trainer retries the step.  A healthy step runs exactly the
-    unguarded update."""
+    unguarded update; with ``donate`` it writes it into ``params`` and
+    ``opt_state`` (``adamw_update``)."""
     opts = opts or lm_mod.DEFAULT_OPTS
     lr_fn = cosine_lr(tcfg)
     base_loss_fn = lambda p, b: lm_mod.train_loss(cfg, p, b, opts)
@@ -173,7 +201,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         if finite:
             params, opt_state, info = adamw_update(
-                grads, opt_state, params, tcfg, lr_fn, gnorm)
+                grads, opt_state, params, tcfg, lr_fn, gnorm, donate)
         else:
             info = {"grad_norm": gnorm, "lr": lr_fn(opt_state["count"])}
         return params, opt_state, {"loss": loss, "finite": finite, **info}

@@ -75,6 +75,10 @@ class Trainer:
     # training step walks the same record->warn ladder as serving
     # (train never sheds; the overrun summary is the deliverable)
     device: Union[str, torch.device] = "cuda"
+    # write each update into the state it reads, as the reference's
+    # jit donates it: a model whose state is most of the card's memory
+    # needs it; a caller that steps one state twice must not set it
+    donate: bool = False
 
     def __post_init__(self):
         self.device = compat.resolve_device(self.device)
@@ -86,7 +90,8 @@ class Trainer:
         if self.chaos is not None and self.chaos.trace is None:
             self.chaos.trace = self.trace
         self.nonfinite_steps: List[int] = []
-        self._step_fn = make_train_step(self.cfg, self.tcfg, self.opts)
+        self._step_fn = make_train_step(self.cfg, self.tcfg, self.opts,
+                                        donate=self.donate)
 
     # ------------------------------------------------------------ state
 

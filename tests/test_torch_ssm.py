@@ -259,3 +259,40 @@ def test_decode_steps_continue_the_forward():
         y, st = pssm.mamba_decode(pt, x[:, t:t + 1], s, st)
         outs.append(y)
     assert_kernel_close(torch.cat(outs, 1).numpy(), want.numpy(), "float32")
+
+
+def test_ssd_chunked_gradient_stays_finite_where_the_decays_overflow():
+    """At full width a chunk's cumulative log-decays reach hundreds, and
+    exp(ca_t - ca_j) above the diagonal overflows.  Both packages' SSD
+    forwards agree (the pairs are masked), but the reference masks
+    after the exp, so ``jax.grad`` takes 0 * inf = NaN there; the port
+    masks before it, and its gradient is finite (and where no decay
+    overflows, the same as the reference's)."""
+    rng = np.random.default_rng(7)
+    B, S, H, P, N, chunk = 1, 32, 2, 8, 4, 16
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    strong = -rng.uniform(10.0, 20.0, (B, S, H)).astype(np.float32)
+    weak = -rng.uniform(0.0, 0.5, (B, S, H)).astype(np.float32)
+
+    def jgrad(a):
+        return jax.grad(lambda xx, aa: jnp.sum(
+            jssm.ssd_chunked(xx, aa, jnp.asarray(Bm), jnp.asarray(Cm),
+                             chunk)[0] ** 2), argnums=(0, 1))(
+            jnp.asarray(x), jnp.asarray(a))
+
+    def pgrad(a):
+        xt, at = (torch.from_numpy(v).requires_grad_() for v in (x, a))
+        y, _ = pssm.ssd_chunked(xt, at, torch.from_numpy(Bm),
+                                torch.from_numpy(Cm), chunk)
+        want = jssm.ssd_chunked(jnp.asarray(x), jnp.asarray(a),
+                                jnp.asarray(Bm), jnp.asarray(Cm), chunk)[0]
+        assert_kernel_close(y.detach().numpy(), np.asarray(want), "float32")
+        return torch.autograd.grad((y ** 2).sum(), (xt, at))
+
+    ref_strong = jgrad(strong)
+    assert not all(np.isfinite(np.asarray(g)).all() for g in ref_strong)
+    assert all(torch.isfinite(g).all() for g in pgrad(strong))
+    for got, want in zip(pgrad(weak), jgrad(weak)):
+        assert_kernel_close(got.numpy(), np.asarray(want), "float32")

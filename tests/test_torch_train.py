@@ -25,7 +25,9 @@ magnitude, per leaf for trees) unless a test says otherwise:
   state (within 1e-5 of each loss).
 * the CUDA routes: a wrapper called on the card under grad mode with
   inputs that need a gradient returns a tensor with a ``grad_fn``
-  (spm_matmul, flash_attention) or raises (wkv6); serving's prefill
+  (spm_matmul, flash_attention, wkv6, whose backward is a launch of its
+  own); a reduced rwkv6 step launches wkv6's forward and backward
+  kernels once a layer (the forward twice with remat); serving's prefill
   still launches 169 spm_matmul and 24 flash_attention for qwen2.  The
   device checks are monkeypatched so that CPU tensors take the CUDA
   branch, whose launch is replaced by the plain version.
@@ -33,6 +35,8 @@ magnitude, per leaf for trees) unless a test says otherwise:
   weights' scale and the gradient's growth with depth; serving and the
   training launcher read one WCET bound.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -460,7 +464,8 @@ def test_model_flops_of_qwen2_at_the_training_shape():
 def _fake_card(monkeypatch):
     """CPU tensors take the wrappers' CUDA branches; each launch runs the
     plain version (detached, as a kernel's output is) and is counted as
-    the kernel counts it."""
+    the kernel counts it (wkv6's backward launch: its plain version,
+    ``wkv_grad_plain``)."""
     def mm_launch(a, b, trans_b, out_dtype, *pins):
         mm_ops.matmul.launches += 1
         mm_ops.matmul.paths["wgmma"] += 1
@@ -473,11 +478,27 @@ def _fake_card(monkeypatch):
         return fa_ops.attention_plain(q, k, v, causal=causal,
                                       window=window, scale=scale).detach()
 
+    def wkv_launch(r, k, v, w_log, u, chunk):
+        wkv_ops.wkv.launches += 1
+        wkv_ops.wkv.paths["tensor_core"] += 1
+        return tuple(t.detach() for t in wkv_ops.wkv_plain(r, k, v, w_log,
+                                                           u))
+
+    def wkv_backward(r, k, v, w_log, u, dy, dstate=None):
+        wkv_ops.wkv.bwd_launches += 1
+        return wkv_ops.wkv_grad_plain(r, k, v, w_log, u, dy, dstate)
+
     monkeypatch.setattr(mm_ops, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(mm_ops, "_launch", mm_launch)
     monkeypatch.setattr(fa_ops, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(fa_ops, "_launch", fa_launch)
     monkeypatch.setattr(wkv_ops, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(wkv_ops, "_launch", wkv_launch)
+    monkeypatch.setattr(wkv_ops, "wkv_bwd", wkv_backward)
+    monkeypatch.setattr(wkv_ops.wkv, "launches", 0)
+    monkeypatch.setattr(wkv_ops.wkv, "bwd_launches", 0)
+    monkeypatch.setattr(wkv_ops.wkv, "paths",
+                        dict.fromkeys(wkv_ops.wkv.paths, 0))
     monkeypatch.setattr(pattn, "_on_card", lambda t: True)
     monkeypatch.setattr(mm_ops.matmul, "launches", 0)
     monkeypatch.setattr(mm_ops.matmul, "paths",
@@ -582,13 +603,30 @@ def test_sdpa_grad_matches_autograd_of_the_plain_version(chunk_q, causal,
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-def test_card_wkv_under_grad_mode_raises(monkeypatch):
+def test_card_wkv_under_grad_mode_goes_through_the_function(monkeypatch):
+    """On the card under grad mode wkv6 takes ``WKV6``: one forward and,
+    in the backward, one backward launch, with the CPU path's gradients
+    (autograd through the exact recurrence); serving's route under
+    no_grad takes no Function."""
     _fake_card(monkeypatch)
-    x = torch.randn(1, 8, 2, 32, requires_grad=True)
-    u = torch.zeros(2, 32)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: a wkv6 gradient"):
-        wkv_ops.wkv(x, x.detach(), x.detach(), -torch.ones(1, 8, 2, 32), u)
+    g = torch.Generator().manual_seed(4)
+    r, k, v = (torch.randn(1, 8, 2, 32, generator=g, requires_grad=True)
+               for _ in range(3))
+    w = (-torch.rand(1, 8, 2, 32, generator=g)).requires_grad_()
+    u = torch.randn(2, 32, generator=g, requires_grad=True)
+    y, _ = wkv_ops.wkv(r, k, v, w, u)
+    assert y.grad_fn is not None
+    assert (wkv_ops.wkv.launches, wkv_ops.wkv.bwd_launches) == (1, 0)
+    dy = torch.randn(y.shape, generator=g)
+    got = torch.autograd.grad(y, (r, k, v, w, u), dy)
+    assert (wkv_ops.wkv.launches, wkv_ops.wkv.bwd_launches) == (1, 1)
+    want = torch.autograd.grad(wkv_ops.wkv_plain(r, k, v, w, u)[0],
+                               (r, k, v, w, u), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with torch.no_grad():
+        assert wkv_ops.wkv(r, k, v, w, u)[0].grad_fn is None
+    assert wkv_ops.wkv.bwd_launches == 1
 
 
 def test_card_train_step_launches_every_product(monkeypatch):
@@ -604,6 +642,29 @@ def test_card_train_step_launches_every_product(monkeypatch):
     # chunk's logits recomputed
     assert mm_ops.matmul.launches == 3 * 7 * L + 4 * chunks
     assert fa_ops.attention.launches == L
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_card_rwkv_train_step_launches_every_kernel(monkeypatch, remat):
+    """One training step of reduced rwkv6 on the faked card: every
+    product through spm_matmul (16 a layer), every layer's WKV through
+    the wkv6 forward kernel and the backward kernel, as reckoned from
+    the code: with remat each unit's forward runs again in the backward
+    (``torch.utils.checkpoint``), so the forward kernel launches twice a
+    layer, the backward once."""
+    _fake_card(monkeypatch)
+    _, cfg, np_params, batch = _setup("rwkv6-1.6b", seed=1)
+    tcfg = TrainConfig(**TCFG)
+    opts = dataclasses.replace(_opts(plm.RunOptions), remat=remat)
+    step = padamw.make_train_step(cfg, tcfg, opts)
+    step(*_port_state(cfg, np_params), _pbatch(batch))
+    L, chunks = cfg.num_layers, S // 16
+    fwd = 2 if remat else 1
+    assert mm_ops.matmul.launches == (fwd + 2) * 16 * L + 4 * chunks
+    assert wkv_ops.wkv.launches == fwd * L
+    assert wkv_ops.wkv.paths["tensor_core"] == fwd * L
+    assert wkv_ops.wkv.bwd_launches == L
+    assert fa_ops.attention.launches == 0
 
 
 def test_serve_prefill_launch_counts_are_unchanged(monkeypatch):
@@ -719,3 +780,29 @@ def test_attention_init_scale_is_the_references():
         g = dict(tree_items(got))[f"stage0/pos0/attn/{name}"]
         assert abs(float(g.float().std()) / float(w.std()) - 1) < 0.05
         assert abs(float(w.std()) * np.sqrt(w.shape[-2]) - 1) < 0.05
+
+
+def test_donated_update_equals_the_functional_one(monkeypatch):
+    """``make_train_step(..., donate=True)`` (the reference jit's
+    ``donate_argnums``) writes the update into the given parameters and
+    moments, a slice of each leaf's leading axis at a time (slices cut
+    small here), with the functional update's bits; a non-finite step
+    leaves them as they were."""
+    monkeypatch.setattr(padamw, "DONATE_SLICE", 100)
+    cfg, np_params, batch, tcfg = _step_setup()
+    want = padamw.make_train_step(cfg, tcfg, _opts(plm.RunOptions))(
+        *_port_state(cfg, np_params), _pbatch(batch))
+    params, opt = _port_state(cfg, np_params)
+    step = padamw.make_train_step(cfg, tcfg, _opts(plm.RunOptions),
+                                  donate=True)
+    before = [t.clone() for _, t in tree_items({"p": params, "o": opt})]
+    _, _, m = step(params, opt, _pbatch(batch), float("nan"))
+    assert not m["finite"]
+    assert all(torch.equal(a, b) for a, (_, b) in
+               zip(before, tree_items({"p": params, "o": opt})))
+    got = step(params, opt, _pbatch(batch))
+    assert got[0] is params and got[1]["m"] is opt["m"]
+    assert torch.equal(got[2]["loss"], want[2]["loss"])
+    for (pa, a), (pb, b) in zip(tree_items({"p": got[0], "o": got[1]}),
+                                tree_items({"p": want[0], "o": want[1]})):
+        assert pa == pb and torch.equal(a, b), pa
