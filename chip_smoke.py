@@ -37,12 +37,19 @@ Phases, one result line each; any failure exits non-zero:
             path's.  wkv6's backward (``csrc/wkv6_bwd.cu``) at
             rwkv6-1.6b's training shape [4, 4096, 32, 64] (bf16, the
             model's decays), the serve shape, an fp32 case with the
-            final state's gradient, a ragged S and K 32, 64 and 128,
-            each of dr, dk, dv, dw_log and du against ``wkv_grad_plain``
-            (``tolerance.check_wkv_grad``), twice for the same bits,
-            catching its planted faults (the adjoint not carried across
-            a chunk boundary, dw_log's decay off by one position, du
-            dropped).  Then the kernel's time, the plain version's, a
+            final state's gradient, a ragged S, more than one group of
+            a cluster and K 32, 64 and 128, each on the path
+            ``ops.bwd_dispatch`` routes it to (``tensor_core`` for
+            aligned bf16, ``fma`` else; the training shape on ``fma``
+            too), each of dr, dk, dv, dw_log and du against
+            ``wkv_grad_plain`` (``tolerance.check_wkv_grad``), twice for
+            the same bits, catching its planted faults (the adjoint not
+            carried across a chunk boundary, dw_log's decay off by one
+            position, du dropped, and at a cluster's group boundary the
+            state not carried into the next group and the adjoint not
+            carried into the previous one); the byte and the operations
+            bound, and at the training shape each path's step shares
+            (``WKV6_BWD_STEP_CLOCKS``).  Then the kernel's time, the plain version's, a
             PyTorch library call's where one computes the same function
             (a yardstick the port never calls) and the bound from the
             datasheet rates.
@@ -191,8 +198,9 @@ Phases, one result line each; any failure exits non-zero:
             remat), counters zeroed just before and read just after:
             every step must launch spm_matmul by path, wkv6's forward
             kernel (twice a layer: the step and remat's recompute) and
-            its backward kernel (once a layer) as reckoned from the
-            code; the last loss and the first step's batch's under the
+            its backward kernel (once a layer, every launch on the
+            ``tensor_core`` path: ``wkv.bwd_paths``) as reckoned from
+            the code; the last loss and the first step's batch's under the
             trained parameters below the first; step ms (median, p99,
             CoV), tokens/s, the model-FLOP shares, peak memory and
             overruns printed; one more step traced by kernel family.
@@ -263,8 +271,11 @@ and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
 any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``,
 phase 11's record to ``chiprun_out/chip_smoke_multidevice.json``.
-``python3 chip_smoke.py 9`` runs phases 1, 2 and 9 only and prints no
-result lines (``chiprun_out/chip_smoke_train.json``); ``python3
+``python3 chip_smoke.py 3`` runs phases 1 and 2 and phase 3's wkv6
+backward cases only and prints no result lines
+(``chiprun_out/chip_smoke_wkv_bwd.json``); ``python3 chip_smoke.py 9``
+runs phases 1, 2 and 9 only, likewise
+(``chiprun_out/chip_smoke_train.json``); ``python3
 chip_smoke.py 10`` runs phases 1 and 10 only, likewise
 (``chiprun_out/chip_smoke_dryrun.json``); ``python3 chip_smoke.py 11``
 runs phases 1, 2 and 11 only, likewise
@@ -288,7 +299,8 @@ import torch.nn.functional as F  # noqa: E402
 
 # H100 SXM datasheet rates (dense): the bound of each kernel case
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              "tf32": 495e12}
 # card vs CPU through the reduced fp32 layers: differently ordered sums
 # in every product, and CUDA's and the CPU's exp/rsqrt
 MODEL_TOL = 1e-4
@@ -896,15 +908,19 @@ def run_wkv(dev, gen):
 def wkv_bwd_cases():
     """(label, B, S, H, K, dtype, decay, with dS_T, main_path): the
     backward at rwkv6-1.6b's training shape (TRAIN_4K's sequence, batch
-    cut to 4) and at the serve shape, an fp32 case with the final
-    state's gradient, a ragged S, and K 32, 64 (the reference's
-    conformance shapes) and 128."""
+    cut to 4; run on its routed path and again on the ``fma`` path) and
+    at the serve shape, an fp32 case with the final state's gradient, a
+    ragged S, more than one group of a cluster (S 1,100 at B * H 2; S
+    600 at K 32, ragged too), and K 32, 64 (the reference's conformance
+    shapes) and 128."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
     cases = [("train", TRAIN_B, TRAIN_S, 32, 64, bf, "model", False, True),
              ("serve shape", 4, 256, 32, 64, bf, "model", False, False),
              ("fp32, dS_T", 2, 256, 4, 64, f32, "model", True, False),
              ("ragged S=100", 2, 100, 2, 64, bf, "model", True, False),
+             ("groups, S=1100", 1, 1100, 2, 64, bf, "model", True, False),
+             ("K=32, S=600", 2, 600, 4, 32, bf, "model", True, False),
              ("K=128", 2, 256, 4, 128, bf, "model", False, False)]
     for b, s, h, k, _, dt in CONFORMANCE_SHAPES["wkv6"]:
         cases.append(("conformance", b, s, h, k, getattr(torch, dt),
@@ -913,13 +929,18 @@ def wkv_bwd_cases():
 
 
 def run_wkv_bwd(dev, gen):
-    """wkv6's backward kernel (``csrc/wkv6_bwd.cu``) against its plain
-    version (``ops.wkv_grad_plain``: autograd through the exact
-    recurrence) gradient by gradient (``tolerance.check_wkv_grad``), run
-    twice for the same bits, with the backward's planted faults caught;
-    then its time, the plain version's (CUDA events around the checked
-    call: autograd's loop over every position is not captured) and the
-    bound."""
+    """wkv6's backward (``csrc/wkv6_bwd.cu``) against its plain version
+    (``ops.wkv_grad_plain``: autograd through the exact recurrence)
+    gradient by gradient (``tolerance.check_wkv_grad``), each case on
+    the path ``ops.bwd_dispatch`` routes it to (checked against the
+    wrappers' path counts) and the training shape on the ``fma`` path
+    too: run twice for the same bits, with the backward's planted faults
+    caught (the two at a cluster's group boundary where the
+    ``tensor_core`` route walks more than one group; the forced ``fma``
+    run is held to the same five); then its time, the plain version's
+    (CUDA events around the checked call: autograd's loop over every
+    position is not captured), the byte and the operations bound, and
+    at the training shape each path's step shares (``wkv6_bwd_steps``)."""
     from repro_torch.core.gpu_mapping import WKV_BWD_ROWS
     from repro_torch.kernels.tolerance import (allowance, check_wkv_grad,
                                                wkv_bwd_planted_faults,
@@ -931,16 +952,9 @@ def run_wkv_bwd(dev, gen):
         dy = torch.randn(B, S, H, K, generator=gen, device=dev).to(dt)
         ds = (0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
               if with_ds else None)
-        before = ops.wkv.bwd_launches
-        got = ops.wkv_bwd(*args, dy, ds)
-        torch.cuda.synchronize()
-        if ops.wkv.bwd_launches != before + 1:
-            fail(f"wkv6 backward {label}: the wrapper counted "
-                 f"{ops.wkv.bwd_launches - before} launches")
-        again = ops.wkv_bwd(*args, dy, ds)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"wkv6 backward {label}: two runs differ")
-        del again
+        route = ops.bwd_dispatch(S, K, dt, True, B * H)
+        tc = ops.bwd_dispatch(S, K, torch.bfloat16, True, B * H)
+        group = tc["rows"] * tc["cluster"] if tc["groups"] > 1 else None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -948,56 +962,232 @@ def run_wkv_bwd(dev, gen):
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
-        ratio, diff, shares = check_wkv_grad(got, want, dt)
-        if not (all(torch.isfinite(g).all() for g in got) and ratio < 1):
-            fail(f"wkv6 backward {label}: error at {ratio:.3f} of its "
-                 f"allowance ({shares})")
-        L = WKV_BWD_ROWS[K]
-        faults = {name: check_wkv_grad(f, want, dt)[0]
-                  for name, f in wkv_bwd_planted_faults(
-                      ops.wkv_bwd, *args, dy, ds,
-                      L if S > L else S // 2).items()}
-        for name, fault in faults.items():
-            if not fault > 1:
-                fail(f"wkv6 backward {label}: the check misses '{name}' "
-                     f"({fault:.3f} of its allowance)")
+        runs = [(route["path"], None)]
+        if main and route["path"] != "fma":
+            runs.append(("fma", ops.bwd_dispatch(S, K, torch.float32)))
+        for path, force in runs:
+            def bwd(*a, force=force):
+                if force is None:
+                    return ops.wkv_bwd(*a)
+                return ops._bwd_launch(force, *a)
+            before = dict(ops.wkv.bwd_paths)
+            got = bwd(*args, dy, ds)
+            torch.cuda.synchronize()
+            if launched_path(ops.wkv.bwd_paths, before) != path:
+                fail(f"wkv6 backward {label}: launched "
+                     f"{ops.wkv.bwd_paths} from {before}, expected {path}")
+            again = bwd(*args, dy, ds)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"wkv6 backward {label} ({path}): two runs differ")
+            del again
+            ratio, diff, shares = check_wkv_grad(got, want, dt)
+            if not (all(torch.isfinite(g).all() for g in got) and ratio < 1):
+                fail(f"wkv6 backward {label} ({path}): error at {ratio:.3f} "
+                     f"of its allowance ({shares})")
+            L = tc["rows"] if path == "tensor_core" else WKV_BWD_ROWS[K]
+            faults = {name: check_wkv_grad(f, want, dt)[0]
+                      for name, f in wkv_bwd_planted_faults(
+                          bwd, *args, dy, ds, L if S > L else S // 2,
+                          group).items()}
+            for name, fault in faults.items():
+                if not fault > 1:
+                    fail(f"wkv6 backward {label} ({path}): the check misses "
+                         f"'{name}' ({fault:.3f} of its allowance)")
+            atol_frac, rtol = allowance(torch.float32, "wkv6_bwd")
+            used = route if force is None else force
+            row = {"kernel": "wkv6_bwd", "case": label,
+                   "shape": [B, S, H, K], "path": path,
+                   "rows": used["rows"], "cluster": used["cluster"],
+                   "groups": used["groups"],
+                   "segments": used.get("segments"), "dtype": str(dt),
+                   "decay": decay, "dstate": with_ds, "deterministic": True,
+                   "err_ratio": ratio, "err_shares": shares,
+                   "fault_ratio": min(faults.values()), "faults": faults,
+                   "max_abs_err": diff, "fp32_rtol": rtol,
+                   "fp32_atol_frac": atol_frac,
+                   "main_path": main and force is None}
+            ins = args + (dy,) + ((ds,) if with_ds else ())
+            nbytes = (sum(t.numel() * t.element_size() for t in ins)
+                      + sum(g.numel() * g.element_size() for g in got))
+            copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
+            sets = [args + (dy, ds)] + [
+                tuple(None if t is None else t.clone()
+                      for t in args + (dy, ds)) for _ in range(copies - 1)]
+            del got
+            row["ms"] = time_ms(bwd, sets, min_reps=5)
+            row["plain_ms"] = plain_ms
+            row["library_ms"] = None    # no one PyTorch call computes it
+            # five [K, K] products a row: the state update, S dy, dS v,
+            # k dS and r^T dy; each input read once, each gradient written
+            # once.  fma takes them at the fp32 rate; tensor_core on
+            # mma.sync in tf32, k dS (dv's) in one pass and the other four
+            # in three (an operand split in two), 13 passes for 5 products
+            flops, rate = ((10 * B * S * H * K * K, torch.float32)
+                           if path == "fma"
+                           else (26 * B * S * H * K * K, "tf32"))
+            row["bytes_bound_ms"] = bound(nbytes, 0, rate)[0]
+            row["ops_bound_ms"] = bound(0, flops, rate)[0]
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, rate)
+            if main:
+                row["step_shares"] = wkv_bwd_step_shares(args, dy, path,
+                                                         used)
+            if main and path == "tensor_core":
+                row["design_ms"] = wkv_bwd_design_ms(bwd, sets, used)
+            del sets
+            rows.append(row)
+            print(f"  wkv6_bwd {label:14s} B{B} S{S} H{H} K{K} "
+                  f"{str(dt)[6:]} {decay} decay{', dS_T' if with_ds else ''}"
+                  f", {path}, {used['rows']}-row chunks, cluster "
+                  f"{used['cluster']} x {used['groups']} groups: err "
+                  f"{ratio:.3f} of allowance ("
+                  + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
+                  + "; faults " + ", ".join(f"{n} {f:.1f}"
+                                            for n, f in faults.items())
+                  + f")  max abs {diff:.2e}  kernel {row['ms']:.4f} ms  "
+                  f"plain {row['plain_ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+                  f"{row['bytes_bound_ms']:.4f}, operations "
+                  f"{row['ops_bound_ms']:.4f}); library: none", flush=True)
+            if "design_ms" in row:
+                print("    wkv6_bwd tensor_core design choices at this "
+                      "shape, timed in turn (ms): " + ", ".join(
+                          f"{n} {v:.4f}" for n, v in row["design_ms"].items()),
+                      flush=True)
+            if main:
+                print(f"    wkv6_bwd {path} step shares of a block's cycles "
+                      "(clock64, WKV6_BWD_STEP_CLOCKS build): " + ", ".join(
+                          f"{n} {v:.3f}" if v < 1 else f"{n} {v:,.0f}"
+                          for n, v in row["step_shares"].items()),
+                      flush=True)
         del want
-        atol_frac, rtol = allowance(torch.float32, "wkv6_bwd")
-        row = {"kernel": "wkv6_bwd", "case": label, "shape": [B, S, H, K],
-               "rows": L, "dtype": str(dt), "decay": decay,
-               "dstate": with_ds, "deterministic": True,
-               "err_ratio": ratio, "err_shares": shares,
-               "fault_ratio": min(faults.values()), "faults": faults,
-               "max_abs_err": diff, "fp32_rtol": rtol,
-               "fp32_atol_frac": atol_frac, "main_path": main}
-        ins = args + (dy,) + ((ds,) if with_ds else ())
-        nbytes = (sum(t.numel() * t.element_size() for t in ins)
-                  + sum(g.numel() * g.element_size() for g in got))
-        copies = max(1, min(8, math.ceil(2 * L2_BYTES / nbytes)))
-        sets = [args + (dy, ds)] + [
-            tuple(None if t is None else t.clone()
-                  for t in args + (dy, ds)) for _ in range(copies - 1)]
-        del got
-        row["ms"] = time_ms(lambda *a: ops.wkv_bwd(*a), sets, min_reps=5)
-        del sets
-        row["plain_ms"] = plain_ms
-        row["library_ms"] = None    # no one PyTorch call computes it
-        # five [K, K] products a row: the forward walk's state update,
-        # S dy, dS v, k dS and r^T dy
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, 10 * B * S * H * K * K, torch.float32)
-        rows.append(row)
-        print(f"  wkv6_bwd {label:14s} B{B} S{S} H{H} K{K} {str(dt)[6:]} "
-              f"{decay} decay{', dS_T' if with_ds else ''}, {L}-row "
-              f"chunks: err {ratio:.3f} of allowance ("
-              + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
-              + "; faults " + ", ".join(f"{n} {f:.1f}"
-                                        for n, f in faults.items())
-              + f")  max abs {diff:.2e}  kernel {row['ms']:.4f} ms  plain "
-              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}); library: none", flush=True)
         release()
     return rows
+
+
+def wkv_bwd_design_ms(bwd, sets, route):
+    """The ``tensor_core`` backward on ``route`` timed against the two
+    choices its design rests on, in turn in this run: the wrapper's
+    library (gradient kernels compiled for clusters of up to 2 where the
+    cluster is that small), the same route at the largest cluster
+    (``_bwd_launch``), and the library whose gradient kernels are
+    compiled for clusters of up to 8 alone (``wkv6_bwd_cmax8``) at the
+    route's cluster, which must give the wrapper's bits; then the
+    wrapper's again, for the spread."""
+    import ctypes
+
+    from repro_torch.core.gpu_mapping import WKV_MAX_CLUSTER
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import ops
+    lib = _build.load("wkv6_bwd_cmax8")
+    name, argtypes = ops.BWD_ENTRIES["tensor_core"]
+    launch = getattr(lib, name)
+    launch.argtypes = argtypes
+    launch.restype = ctypes.c_int
+
+    def cmax8(r, k, v, w, u, dy, ds):
+        B, S, H, K = r.shape
+        outs = [torch.empty_like(r) for _ in range(3)] + [torch.empty_like(w)]
+        du = torch.empty(B * H, route["cluster"] * route["groups"], K,
+                         device=r.device)
+        scratch = torch.empty(B * H * (route["groups"] + route["segments"])
+                              * K * (K + 1), device=r.device)
+        err = launch(*(t.data_ptr() for t in (r, k, v, w, u, dy)),
+                     None if ds is None else ds.data_ptr(),
+                     *(t.data_ptr() for t in outs), du.data_ptr(),
+                     scratch.data_ptr(), B, S, H, K, route["rows"],
+                     route["cluster"], route["segments"],
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"wkv6 backward (wkv6_bwd_cmax8): launch failed ({err})")
+        return (*outs[:3], outs[3], du.sum(1).view(B, H, K).sum(0))
+
+    want, got = bwd(*sets[0]), cmax8(*sets[0])
+    if not all(torch.equal(a, b) for a, b in zip(want, got)):
+        fail("wkv6 backward: the wkv6_bwd_cmax8 build's bits differ")
+    del want, got
+    chunks = -(-sets[0][0].shape[1] // route["rows"])
+    wide = min(WKV_MAX_CLUSTER, chunks)
+    groups = -(-chunks // wide)
+    wide_route = dict(route, cluster=wide, groups=groups,
+                      segments=min(route["segments"], groups))
+    out = {f"cluster {route['cluster']}": time_ms(bwd, sets, min_reps=5)}
+    out[f"cluster {wide}"] = time_ms(
+        lambda *a: ops._bwd_launch(wide_route, *a), sets, min_reps=5)
+    out[f"cluster {route['cluster']}, cmax8 build"] = time_ms(
+        cmax8, sets, min_reps=5)
+    out[f"cluster {route['cluster']} again"] = time_ms(bwd, sets, min_reps=5)
+    return out
+
+
+WKV_BWD_STEPS = {
+    "tensor_core": ("loads", "scan", "kd, r exp2(e), g, r u k",
+                    "contributions, dy v^T", "first cluster barrier",
+                    "folds", "second cluster barrier", "k', r~",
+                    "diagonal sub-tiles, A", "dr, dk", "kd, scan sums",
+                    "dv, dw, du"),
+    "fma": ("forward: loads", "forward: cumsum, decayed keys",
+            "forward: state update", "loads", "cumsum, Q, g, r u k",
+            "A, dy.v", "dr", "dk", "dw, du", "decayed r and k", "dv",
+            "dS update")}
+
+
+def wkv_bwd_step_shares(args, dy, path, route):
+    """Each step's share of the cycles of ``path``'s gradient kernel's
+    blocks on ``args``, the cycles of a block (and on ``tensor_core``
+    of a states-launch block), from the ``wkv6_bwd_steps`` build
+    (thread 0 of each block reads clock64 as each step ends).
+    Launched through that library's own C entries: the wrappers' counts
+    do not move."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import ops
+    lib = _build.load("wkv6_bwd_steps")
+    name, argtypes = ops.BWD_ENTRIES[path]
+    launch = getattr(lib, name)
+    launch.argtypes = argtypes
+    launch.restype = ctypes.c_int
+    read = lib.wkv6_bwd_step_clocks
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    r = args[0]
+    B, S, H, K = r.shape
+    outs = [torch.empty_like(r) for _ in range(3)] + [torch.empty_like(args[3])]
+    if path == "tensor_core":
+        du = torch.empty(B * H, route["cluster"] * route["groups"], K,
+                         device=r.device)
+        scratch = torch.empty(B * H * (route["groups"] + route["segments"])
+                              * K * (K + 1), device=r.device)
+        extra = (route["cluster"], route["segments"])
+    else:
+        du = torch.empty(B, H, K, device=r.device)
+        scratch = torch.empty(B * H * (-(-S // route["rows"]) + 1) * K * K,
+                              device=r.device)
+        extra = (int(r.dtype == torch.bfloat16),)
+    n_tc, n_fma = (len(WKV_BWD_STEPS[p]) for p in ("tensor_core", "fma"))
+    states = n_tc + n_fma       # the slots of csrc/wkv6_bwd.cu's counters
+    counts = (ctypes.c_ulonglong * (states + 4))()
+    for _ in range(2):          # the first run warms up
+        if read(counts):
+            fail("wkv6 backward step clocks: read failed")
+        err = launch(*(t.data_ptr() for t in args), dy.data_ptr(), None,
+                     *(t.data_ptr() for t in outs), du.data_ptr(),
+                     scratch.data_ptr(), B, S, H, K, route["rows"], *extra,
+                     torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err:
+            fail(f"wkv6 backward step clocks: launch failed ({err})")
+    if read(counts):
+        fail("wkv6 backward step clocks: read failed")
+    first, blocks = ((0, states + 1) if path == "tensor_core"
+                     else (n_tc, states + 2))
+    steps = WKV_BWD_STEPS[path]
+    total = sum(counts[first:first + len(steps)])
+    shares = {n: counts[first + i] / total for i, n in enumerate(steps)}
+    shares["cycles per block"] = total / counts[blocks]
+    if path == "tensor_core":
+        shares["states cycles per block"] = counts[states] / counts[states + 3]
+    return shares
 
 
 WKV_STEPS = ("w landed", "scan, r k v landed", "exp2(total), k', diagonal",
@@ -1858,7 +2048,7 @@ def check_serve_paths(arch, launches, paths, plan, tuned=False):
     if paths["spm_matmul"] != expect_paths:
         fail(f"{arch}: spm_matmul paths {paths['spm_matmul']}, expected "
              f"{expect_paths}")
-    if paths["wkv6_bwd"]["backward"]:
+    if sum(paths["wkv6_bwd"].values()):
         fail(f"{arch}: serving launched wkv6's backward kernel")
     for name in ("flash_attention", "wkv6"):
         got = paths[name]
@@ -2445,6 +2635,7 @@ def phase_train_family(dev, arch, layers, seq, steps, remat, warmup,
     wkv_layers = cfg.num_layers if cfg.rwkv is not None else 0
     want_flash = fwd * attention_applications(cfg)
     want_wkv = {"tensor_core": fwd * wkv_layers, "fma": 0}
+    want_bwd = {"tensor_core": wkv_layers, "fma": 0}
     loss, js = res["loss"], res["jitter"]
     print(f"phase 9{part} train: {arch} at full width, {cfg.num_layers} "
           f"layers, bf16, batch {TRAIN_B} x {seq}, {steps} steps, remat "
@@ -2461,17 +2652,18 @@ def phase_train_family(dev, arch, layers, seq, steps, remat, warmup,
           f"{res['deadline']['overruns']}", flush=True)
     print(f"phase 9{part} train: launches per step {res['launches_per_step'][-1]}"
           f" (reckoned: spm_matmul {want}, flash_attention {want_flash}, "
-          f"wkv6 {want_wkv}, wkv6 backward {wkv_layers})", flush=True)
+          f"wkv6 {want_wkv}, wkv6 backward {want_bwd}; the run's backward "
+          f"launches by path {paths['wkv6_bwd']})", flush=True)
     if not all(map(math.isfinite, loss)):
         fail(f"{arch}: non-finite losses: {loss}")
     for i, st in enumerate(res["launches_per_step"]):
         if (st["spm_matmul"] != want or st["flash_attention"] != want_flash
-                or st["wkv6"] != want_wkv or st["wkv6_bwd"] != wkv_layers):
+                or st["wkv6"] != want_wkv or st["wkv6_bwd"] != want_bwd):
             fail(f"{arch} train step {i + 1} launched {st}")
     launches = {"spm_matmul": sum(paths["spm_matmul"].values()),
                 "flash_attention": sum(paths["flash_attention"].values()),
                 "wkv6": sum(paths["wkv6"].values()),
-                "wkv6_bwd": paths["wkv6_bwd"]["backward"]}
+                "wkv6_bwd": sum(paths["wkv6_bwd"].values())}
     # the last loss must be below the first, and so must the first
     # step's batch's under the trained parameters, as in 9(c)
     tr, state = res["trainer"], res["final_state"]
@@ -3162,7 +3354,7 @@ def path_counts():
     return {"spm_matmul": dict(mm_ops.matmul.paths),
             "flash_attention": dict(fa_ops.attention.paths),
             "wkv6": dict(wkv_ops.wkv.paths),
-            "wkv6_bwd": {"backward": wkv_ops.wkv.bwd_launches}}
+            "wkv6_bwd": dict(wkv_ops.wkv.bwd_paths)}
 
 
 def reset_launches():
@@ -3174,7 +3366,7 @@ def reset_launches():
     wkv_ops.wkv.launches = 0
     wkv_ops.wkv.bwd_launches = 0
     for counts in (mm_ops.matmul.paths, fa_ops.attention.paths,
-                   wkv_ops.wkv.paths):
+                   wkv_ops.wkv.paths, wkv_ops.wkv.bwd_paths):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -3237,6 +3429,19 @@ def phase_train_phases(dev):
 
 
 def main():
+    if sys.argv[1:] == ["3"]:
+        # wkv6's backward cases of phase 3 alone, after the device and the
+        # build: no result lines
+        os.environ["REPRO_AUTOTUNE"] = "0"
+        dev, _ = phase_device()
+        phase_build()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rows = run_wkv_bwd(dev, gen)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_wkv_bwd.json").write_text(json.dumps(
+            rows, indent=1, default=str))
+        return
     if sys.argv[1:] == ["11"]:
         # the multi-device layer and the wide serves alone, after the
         # device and the build: no result lines

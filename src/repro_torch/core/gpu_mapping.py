@@ -65,7 +65,9 @@ WKV_TC_PAD = 8          # its row padding, in elements
 WKV_MAX_CLUSTER = 8     # its blocks per cluster, at most
 WKV_PATHS = ("tensor_core", "fma")
 WKV_BWD_THREADS = 256   # csrc/wkv6_bwd.cu: threads of a block
-WKV_BWD_ROWS = {32: 64, 64: 32, 128: 16}   # its compiled chunk rows
+WKV_BWD_ROWS = {32: 64, 64: 32, 128: 16}   # its fma path's chunk rows
+WKV_BWD_TC_ROWS = {32: 32, 64: 32, 128: 16}   # its tensor-core path's
+WKV_BWD_TC_PAD = 8      # tensor-core path: row padding, in elements
 
 # csrc/flash_attention.cu's layouts (the kernels' constants; tests read
 # them back)
@@ -184,21 +186,53 @@ def wkv_smem_plan(chunk: int, K: int, chip: GPUChip = H100, *,
             "blocks_per_sm": blocks_per_sm(need, threads, chip)}
 
 
-def wkv_bwd_smem_plan(K: int, chip: GPUChip = H100) -> dict:
-    """Shared-memory feasibility of one ``csrc/wkv6_bwd.cu`` block (one
-    (b, h), chunks of ``WKV_BWD_ROWS[K]`` rows L) and the blocks one SM
-    holds.  In fp32: r, k, v, dy, the cumulative log-decay, a = r (S dy)
-    and a - k (dS v) [L, K + 1] each (rows padded by one against bank
-    conflicts); the chunk's incoming state and the carried adjoint
-    [K, K + 1]; the intra-chunk A and dy . v [L, L + 1]; g and r u k per
-    row; the total decay, u, the boundary term Q and du per channel.
-    ``bwd_smem_floats`` in the source is the same sum."""
-    L = WKV_BWD_ROWS[K]
-    need = 4 * (7 * L * (K + 1) + 2 * K * (K + 1) + 2 * L * (L + 1)
-                + 2 * L + 4 * K)
+def wkv_bwd_smem_plan(K: int, chip: GPUChip = H100, *, path: str = "fma",
+                      rows: int = 0, states: bool = False) -> dict:
+    """Shared-memory feasibility of one ``csrc/wkv6_bwd.cu`` block and
+    the blocks one SM holds.
+
+    ``fma`` (one (b, h), chunks of ``WKV_BWD_ROWS[K]`` rows L): in fp32
+    r, k, v, dy, the cumulative log-decay, a = r (S dy) and a - k (dS v)
+    [L, K + 1] each (rows padded by one against bank conflicts); the
+    chunk's incoming state and the carried adjoint [K, K + 1]; the
+    intra-chunk A and dy . v [L, L + 1]; g and r u k per row; the total
+    decay, u, the boundary term Q and du per channel.
+    ``bwd_smem_floats`` in the source is the same sum.
+
+    ``tensor_core`` (one chunk of ``rows`` rows L, default
+    ``WKV_BWD_TC_ROWS[K]``; ``TcLayout`` in the source is the same sum),
+    rows padded by ``WKV_BWD_TC_PAD`` elements (P = K + pad, PL = L +
+    pad): in fp32 [L, P] the cumulative log2-decay, the diagonal
+    sub-tiles' dr and dk (later a = r dr and a - k dk) and two derived
+    operands (kd and r exp2(e), then the anchored k and r, then kd);
+    [K, P] the state and the adjoint (the chunk's contributions, which
+    the cluster folds in place into S_in and dS_out); [L, PL] dy v^T and
+    A^T; per channel exp2(total), u and Q; per row g and r u k; in bf16
+    r, k, v and dy [L, P].  ``states=True``: the states launch's block
+    (``StLayout``): fp32 the log-decay and kd [L, P] and exp2(total);
+    bf16 k and v [L, P].
+    ``resident``: the gradient launch's blocks an SM (two where two fit:
+    its launch bounds hold it to 128 registers a thread there)."""
+    if path == "fma":
+        L = WKV_BWD_ROWS[K]
+        need = 4 * (7 * L * (K + 1) + 2 * K * (K + 1) + 2 * L * (L + 1)
+                    + 2 * L + 4 * K)
+    elif path == "tensor_core":
+        L = rows or WKV_BWD_TC_ROWS[K]
+        P, PL = K + WKV_BWD_TC_PAD, L + WKV_BWD_TC_PAD
+        if states:
+            need = 4 * (2 * L * P + K) + 2 * 2 * L * P
+        else:
+            need = (4 * (5 * L * P + 2 * K * P + 2 * L * PL + 3 * K + 2 * L)
+                    + 2 * 4 * L * P)
+    else:
+        raise ValueError(f"path {path!r} not in {WKV_PATHS}")
+    resident = blocks_per_sm(need, WKV_BWD_THREADS, chip)
     return {"rows": L, "smem_need": need, "smem_bytes": chip.smem_bytes,
-            "fits": need <= chip.smem_bytes,
-            "blocks_per_sm": blocks_per_sm(need, WKV_BWD_THREADS, chip)}
+            "fits": need <= chip.smem_bytes, "blocks_per_sm": resident,
+            # the gradient launch is compiled for two blocks an SM (128
+            # registers a thread) where two fit, else one
+            "resident": min(2, resident)}
 
 
 def flash_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:

@@ -46,7 +46,7 @@
 // Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError() right after its launch.
 
-#include "common.cuh"
+#include "wkv6_common.cuh"
 
 #include <cooperative_groups.h>
 
@@ -429,22 +429,6 @@ __host__ __device__ constexpr long long tc_smem_bytes(int K, int rows,
          (carry ? 4LL * K * K : 0LL);
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float2 bf2_to_f2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store_bf2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // (a, b) as bf16 hi parts at `hi` and the bf16 rounding of what they
 // miss at `lo`: hi + lo carries about 16 bits of each value.
 __device__ __forceinline__ void split_bf2(bf16* hi, bf16* lo, float a,
@@ -478,10 +462,6 @@ __device__ __forceinline__ void split_bf4(bf16* hi, bf16* lo, float4 v) {
                  pack_f32_bf16(v.z - f1.x, v.w - f1.y));
 }
 
-__device__ __forceinline__ float2 ld_f2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
 #ifdef WKV6_STEP_CLOCKS
 // Where a block's time goes, for a profiling build only (the wrappers'
 // library has none of it): thread 0 reads clock64() as each step ends
@@ -499,14 +479,6 @@ __device__ unsigned long long g_step_clocks[kClockSteps + 1];
 #else
 #define WKV6_CLOCK(i)
 #endif
-
-// 2^x by the hardware's approximation (flushes subnormal results to 0);
-// every argument here is a difference of cumulative log2-decays.
-__device__ __forceinline__ float ex2f(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int K, int ROWS>
 __global__ void __launch_bounds__(kTcThreads, 2)

@@ -12,7 +12,10 @@ TMA) is fetched at run time through ``cudaGetDriverEntryPoint``.
 waits for them together.  A variant (``VARIANTS``) is a source built
 again with extra flags into a library of its own, never loaded by the
 wrappers: ``wkv6_steps`` is ``csrc/wkv6.cu`` with its per-step clock
-counters compiled in (``WKV6_STEP_CLOCKS``).
+counters compiled in (``WKV6_STEP_CLOCKS``), ``wkv6_bwd_steps``
+``csrc/wkv6_bwd.cu`` with its (``WKV6_BWD_STEP_CLOCKS``), and
+``wkv6_bwd_cmax8`` that source with its gradient kernels compiled for
+clusters of up to 8 alone (``WKV6_BWD_CMAX8``).
 
 Importing this module touches no CUDA: the CPU tests import it.
 """
@@ -33,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 900
 # variant library -> (its source, the flags it adds)
-VARIANTS = {"wkv6_steps": ("wkv6", ("-DWKV6_STEP_CLOCKS",))}
+VARIANTS = {"wkv6_steps": ("wkv6", ("-DWKV6_STEP_CLOCKS",)),
+            "wkv6_bwd_steps": ("wkv6_bwd", ("-DWKV6_BWD_STEP_CLOCKS",)),
+            "wkv6_bwd_cmax8": ("wkv6_bwd", ("-DWKV6_BWD_CMAX8",))}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

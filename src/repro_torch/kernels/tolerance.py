@@ -37,9 +37,12 @@ of r.dr - k.dk down each channel of a chunk from the boundary term
 <S, dS>.  Those terms are each about <S_t, dS_t>, exp(-w_t) times dw_t,
 and cancel: the sum's rounding scales with the channel's terms, not
 with the row's dw (at t = 0 the true dw is exactly 0, S_{-1} being 0),
-and grows as the decays strengthen.  The CPU model of that arithmetic
-(``wkv_bwd_chunked_model``) reads 0.03-0.2 of the allowance at the
-model's and the reference test's decays, and 1.1 on dw_log at a
+and grows as the decays strengthen.  The CPU models of that arithmetic
+(``wkv_bwd_chunked_model``, the ``fma`` kernel's;
+``wkv_bwd_cluster_model``, the ``tensor_core`` kernel's, whose products
+take tf32 operands split in two parts, since a bf16 hi + lo split reads
+0.53 of dw_log's allowance) read 0.02-0.2 of the allowance at the
+model's and the reference test's decays, and 1.4-1.7 on dw_log at a
 constant decay factor of exp(-4) = 0.018 a step, 30x below the least
 the init draws (0.54, ``models/spec.py``): a check at such decays
 would need a wider allowance (``python -m
@@ -116,29 +119,49 @@ def check_wkv_grad(got, want, dtype: torch.dtype):
 
 
 def wkv_bwd_planted_faults(bwd_fn, r, k, v, w_log, u, dy, dstate,
-                           boundary: int) -> dict:
+                           boundary: int,
+                           group_boundary: Optional[int] = None) -> dict:
     """{name: gradients}: wrong wkv6 gradients made from ``bwd_fn`` (the
     backward kernel on the card, a CPU model here).  The adjoint state
     not carried across the chunk boundary at ``boundary`` (the rows
     before it differentiated alone, as if nothing came after them); the
     decay's reverse sum off by one position (dw_t taking the row's own
     r_t (S_{t-1} dy_t), i.e. an inclusive sum where the exclusive one is
-    due); du dropped."""
+    due); du dropped.  Given ``group_boundary`` (the boundary between
+    two groups of a cluster), two more there: the forward state not
+    carried into the next group (the rows after it differentiated as if
+    the state entering them were zero), and the adjoint not carried into
+    the previous group (the rows before it as if nothing came after
+    them)."""
     full = bwd_fn(r, k, v, w_log, u, dy, dstate)
-    first = bwd_fn(*(a[:, :boundary].contiguous()
-                     for a in (r, k, v, w_log)), u,
-                   dy[:, :boundary].contiguous(), None)
-    cut = [torch.cat([a, b[:, boundary:]], 1)
-           for a, b in zip(first[:4], full[:4])]
+
+    def part(sl, ds):
+        return bwd_fn(*(a[:, sl].contiguous() for a in (r, k, v, w_log)),
+                      u, dy[:, sl].contiguous(), ds)
+
+    def adjoint_cut(at):
+        first = part(slice(0, at), None)
+        return (*(torch.cat([a, b[:, at:]], 1)
+                  for a, b in zip(first[:4], full[:4])), full[4])
+
     f32 = torch.float32
     g = (dy.to(f32) * v.to(f32)).sum(-1, keepdim=True)
     own = r.to(f32) * (full[0].to(f32) - u * k.to(f32) * g)
-    return {
-        "adjoint not carried across a chunk boundary": (*cut, full[4]),
+    faults = {
+        "adjoint not carried across a chunk boundary": adjoint_cut(boundary),
         "dw_log's decay off by one position":
             (*full[:3], full[3] + own, full[4]),
         "du dropped": (*full[:4], torch.zeros_like(full[4])),
     }
+    if group_boundary is not None:
+        at = group_boundary
+        second = part(slice(at, None), dstate)
+        faults["state not carried into the next group"] = (
+            *(torch.cat([a[:, :at], b], 1)
+              for a, b in zip(full[:4], second[:4])), full[4])
+        faults["adjoint not carried into the previous group"] = \
+            adjoint_cut(at)
+    return faults
 
 
 def wkv_bwd_chunked_model(r, k, v, w_log, u, dy, dstate=None,
@@ -210,6 +233,240 @@ def wkv_bwd_chunked_model(r, k, v, w_log, u, dy, dstate=None,
         ds = torch.exp(tot)[..., None] * ds + torch.einsum(
             "bthk,bthv->bhkv", rr * torch.exp(e), yy)
     out = [t.reshape(B, NC * L, H, K)[:, :S] for t in grads]
+    return (*(t.to(r.dtype) for t in out[:3]), out[3], du)
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to tf32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = a.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(a: torch.Tensor) -> torch.Tensor:
+    """a cut to tf32 (its low 13 mantissa bits cleared: toward zero, as
+    the tensor cores read an fp32 register as tf32)."""
+    bits = a.float().contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(a: torch.Tensor):
+    """a as its tf32 part (big, cut toward zero) and the tf32 part of the
+    rest (small, cut the same way): big + small carries about 20 bits of
+    each value."""
+    big = _tf32_cut(a)
+    return big, _tf32_cut(a - big)
+
+
+def _log2_decay(w_log, rows: int, seg: int):
+    """The tensor-core kernels' cumulative log2-decay per ``rows``-row
+    chunk, [B, chunks, rows, H, K]: w scaled by log2(e) in fp32, summed
+    down each channel in ``seg`` row segments, each segment offset by
+    the sums of the ones before it.  Rows past S are zeros."""
+    B, S, H, K = w_log.shape
+    NC = -(-S // rows)
+    w = torch.nn.functional.pad(w_log.float(), (0, 0, 0, 0, 0, NC * rows - S))
+    parts = (w.reshape(B, NC, rows, H, K) * LOG2E).reshape(
+        B, NC, seg, rows // seg, H, K).cumsum(3)
+    lasts = parts[:, :, :, -1]
+    return (parts + (lasts.cumsum(2) - lasts)[:, :, :, None]).reshape(
+        B, NC, rows, H, K)
+
+
+def wkv_bwd_cluster_model(r, k, v, w_log, u, dy, dstate=None,
+                          rows: Optional[int] = None,
+                          cluster: Optional[int] = None,
+                          segments: Optional[int] = None):
+    """The arithmetic of ``csrc/wkv6_bwd.cu``'s ``tensor_core`` path in
+    plain torch, ``rows`` rows a chunk (``WKV_BWD_TC_ROWS[K]`` unless
+    given), ``cluster`` chunks a group and ``segments`` of groups for
+    the states launch (``ops.bwd_dispatch``'s unless given; within a
+    segment the cluster changes no sum).
+    r, k, v and dy are taken as exact, as that path reads them (bf16).
+    Every operand the kernel builds enters a tensor-core product as its
+    tf32 part (big) and the tf32 part of the rest (small), each cut
+    toward zero, the product taken as big.big + small.big + big.small
+    with fp32 sums
+    (against r, k, v or dy, which are exact in tf32: big.exact +
+    small.exact); one bf16 rounding of such an operand (a hi + lo pair,
+    as the forward keeps) reads up to 0.53 of dw_log's allowance here
+    already, since dw sums a chunk's rows of terms that cancel.
+
+    - cw: the cumulative log2-decay of ``_log2_decay``; e is cw one row
+      back, total its last row;
+    - each chunk's contributions kd^T v (kd = k exp2(total - cw)) and
+      (r exp2(e))^T dy;
+    - the states launch folds the first in chunk order within each
+      segment of groups, X = exp2(total) X + kd^T v from zero with the
+      decay product D, keeping (X, D) at each group's start and the
+      segment's end; the gradient launch chains the segments, E_{s+1} =
+      D_s E_s + X_s, takes the state entering each group as D E + X,
+      walks the groups from last to first, folds the state forward from
+      that entry (S_in of each chunk) and the adjoint backward
+      from the carry of the group after it (dS_out of each chunk; the
+      last group's carry is dS_T or zero), both as
+      X = exp2(total) X + contribution in fp32, and takes the boundary
+      term Q = <S_out, dS_out> per channel;
+    - dy v^T from the exact operands, fp32 sums;
+    - per 16-row sub-tile pair (I, J < I): dr through J's anchor row a
+      (its last): exp2(e_t - cw_a) (dy v^T)[I, J] (k exp2(cw_a - cw))_J;
+      dk through I's anchor row b (the row before I):
+      exp2(cw_b - cw_j) (dy v^T)[I, J]^T (r exp2(e - cw_b))_I; A as the
+      forward's q' k'^T through a;
+    - inside the diagonal sub-tiles, in fp32 against dy v^T, the pairs'
+      decays exp2(e_t - cw_j) as running products of the step decays
+      exp2(cw_q - cw_{q-1}) (dr, dk); A there taken directly inside each
+      8-row half (its u bonus r u k on the diagonal) and across the
+      halves as the forward's kernel does, through the anchor row between
+      them (one tf32 pass);
+    - dr += exp2(e) dy S_in^T, dk += exp2(total - cw) v dS_out^T;
+      dv = kd dS_out + A^T dy, its products (and A's off the diagonal)
+      in one tf32 pass, big.big: dv is held to r's dtype, which a tf32
+      rounding (2^-11) meets;
+    - dw_log = Q + the reverse cumulative sum of r dr - k dk down the
+      chunk minus r dr; du summed over every row.
+
+    Every exponent taken is <= 0.  Rows past S are zeros, as the kernel
+    reads them.  Returns (dr, dk, dv in r's dtype, dw_log, du)."""
+    from repro_torch.core.gpu_mapping import (WKV_BWD_TC_ROWS,
+                                              WKV_BWD_THREADS)
+    from repro_torch.kernels.wkv6 import ops
+    f32 = torch.float32
+    B, S, H, K = r.shape
+    L = rows or WKV_BWD_TC_ROWS[K]
+    NC = -(-S // L)
+    route = ops.bwd_dispatch(S, K, torch.bfloat16, True, B * H)
+    cs = min(cluster or route["cluster"], NC)
+    groups = -(-NC // cs)
+    T = L // 16
+
+    def chunked(a):
+        a = torch.nn.functional.pad(a.to(f32), (0, 0, 0, 0, 0, NC * L - S))
+        return a.reshape(B, NC, L, H, K)
+
+    split = _split_tf32
+    rc, kc, vc, yc = (chunked(a) for a in (r, k, v, dy))
+    cw = _log2_decay(w_log, L, WKV_BWD_THREADS // K)
+    e = torch.cat([torch.zeros_like(cw[:, :, :1]), cw[:, :, :-1]], 2)
+    tot = cw[:, :, -1]
+    dec = torch.exp2(tot)[..., None]                      # [B,NC,H,K,1]
+    kdec = torch.exp2(tot[:, :, None] - cw)
+    kd_h, kd_l = split(kc * kdec)
+    rq_h, rq_l = split(rc * torch.exp2(e))
+    dsc = sum(torch.einsum("bnthk,bnthv->bnhkv", x, vc) for x in (kd_h, kd_l))
+    dac = sum(torch.einsum("bnthk,bnthv->bnhkv", x, yc) for x in (rq_h, rq_l))
+
+    # the states launch: per segment of groups, the fold from its start
+    # (X, and the decay product D) at each group's start and at its end;
+    # the state entering a segment E_{s+1} = D_s E_s + X_s, and entering
+    # a group D E + X
+    per = -(-groups // min(groups, segments or route["segments"]))
+    E = torch.zeros(B, H, K, K, dtype=f32)
+    entry = []
+    for g0 in range(0, groups, per):
+        X = torch.zeros(B, H, K, K, dtype=f32)
+        D = torch.ones(B, H, K, 1, dtype=f32)
+        for g in range(g0, min(groups, g0 + per)):
+            entry.append(D * E + X)
+            for c in range(g * cs, min(NC, (g + 1) * cs)):
+                X = dec[:, c] * X + dsc[:, c]
+                D = D * dec[:, c]
+        E = D * E + X
+    # the gradient launch: groups from last to first, both folds
+    s_in, d_out, q = [None] * NC, [None] * NC, [None] * NC
+    ad = (torch.zeros(B, H, K, K, dtype=f32) if dstate is None
+          else dstate.to(f32))
+    for g in reversed(range(groups)):
+        ranks = range(g * cs, min(NC, (g + 1) * cs))
+        st = entry[g]
+        outs = []
+        for c in ranks:
+            s_in[c] = st
+            st = dec[:, c] * st + dsc[:, c]
+            outs.append(st)
+        for c in reversed(ranks):
+            d_out[c] = ad
+            ad = dec[:, c] * ad + dac[:, c]
+        for c, s_out in zip(ranks, outs):
+            q[c] = (s_out * d_out[c]).sum(-1)
+    sh, sl = split(torch.stack(s_in, 1))
+    dh, dl = split(torch.stack(d_out, 1))
+    Q = torch.stack(q, 1)                                 # [B,NC,H,K]
+
+    bm = torch.einsum("bnthv,bnjhv->bnhtj", yc, vc)
+    bh, bl = split(bm)
+    drp = torch.exp2(e) * sum(torch.einsum("bnthv,bnhkv->bnthk", yc, x)
+                              for x in (sh, sl))
+    dkp = kdec * sum(torch.einsum("bnjhv,bnhkv->bnjhk", vc, x)
+                     for x in (dh, dl))
+    A = torch.zeros(B, NC, H, L, L, dtype=f32)
+    tri = torch.tril(torch.ones(16, 16, dtype=torch.bool), -1)[:, :, None,
+                                                                 None]
+    halves = torch.zeros(16, 16, 1, 1)
+    halves[:8, :8] = halves[8:, 8:] = 1.0
+    for d in range(T):          # inside the diagonal sub-tiles, directly
+        s = slice(16 * d, 16 * d + 16)
+        expo = e[:, :, s, None] - cw[:, :, None, s]       # [B,NC,t,j,H,K]
+        P = torch.where(tri, torch.exp2(torch.where(tri, expo, 0.0)), 0.0)
+        # dr's and dk's pair decays as running products of the step decays
+        # exp2(cw_q - cw_{q-1}), from j = t - 1 (1) down
+        steps = torch.exp2(cw[:, :, s][:, :, 1:] - cw[:, :, s][:, :, :-1])
+        Pp = torch.zeros_like(P)
+        for tl in range(1, 16):
+            run = torch.cumprod(torch.flip(steps[:, :, :tl - 1], [2]), 2)
+            Pp[:, :, tl, :tl] = torch.flip(torch.cat(
+                [torch.ones_like(steps[:, :, :1]), run], 2), [2])
+        bd = bm[..., s, s]
+        drp[:, :, s] += torch.einsum("bnhtj,bnjhk,bntjhk->bnthk", bd,
+                                     kc[:, :, s], Pp)
+        dkp[:, :, s] += torch.einsum("bnhtj,bnthk,bntjhk->bnjhk", bd,
+                                     rc[:, :, s], Pp)
+        bonus = torch.einsum("bnthk,hk,bnthk->bnht", rc[:, :, s], u.to(f32),
+                             kc[:, :, s])
+        # A: directly inside each 8-row half; across the halves through
+        # the anchor row a between them, one tf32 pass
+        A[..., s, s] = torch.einsum("bnthk,bnjhk,bntjhk->bnhtj", rc[:, :, s],
+                                    kc[:, :, s], P * halves) \
+            + torch.diag_embed(bonus)
+        a, lo, hi = 16 * d + 7, slice(16 * d, 16 * d + 8), \
+            slice(16 * d + 8, 16 * d + 16)
+        A[..., hi, lo] = torch.einsum(
+            "bnthk,bnjhk->bnhtj",
+            _tf32(rc[:, :, hi] * torch.exp2(e[:, :, hi] - cw[:, :, a, None])),
+            _tf32(kc[:, :, lo] * torch.exp2(cw[:, :, a, None] - cw[:, :, lo])))
+    for i in range(1, T):       # sub-tile pairs, through anchor rows
+        ti = slice(16 * i, 16 * i + 16)
+        b = 16 * i - 1
+        rt_h, rt_l = split(rc[:, :, ti] * torch.exp2(e[:, :, ti]
+                                                     - cw[:, :, b, None]))
+        for j in range(i):
+            tj = slice(16 * j, 16 * j + 16)
+            a = 16 * j + 15
+            kp_h, kp_l = split(kc[:, :, tj] * torch.exp2(cw[:, :, a, None]
+                                                         - cw[:, :, tj]))
+            pairs = ((bh, kp_h), (bl, kp_h), (bh, kp_l))
+            drp[:, :, ti] += torch.exp2(e[:, :, ti] - cw[:, :, a, None]) * sum(
+                torch.einsum("bnhtj,bnjhk->bnthk", x[..., ti, tj], z)
+                for x, z in pairs)
+            pairs = ((bh, rt_h), (bl, rt_h), (bh, rt_l))
+            dkp[:, :, tj] += torch.exp2(cw[:, :, b, None] - cw[:, :, tj]) * sum(
+                torch.einsum("bnhtj,bnthk->bnjhk", x[..., ti, tj], z)
+                for x, z in pairs)
+            qp = _tf32(rc[:, :, ti] * torch.exp2(e[:, :, ti]
+                                                 - cw[:, :, a, None]))
+            A[..., ti, tj] = torch.einsum("bnthk,bnjhk->bnhtj", qp, kp_h)
+    # dv alone reads A, and dv is held to r's dtype: one tf32 pass
+    dv = (torch.einsum("bnjhk,bnhkv->bnjhv", kd_h, dh)
+          + torch.einsum("bnhtj,bnthv->bnjhv", _tf32(A), yc))
+    g = (yc * vc).sum(-1, keepdim=True)
+    a_ = rc * drp
+    z = a_ - kc * dkp
+    dw = (Q[:, :, None] + torch.flip(torch.cumsum(torch.flip(z, [2]), 2),
+                                     [2]) - a_)
+    uf = u.to(f32)
+    out = [t.reshape(B, NC * L, H, K)[:, :S]
+           for t in (drp + uf * kc * g, dkp + uf * rc * g, dv, dw)]
+    du = (rc * kc * g).sum((0, 1, 2))
     return (*(t.to(r.dtype) for t in out[:3]), out[3], du)
 
 
@@ -582,27 +839,38 @@ def wkv_bwd_main() -> None:
     gen = torch.Generator().manual_seed(0)
     for B, S, H, K, dt, decay, with_ds in (
             (1, 256, 4, 64, torch.bfloat16, "model", False),
+            (1, 600, 2, 64, torch.bfloat16, "model", True),
             (1, 100, 2, 64, torch.float32, "model", True),
             (1, 128, 2, 64, torch.float32, "strong", True),
             (1, 64, 2, 32, torch.float32, "reference", False),
-            (1, 64, 2, 128, torch.float32, "model", True)):
+            (1, 64, 2, 128, torch.float32, "model", True),
+            (1, 200, 1, 128, torch.bfloat16, "model", True)):
         args = wkv_inputs(B, S, H, K, dt, decay, gen)
         dy = torch.randn(B, S, H, K, generator=gen).to(dt)
         ds = (0.1 * torch.randn(B, H, K, K, generator=gen) if with_ds
               else None)
         want = ops.wkv_grad_plain(*args, dy, ds)
-        got = wkv_bwd_chunked_model(*args, dy, ds)
-        L = WKV_BWD_ROWS[K]
-        faults = wkv_bwd_planted_faults(wkv_bwd_chunked_model, *args, dy,
-                                        ds, L if S > L else S // 2)
-        worst, _, shares = check_wkv_grad(got, want, dt)
-        print(f"wkv6 backward B{B} S{S} H{H} K{K} {str(dt)[6:]} {decay} "
-              f"decay, dS_T {'given' if with_ds else 'zero'}, {L}-row "
-              f"chunks: modelled kernel {worst:.3f} ("
-              + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
-              + "), " + ", ".join(
-                  f"{name} {check_wkv_grad(f, want, dt)[0]:.1f}"
-                  for name, f in faults.items()))
+        tc = ops.bwd_dispatch(S, K, torch.bfloat16, True, B * H)
+        group = tc["rows"] * tc["cluster"] if tc["groups"] > 1 else None
+        # each path's model: the fma kernel's for every dtype, the
+        # tensor-core kernel's for bf16 (the only operands it takes)
+        models = [("fma", wkv_bwd_chunked_model, WKV_BWD_ROWS[K])]
+        if dt == torch.bfloat16:
+            models.append(("tensor_core", wkv_bwd_cluster_model, tc["rows"]))
+        for path, model, L in models:
+            worst, _, shares = check_wkv_grad(model(*args, dy, ds), want, dt)
+            faults = wkv_bwd_planted_faults(model, *args, dy, ds,
+                                            L if S > L else S // 2, group)
+            print(f"wkv6 backward B{B} S{S} H{H} K{K} {str(dt)[6:]} {decay} "
+                  f"decay, dS_T {'given' if with_ds else 'zero'}, {path} "
+                  f"model ({L}-row chunks"
+                  + (f", cluster {tc['cluster']} x {tc['groups']} groups"
+                     if path == "tensor_core" else "")
+                  + f"): {worst:.3f} ("
+                  + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
+                  + "), " + ", ".join(
+                      f"{name} {check_wkv_grad(f, want, dt)[0]:.1f}"
+                      for name, f in faults.items()))
 
 
 if __name__ == "__main__":

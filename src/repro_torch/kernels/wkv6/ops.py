@@ -14,10 +14,16 @@ takes no initial state.
 Under grad mode, when an operand needs a gradient, a CUDA call goes
 through ``WKV6``: its forward launches the kernel as above and keeps
 r, k, v, w_log and u; its backward launches ``csrc/wkv6_bwd.cu``
-(``wkv_bwd``), which adds one to ``wkv.bwd_launches``.  It launches or
-raises: the plain version is never differentiated on the card.  CPU
-and ``meta`` operands are differentiated by autograd through their
-torch forms.  ``wkv_grad_plain`` is the backward's plain version.
+(``wkv_bwd``), which adds one to ``wkv.bwd_launches`` and to its path's
+count in ``wkv.bwd_paths``.  It launches or raises: the plain version
+is never differentiated on the card.  CPU and ``meta`` operands are
+differentiated by autograd through their torch forms.
+``wkv_grad_plain`` is the backward's plain version.  ``bwd_dispatch``
+routes the backward as ``select_path`` routes the forward:
+``tensor_core`` (a states launch and a gradient launch, the chunks of
+a (b, h) in parallel across a cluster, products on mma.sync in tf32)
+for bf16 with every operand on a 16-byte boundary, ``fma`` (one block
+per (b, h) walking the chunks) for fp32 and operands off the grid.
 
 On CUDA, ``route`` picks one of two kernels before the launch:
 ``tensor_core`` for bf16 r, k and v with every operand on a 16-byte
@@ -52,9 +58,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.gpu_mapping import (WKV_BWD_ROWS, WKV_MAX_CLUSTER,
+from repro_torch.core.gpu_mapping import (H100, WKV_BWD_ROWS,
+                                          WKV_BWD_TC_ROWS, WKV_MAX_CLUSTER,
                                           WKV_PATHS, WKV_TC_ROWS,
-                                          wkv_smem_plan)
+                                          wkv_bwd_smem_plan, wkv_smem_plan)
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv6.ref import wkv6_chunked, wkv6_ref
 
@@ -73,9 +80,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {"tensor_core": ("wkv6_tc_launch",
                            [_P] * 7 + [_I] * 5 + [_P]),
            "fma": ("wkv6_launch", [_P] * 7 + [_I] * 6 + [_P])}
-# the backward's C entry in csrc/wkv6_bwd.cu: r, k, v, w, u, dy, dstate,
-# dr, dk, dv, dw, du, scratch, B, S, H, K, rows, bf16, the stream
-BWD_ENTRY = ("wkv6_bwd_launch", [_P] * 13 + [_I] * 6 + [_P])
+# the backward's C entries in csrc/wkv6_bwd.cu: r, k, v, w, u, dy,
+# dstate, dr, dk, dv, dw, du, scratch, B, S, H, K, rows, then the
+# tensor-core kernels' cluster and segments or the fma kernel's dtype
+# flag, the stream
+BWD_ENTRIES = {"tensor_core": ("wkv6_bwd_tc_launch",
+                               [_P] * 13 + [_I] * 7 + [_P]),
+               "fma": ("wkv6_bwd_launch", [_P] * 13 + [_I] * 6 + [_P])}
 
 
 @functools.lru_cache(maxsize=256)
@@ -129,6 +140,39 @@ def dispatch(S: int, K: int, dtype: torch.dtype, aligned: bool = True,
             "groups": groups}
 
 
+def bwd_dispatch(S: int, K: int, dtype: torch.dtype, aligned: bool = True,
+                 bh: int = 1) -> dict:
+    """The backward's launch, decided before it: the path
+    (``select_path``'s rule), the rows of a chunk, the cluster's size
+    and the groups of chunks it walks (``fma``: one block per (b, h),
+    cluster 1, one group).  ``bh`` is B * H.  The ``tensor_core``
+    cluster is the one (1 to 8) whose launch takes the fewest waves of
+    blocks times groups walked, the smaller on a tie: at rwkv6's
+    training shape (B * H 128, 128 chunks of 32 rows) 2, which puts
+    all 256 blocks on the card at once (two an SM) where 8 would take
+    four waves of 16 groups.  Its states launch cuts each (b, h)'s groups
+    into ``segments`` (4 there) walked in parallel.  Pure Python."""
+    path = select_path(dtype, aligned)
+    if path == "fma":
+        return {"path": path, "rows": WKV_BWD_ROWS[K], "cluster": 1,
+                "groups": 1}
+    rows = WKV_BWD_TC_ROWS[K]
+    plan = wkv_bwd_smem_plan(K, path=path, rows=rows)
+    if not plan["fits"]:
+        raise ValueError(f"no shared-memory plan for K={K}")
+    chunks = -(-S // rows)
+    slots = H100.num_sms * plan["resident"]
+    cluster = min(range(1, min(WKV_MAX_CLUSTER, chunks) + 1),
+                  key=lambda c: (-(-bh * c // slots) * -(-chunks // c), c))
+    groups = -(-chunks // cluster)
+    # the states launch: segments of groups, as many as fill its blocks
+    # (4 an SM, 2 at K = 128) once
+    seg_slots = H100.num_sms * (2 if K >= 128 else 4)
+    per = -(-groups // min(groups, max(1, seg_slots // bh)))
+    return {"path": path, "rows": rows, "cluster": cluster,
+            "groups": groups, "segments": -(-groups // per)}
+
+
 def launch_plan(B: int, S: int, H: int, K: int, dtype: torch.dtype,
                 aligned: bool = True, chunk: Optional[int] = None) -> dict:
     """``dispatch`` for the chunk a CUDA call runs: ``chunk`` as passed,
@@ -143,10 +187,10 @@ def launch_plan(B: int, S: int, H: int, K: int, dtype: torch.dtype,
     return dispatch(S, K, dtype, aligned, pins.get("chunk"))
 
 
-def _lib(path: str):
-    """The C entry of ``path``'s kernel (``"backward"``: the backward's),
-    argument types set once."""
-    source, (name, argtypes) = (("wkv6_bwd", BWD_ENTRY) if path == "backward"
+def _lib(path: str, backward: bool = False):
+    """The C entry of ``path``'s kernel (the backward's when
+    ``backward``), argument types set once."""
+    source, (name, argtypes) = (("wkv6_bwd", BWD_ENTRIES[path]) if backward
                                 else ("wkv6", ENTRIES[path]))
     fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
@@ -227,12 +271,11 @@ def _launch(r, k, v, w_log, u, chunk: Optional[int]):
 
 
 def wkv_bwd(r, k, v, w_log, u, dy, dstate=None):
-    """One launch of the backward kernel (``csrc/wkv6_bwd.cu``) on CUDA
-    operands: (dr, dk, dv in r's dtype; dw_log, du in fp32).  ``dy`` is
-    y's gradient (made contiguous here: a group norm's backward may hand
-    it strided), ``dstate`` the final state's, or None for zero.  du is
-    summed over the batch here, each (b, h)'s sum from the kernel, in a
-    fixed order."""
+    """One launch of the backward (``csrc/wkv6_bwd.cu``) on CUDA
+    operands, on the path ``bwd_dispatch`` routes them to: (dr, dk, dv
+    in r's dtype; dw_log, du in fp32).  ``dy`` is y's gradient (made
+    contiguous here: a group norm's backward may hand it strided),
+    ``dstate`` the final state's, or None for zero."""
     B, S, H, K = r.shape
     dy = dy.contiguous()
     ts = (r, k, v, w_log, u, dy)
@@ -245,25 +288,51 @@ def wkv_bwd(r, k, v, w_log, u, dy, dstate=None):
         if tuple(dstate.shape) != (B, H, K, K):
             raise ValueError(f"dstate must be [B,H,K,K]: "
                              f"{tuple(dstate.shape)}")
-    rows = WKV_BWD_ROWS[K]
-    chunks = -(-S // rows)
+        ts = ts + (dstate,)
+    aligned = all(t.data_ptr() % 16 == 0 for t in ts)
+    return _bwd_launch(bwd_dispatch(S, K, r.dtype, aligned, B * H),
+                       r, k, v, w_log, u, dy, dstate)
+
+
+def _bwd_launch(route, r, k, v, w_log, u, dy, dstate=None):
+    """The backward's launch on ``route`` (a ``bwd_dispatch`` result;
+    ``fma``'s takes every operand, ``tensor_core``'s only what it routes
+    there) with operands ``wkv_bwd`` has checked: contiguous, dstate
+    fp32 or None.  du is summed here in a fixed order from the kernel's
+    partials (per (b, h) on ``fma``, per (b, h, chunk) on
+    ``tensor_core``)."""
+    B, S, H, K = r.shape
+    rows = route["rows"]
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w_log)
-    du = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
-    scratch = torch.empty((B * H, chunks + 1, K, K), dtype=torch.float32,
-                          device=r.device)
+    if route["path"] == "tensor_core":
+        parts = route["cluster"] * route["groups"]
+        du = torch.empty((B * H, parts, K), dtype=torch.float32,
+                         device=r.device)
+        # per group and per segment a [K, K] state and a [K] decay
+        scratch = torch.empty(
+            (B * H * (route["groups"] + route["segments"]) * K * (K + 1),),
+            dtype=torch.float32, device=r.device)
+        flag = (route["cluster"], route["segments"])
+    else:
+        du = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+        scratch = torch.empty((B * H, -(-S // rows) + 1, K, K),
+                              dtype=torch.float32, device=r.device)
+        flag = (int(r.dtype == torch.bfloat16),)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = _lib("backward")(
+    err = _lib(route["path"], backward=True)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
         u.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        scratch.data_ptr(), B, S, H, K, rows,
-        int(r.dtype == torch.bfloat16), stream)
+        scratch.data_ptr(), B, S, H, K, rows, *flag, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 backward launch failed: CUDA error {err} "
-                           f"({tuple(r.shape)}, rows {rows})")
+                           f"({tuple(r.shape)}, {route})")
     wkv.bwd_launches += 1
+    wkv.bwd_paths[route["path"]] += 1
+    if route["path"] == "tensor_core":
+        du = du.sum(1).view(B, H, K)
     return dr, dk, dv, dw, du.sum(0)
 
 
@@ -323,3 +392,4 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 wkv.launches = 0
 wkv.bwd_launches = 0
 wkv.paths = dict.fromkeys(PATHS, 0)
+wkv.bwd_paths = dict.fromkeys(PATHS, 0)

@@ -182,7 +182,7 @@ def train(cfg, *, batch: int, seq: int, steps: int, lr: float = 1e-3,
         return {"spm_matmul": dict(spm_ops.matmul.paths),
                 "flash_attention": flash_ops.attention.launches,
                 "wkv6": dict(wkv_ops.wkv.paths),
-                "wkv6_bwd": wkv_ops.wkv.bwd_launches}
+                "wkv6_bwd": dict(wkv_ops.wkv.bwd_paths)}
 
     last = counts()
 

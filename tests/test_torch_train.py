@@ -486,6 +486,7 @@ def _fake_card(monkeypatch):
 
     def wkv_backward(r, k, v, w_log, u, dy, dstate=None):
         wkv_ops.wkv.bwd_launches += 1
+        wkv_ops.wkv.bwd_paths["tensor_core"] += 1
         return wkv_ops.wkv_grad_plain(r, k, v, w_log, u, dy, dstate)
 
     monkeypatch.setattr(mm_ops, "_on_cpu", lambda *ts: False)
@@ -497,6 +498,8 @@ def _fake_card(monkeypatch):
     monkeypatch.setattr(wkv_ops, "wkv_bwd", wkv_backward)
     monkeypatch.setattr(wkv_ops.wkv, "launches", 0)
     monkeypatch.setattr(wkv_ops.wkv, "bwd_launches", 0)
+    monkeypatch.setattr(wkv_ops.wkv, "bwd_paths",
+                        dict.fromkeys(wkv_ops.wkv.bwd_paths, 0))
     monkeypatch.setattr(wkv_ops.wkv, "paths",
                         dict.fromkeys(wkv_ops.wkv.paths, 0))
     monkeypatch.setattr(pattn, "_on_card", lambda t: True)
