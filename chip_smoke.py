@@ -160,7 +160,21 @@ Phases, one result line each; any failure exits non-zero:
             held element by element to its plain version with a
             planted fault caught (phase 3's rule), run twice for the
             same bits, with its path, time, ``torch.mm``'s (SDPA's)
-            and its bound.  (b) reduced qwen2 fp32 (2 layers, remat
+            and its bound.  Then flash_attention's backward
+            (``csrc/flash_attention_bwd.cu``, ``run_flash_bwd``) at
+            qwen2-0.5b's, zamba2-7b's and qwen3-moe's training shapes,
+            gemma3's local layer (D 256, window 1024, batch 1), a
+            cross shape (Sq 448, Sk 1500, unmasked), fp32 (D 64, and
+            D 256 windowed), bf16 off the 16-byte grid and a ragged
+            window: the forward's o the same bits with and without its
+            lse, that lse against the plain forward's; dq, dk and dv on
+            the routed path (``tensor_core`` for aligned bf16, ``fma``
+            else) against ``attention_grad`` evaluated in fp32
+            (``tolerance.check_flash_grad``), twice for the same bits,
+            three planted faults caught (the scale 5 % off, lse shifted,
+            the last key tile dropped); the kernel's, the plain
+            version's and SDPA's backward time and the bound (the five
+            products, 10 D x pairs x B x H).  (b) reduced qwen2 fp32 (2 layers, remat
             on): one step's gradient of every leaf and 5 steps of loss
             on the card against the CPU, within 1e-4.  (c)
             ``python -m repro_torch.launch.train --arch qwen2-0.5b
@@ -169,8 +183,9 @@ Phases, one result line each; any failure exits non-zero:
             counters zeroed just before and read just after: the last
             loss must be below the first, and so must the first step's
             batch's loss under the trained parameters, every step must
-            launch the spm_matmul paths and the flash count reckoned
-            from the code (``train_products``), and it prints the step
+            launch the spm_matmul paths, the flash count and the flash
+            backward's (one a layer, ``tensor_core``) reckoned from the
+            code (``train_products``), and it prints the step
             ms (median, p99, CoV over steps 3-12), tokens/s, the
             model-FLOP share of the bf16 peak, the peak memory and the
             deadline's overruns; one more step traced by kernel family.
@@ -188,6 +203,8 @@ Phases, one result line each; any failure exits non-zero:
             (d) a reduced bf16 run with a NaN step, then a save, a
             preemption and a resume, bit-identical in the parameters
             and the optimizer state to an undisturbed run.
+            (b) and (e) must launch flash_attention's ``fma``
+            backward where the model has attention.
             (e) phase 4's reduced fp32 rwkv6-1.6b (2 layers: wkv6's
             forward and backward kernels in fp32), zamba2-7b (15) and
             qwen3-moe-235b-a22b (2): as (b), the losses at lr 1e-4,
@@ -273,8 +290,10 @@ any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``,
 phase 11's record to ``chiprun_out/chip_smoke_multidevice.json``.
 ``python3 chip_smoke.py 3`` runs phases 1 and 2 and phase 3's wkv6
 backward cases only and prints no result lines
-(``chiprun_out/chip_smoke_wkv_bwd.json``); ``python3 chip_smoke.py 9``
-runs phases 1, 2 and 9 only, likewise
+(``chiprun_out/chip_smoke_wkv_bwd.json``); ``python3 chip_smoke.py 9a``
+runs phases 1 and 2 and phase 9(a)'s flash backward cases only,
+likewise (``chiprun_out/chip_smoke_flash_bwd.json``); ``python3
+chip_smoke.py 9`` runs phases 1, 2 and 9 only, likewise
 (``chiprun_out/chip_smoke_train.json``); ``python3
 chip_smoke.py 10`` runs phases 1 and 10 only, likewise
 (``chiprun_out/chip_smoke_dryrun.json``); ``python3 chip_smoke.py 11``
@@ -807,6 +826,184 @@ def library_attention_ms(q, k, v, causal, window, mask):
             with sdpa_kernel(backend):
                 return time_ms(call, args), name.lower()
     return None, None
+
+
+def eager_ms(fn, reps=5):
+    """Device ms per call of ``fn()``, run eagerly between CUDA events
+    after one warm-up call (for calls through autograd, which the graph
+    capture of ``time_ms`` does not take)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def library_attention_bwd_ms(q, k, v, do, causal, window, mask):
+    """The backward's yardstick: the gradient of
+    ``scaled_dot_product_attention`` (as ``library_attention_ms`` calls
+    it, the first of ``SDPA_BACKENDS`` that takes its forward and
+    backward) against ``do``, timed alone; returns its ms and that
+    backend's name."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    x, y, z = (t.transpose(1, 2).contiguous().requires_grad_()
+               for t in (q, k, v))
+    g = do.transpose(1, 2).contiguous()
+    kw = {"attn_mask": mask} if window else {"is_causal": causal}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel(backend):
+                    out = F.scaled_dot_product_attention(
+                        x, y, z, enable_gqa=True, **kw)
+                    torch.autograd.grad(out, (x, y, z), g)
+                    torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(x, y, z,
+                                                     enable_gqa=True, **kw)
+                ms = eager_ms(lambda: torch.autograd.grad(
+                    out, (x, y, z), g, retain_graph=True))
+            return ms, name.lower()
+    return None, None
+
+
+def flash_bwd_cases():
+    """(label, B, Sq, Sk, H, KV, D, causal, window, dtype, main_path):
+    phase 9(a)'s flash_attention backward cases.  The main path's:
+    qwen2-0.5b's training shape (phase 9(c)), zamba2-7b's shared
+    attention and qwen3-moe's group of 16 at phase 9(g)'s 4 x 1024.  Off
+    it: gemma3-12b's local layer (head dim 256, window 1024) at batch 1,
+    whisper's cross-attention shape (non-causal, Sq 448 != Sk 1500), fp32
+    (the ``fma`` path, as phases 9(b) and 9(e) train), bf16 off the
+    16-byte grid (``fma`` in bf16) and a ragged window."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [("qwen2-0.5b train", 4, 4096, 4096, 14, 2, 64, True, 0, bf,
+             True),
+            ("zamba2-7b train (shared attention)", 4, 1024, 1024, 32, 32,
+             112, True, 0, bf, True),
+            ("qwen3-moe train (group 16)", 4, 1024, 1024, 64, 4, 128, True,
+             0, bf, True),
+            ("gemma3 local, batch 1", 1, 2048, 2048, 16, 8, 256, True, 1024,
+             bf, False),
+            ("cross Sq 448 Sk 1500", 2, 448, 1500, 8, 8, 64, False, 0, bf,
+             False),
+            ("fp32", 2, 256, 256, 4, 2, 64, True, 0, f32, False),
+            ("fp32 D=256 window 64", 1, 256, 256, 4, 2, 256, True, 64, f32,
+             False),
+            ("unaligned bf16 D=112", 1, 200, 200, 4, 2, 112, True, 0, bf,
+             False),
+            ("ragged S=100 D=32 window 24", 2, 100, 100, 4, 1, 32, True, 24,
+             bf, False)]
+
+
+def run_flash_bwd(dev, gen):
+    """flash_attention's backward (``csrc/flash_attention_bwd.cu``) at
+    ``flash_bwd_cases``: the forward's o the same bits with and without
+    its lse, and that lse against the plain forward's; the backward on
+    the path ``ops.bwd_dispatch`` routes it to, each of dq, dk and dv
+    held to ``attention_grad`` evaluated in fp32 on the same inputs
+    (``tolerance.check_flash_grad``), run twice for the same bits, its
+    planted faults caught (``tolerance.flash_bwd_planted_faults``); the
+    kernel's time, the plain version's (``attention_grad`` on the case's
+    dtype, as the CPU route runs it), SDPA's backward and the bound: the
+    five products, 10 D x visible pairs x B x H, at the dtype's rate,
+    and q, k, v, do and lse read and dq, dk and dv written once."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tolerance import (ATOL_FRAC, RTOL, check,
+                                               check_flash_grad,
+                                               flash_bwd_planted_faults)
+    rows = []
+    for label, B, Sq, Sk, H, KV, D, causal, w, dt, main in \
+            flash_bwd_cases():
+        off = int(label.startswith("unaligned"))
+        q, k, v, do = (torch.randn(B, s, n, D + off, generator=gen,
+                                   device=dev).to(dt)[..., off:]
+                       for s, n in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H)))
+        scale = 1.0 / math.sqrt(D)
+        kw = {"causal": causal, "window": w, "scale": scale}
+        o, lse = ops._launch(q, k, v, causal, w, scale, with_lse=True)
+        if not torch.equal(o, ops._launch(q, k, v, causal, w, scale)):
+            fail(f"flash_attention {label}: o differs with and without lse")
+        lse_ratio, _ = check(lse, attention_ref(q, k, v, with_lse=True,
+                                                **kw)[1], torch.float32)
+        if not lse_ratio < 1:
+            fail(f"flash_attention {label}: lse at {lse_ratio:.3f} of the "
+                 f"fp32 allowance")
+        del o
+        before = dict(ops.attention.bwd_paths)
+        got = ops.attention_bwd(q, k, v, lse, do, **kw)
+        torch.cuda.synchronize()
+        path = launched_path(ops.attention.bwd_paths, before)
+        want_path = "tensor_core" if dt == torch.bfloat16 and not off \
+            else "fma"
+        if path != want_path:
+            fail(f"flash_attention_bwd {label}: launched {path}, expected "
+                 f"{want_path}")
+        again = ops.attention_bwd(q, k, v, lse, do, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd {label}: two runs differ")
+        del again
+        want = ops.attention_grad(*(t.float() for t in (q, k, v, do)), **kw)
+        ratio, diff, shares = check_flash_grad(got, want, dt)
+        if not all(torch.isfinite(g).all() for g in got) or not ratio < 1:
+            fail(f"flash_attention_bwd {label}: error at {shares} of its "
+                 f"allowance")
+        faults = {
+            name: check_flash_grad(wrong, want, dt)[0]
+            for name, wrong in flash_bwd_planted_faults(
+                ops.attention_bwd, q, k, v, lse, do, **kw).items()}
+        if not min(faults.values()) > 1:
+            fail(f"flash_attention_bwd {label}: a planted fault passes: "
+                 f"{faults}")
+        del got, want
+        mask = mask_of(Sq, Sk, causal, w, dev)
+        pairs = int(mask.sum())
+        row = {"kernel": "flash_attention_bwd", "case": label,
+               "shape": [B, Sq, Sk, H, KV, D], "causal": causal,
+               "window": w, "dtype": str(dt), "path": path,
+               "deterministic": True, "err_ratio": ratio,
+               "err_shares": shares, "fault_ratios": faults,
+               "lse_ratio": lse_ratio, "max_abs_err": diff,
+               "rtol": RTOL[dt], "atol_frac": ATOL_FRAC[dt],
+               "main_path": main, "pairs_per_head": pairs}
+        row["ms"] = time_ms(lambda *a: ops.attention_bwd(*a, **kw),
+                            [(q, k, v, lse, do)], min_reps=5)
+        row["plain_ms"] = eager_ms(lambda: ops.attention_grad(q, k, v, do,
+                                                              **kw), reps=2)
+        row["library_ms"], row["library_backend"] = \
+            library_attention_bwd_ms(q, k, v, do, causal, w, mask)
+        nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 10 * D * pairs * B * H, dt)
+        rows.append(row)
+        per_grad = ", ".join(f"{n} {r:.3f}" for n, r in shares.items())
+        per_fault = ", ".join(f"{n} {r:.1f}" for n, r in faults.items())
+        print(f"  flash_attention_bwd {label:34s} B{B} Sq{Sq} Sk{Sk} H{H} "
+              f"KV{KV} D{D} causal={causal} window={w} {str(dt)[6:]:8s} "
+              f"{path} err {ratio:.3f} of allowance ({per_grad}; lse "
+              f"{lse_ratio:.3f}) faults {per_fault}  "
+              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+              f"library {row['library_ms']} ms (SDPA backward "
+              f"{row['library_backend']})  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        del q, k, v, do, lse, mask
+        release()
+    return rows
 
 
 def off_grid(t):
@@ -2248,7 +2445,8 @@ def run_train_case(label, fn, plain, lib, args, fault_args, flops,
 def phase_train_kernels(dev):
     """Phase 9(a): the backward's products at qwen2's training widths
     (T = 4 x 4096 rows; d 896, k/v 128, FFN 4864; the loss chunk's 2048
-    rows against the 151,936-row table) and the forward flash launch."""
+    rows against the 151,936-row table), the forward flash launch, and
+    flash_attention's backward kernel (``run_flash_bwd``)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.spm_matmul import ops
     from repro_torch.kernels.tolerance import check
@@ -2374,6 +2572,8 @@ def phase_train_kernels(dev):
     rows.append(row)
     del q, k, v, mask
     release()
+    gen.manual_seed(10)
+    rows += run_flash_bwd(dev, gen)
     print(f"phase 9 train kernels: {len(rows)} cases within tolerance, "
           f"each planted fault caught", flush=True)
     return rows
@@ -2475,8 +2675,13 @@ def phase_train_grads(dev):
         train_cfg(), layers=2, d_model=128, vocab=512), dtype="float32")
     cpu_params = lm.init_params(cfg, seed=0, device="cpu")
     _fan_in_qk(cpu_params, cfg)
-    return train_grads(dev, cfg, cpu_params, "reduced qwen2-0.5b fp32 "
-                       "(2 layers, remat, batch 4 x 128)")
+    before = path_counts()["flash_attention_bwd"]["fma"]
+    out = train_grads(dev, cfg, cpu_params, "reduced qwen2-0.5b fp32 "
+                      "(2 layers, remat, batch 4 x 128)")
+    if path_counts()["flash_attention_bwd"]["fma"] == before:
+        fail("reduced qwen2 fp32: flash_attention's fma backward never "
+             "launched")
+    return out
 
 
 def phase_family_grads(dev):
@@ -2489,23 +2694,28 @@ def phase_family_grads(dev):
     for arch in FAMILY_GRADS:
         cfg, cpu_params = reduced_model(arch)
         before = path_counts()["wkv6_bwd"]
+        before_fa = path_counts()["flash_attention_bwd"]["fma"]
         out[arch] = train_grads(
             dev, cfg, cpu_params, f"reduced {arch} fp32 ({MODELS[arch]} "
             f"layers, remat, batch 4 x 128)", phase="9(e) train grads",
             lr=FAMILY_GRAD_LR, yardstick=(FAMILY_GRAD_LR, 1e-2))
         if cfg.rwkv is not None and path_counts()["wkv6_bwd"] == before:
             fail(f"{arch}: wkv6's backward kernel never launched")
+        if attention_applications(cfg) and \
+                path_counts()["flash_attention_bwd"]["fma"] == before_fa:
+            fail(f"{arch}: flash_attention's fma backward never launched")
         release()
     return out
 
 
-# a training step's kernels by family: the attention backward's
-# recompute (flash_attention's attention_grad) runs its products on
-# cuBLAS
+# a training step's kernels by family: flash_attention's backward
+# kernels apart from its forward, and what cuBLAS runs (nothing on
+# qwen2's path: every product is an spm_matmul launch)
 TRAIN_FAMILIES = (
-    TRACE_FAMILIES[:3]
-    + (("cuBLAS products (attention backward's recompute)",
-        TRACE_FAMILIES[3][1]),)
+    TRACE_FAMILIES[:1]
+    + (("flash_attention backward", ("flash_bwd",)),)
+    + TRACE_FAMILIES[1:3]
+    + (("cuBLAS products", TRACE_FAMILIES[3][1]),)
     + TRACE_FAMILIES[4:])
 
 
@@ -2522,6 +2732,7 @@ def phase_train(dev):
     products = train_products(cfg, TRAIN_B, TRAIN_S, train.LOSS_CHUNK)
     want = train_paths(products)
     want_flash = cfg.num_layers
+    want_bwd = {"tensor_core": cfg.num_layers, "fma": 0}
     per_step = res["launches_per_step"]
     loss, js = res["loss"], res["jitter"]
     print(f"phase 9 train: repro_torch.launch.train {' '.join(TRAIN_ARGV)} "
@@ -2543,18 +2754,23 @@ def phase_train(dev):
           f"{res['deadline']['overruns']}", flush=True)
     print(f"phase 9 train: launches per step {per_step[-1]} (reckoned: "
           f"spm_matmul {want}, {sum(want.values())} in all; flash_attention "
-          f"{want_flash}); over the run {paths['spm_matmul']} and "
-          f"{paths['flash_attention']}", flush=True)
+          f"{want_flash}; its backward {want_bwd}); over the run "
+          f"{paths['spm_matmul']}, {paths['flash_attention']} and "
+          f"{paths['flash_attention_bwd']}", flush=True)
     if not all(map(math.isfinite, loss)):
         fail(f"non-finite losses: {loss}")
     for i, st in enumerate(per_step):
-        if st["spm_matmul"] != want or st["flash_attention"] != want_flash:
+        if st["spm_matmul"] != want or st["flash_attention"] != want_flash \
+                or st["flash_attention_bwd"] != want_bwd:
             fail(f"train step {i + 1} launched {st}, reckoned spm_matmul "
-                 f"{want} and flash_attention {want_flash}")
+                 f"{want}, flash_attention {want_flash} and its backward "
+                 f"{want_bwd}")
     if paths["wkv6"]["tensor_core"] or paths["wkv6"]["fma"]:
         fail("wkv6 launched in qwen2's training")
     launches = {"spm_matmul": sum(paths["spm_matmul"].values()),
                 "flash_attention": sum(paths["flash_attention"].values()),
+                "flash_attention_bwd":
+                    sum(paths["flash_attention_bwd"].values()),
                 "wkv6": 0}
     # the last loss must be below the first, and so must the first
     # step's batch's under the trained parameters; 12 steps (10 of them
@@ -2589,9 +2805,9 @@ def phase_train(dev):
 
 # a training step's kernels by family, wkv6's backward apart from its
 # forward
-FAMILY_TRAIN_FAMILIES = (TRAIN_FAMILIES[:2]
+FAMILY_TRAIN_FAMILIES = (TRAIN_FAMILIES[:3]
                          + (("wkv6 backward", ("wkv6_bwd",)),)
-                         + TRAIN_FAMILIES[2:])
+                         + TRAIN_FAMILIES[3:])
 
 
 def attention_applications(cfg):
@@ -2634,6 +2850,7 @@ def phase_train_family(dev, arch, layers, seq, steps, remat, warmup,
                                       remat))
     wkv_layers = cfg.num_layers if cfg.rwkv is not None else 0
     want_flash = fwd * attention_applications(cfg)
+    want_flash_bwd = {"tensor_core": attention_applications(cfg), "fma": 0}
     want_wkv = {"tensor_core": fwd * wkv_layers, "fma": 0}
     want_bwd = {"tensor_core": wkv_layers, "fma": 0}
     loss, js = res["loss"], res["jitter"]
@@ -2652,16 +2869,21 @@ def phase_train_family(dev, arch, layers, seq, steps, remat, warmup,
           f"{res['deadline']['overruns']}", flush=True)
     print(f"phase 9{part} train: launches per step {res['launches_per_step'][-1]}"
           f" (reckoned: spm_matmul {want}, flash_attention {want_flash}, "
-          f"wkv6 {want_wkv}, wkv6 backward {want_bwd}; the run's backward "
-          f"launches by path {paths['wkv6_bwd']})", flush=True)
+          f"its backward {want_flash_bwd}, wkv6 {want_wkv}, wkv6 backward "
+          f"{want_bwd}; the run's backward launches by path: attention "
+          f"{paths['flash_attention_bwd']}, wkv6 {paths['wkv6_bwd']})",
+          flush=True)
     if not all(map(math.isfinite, loss)):
         fail(f"{arch}: non-finite losses: {loss}")
     for i, st in enumerate(res["launches_per_step"]):
         if (st["spm_matmul"] != want or st["flash_attention"] != want_flash
+                or st["flash_attention_bwd"] != want_flash_bwd
                 or st["wkv6"] != want_wkv or st["wkv6_bwd"] != want_bwd):
             fail(f"{arch} train step {i + 1} launched {st}")
     launches = {"spm_matmul": sum(paths["spm_matmul"].values()),
                 "flash_attention": sum(paths["flash_attention"].values()),
+                "flash_attention_bwd":
+                    sum(paths["flash_attention_bwd"].values()),
                 "wkv6": sum(paths["wkv6"].values()),
                 "wkv6_bwd": sum(paths["wkv6_bwd"].values())}
     # the last loss must be below the first, and so must the first
@@ -3353,6 +3575,7 @@ def path_counts():
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     return {"spm_matmul": dict(mm_ops.matmul.paths),
             "flash_attention": dict(fa_ops.attention.paths),
+            "flash_attention_bwd": dict(fa_ops.attention.bwd_paths),
             "wkv6": dict(wkv_ops.wkv.paths),
             "wkv6_bwd": dict(wkv_ops.wkv.bwd_paths)}
 
@@ -3363,10 +3586,12 @@ def reset_launches():
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     mm_ops.matmul.launches = 0
     fa_ops.attention.launches = 0
+    fa_ops.attention.bwd_launches = 0
     wkv_ops.wkv.launches = 0
     wkv_ops.wkv.bwd_launches = 0
     for counts in (mm_ops.matmul.paths, fa_ops.attention.paths,
-                   wkv_ops.wkv.paths, wkv_ops.wkv.bwd_paths):
+                   fa_ops.attention.bwd_paths, wkv_ops.wkv.paths,
+                   wkv_ops.wkv.bwd_paths):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -3383,8 +3608,10 @@ def kernel_summary(rows, launches, replayed, trained):
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:75",
         "wkv6": "src/repro/kernels/wkv6/wkv6.py:84",
-        # the gradient of that kernel's function, which the reference
-        # takes by jax.grad of its jnp chunked form
+        # the gradients of those kernels' functions, which the reference
+        # takes by jax.grad of its jnp forms
+        "flash_attention_bwd":
+            "src/repro/kernels/flash_attention/flash_attention.py:75",
         "wkv6_bwd": "src/repro/kernels/wkv6/wkv6.py:84"}
     out = []
     for name, replaces in replaced.items():
@@ -3440,6 +3667,19 @@ def main():
         rows = run_wkv_bwd(dev, gen)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_wkv_bwd.json").write_text(json.dumps(
+            rows, indent=1, default=str))
+        return
+    if sys.argv[1:] == ["9a"]:
+        # flash_attention's backward cases of phase 9(a) alone, after the
+        # device and the build: no result lines
+        os.environ["REPRO_AUTOTUNE"] = "0"
+        dev, _ = phase_device()
+        phase_build()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(10)
+        rows = run_flash_bwd(dev, gen)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_flash_bwd.json").write_text(json.dumps(
             rows, indent=1, default=str))
         return
     if sys.argv[1:] == ["11"]:

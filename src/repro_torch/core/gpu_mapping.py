@@ -77,6 +77,14 @@ FLASH_BK = 64           # keys of a K/V tile
 FLASH_TC_PAD = 8        # tensor-core path: row padding, in elements
 FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)   # the compiled head dims
 FLASH_PATHS = ("tensor_core", "fma")
+# csrc/flash_attention_bwd.cu's layouts (the kernels' constants; tests
+# read them back)
+FLASH_BWD_TILE = 64     # own rows of a block: queries (dQ), keys (dK/dV)
+FLASH_BWD_TC_SPLIT_D = 128   # tensor_core dK/dV: above this head dim the
+#                              block's 8 warps split the head dim in two
+FLASH_BWD_FMA_WIDE_D = 128   # fma: above this head dim the streamed tile
+FLASH_BWD_FMA_NARROW = 32    # is 32 rows (else FLASH_BWD_TILE) and dK/dV
+#                              takes 4 threads a key row (else 2)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -257,6 +265,52 @@ def flash_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
     return {"smem_need": need, "smem_bytes": chip.smem_bytes,
             "fits": need <= chip.smem_bytes,
             "blocks_per_sm": blocks_per_sm(need, FLASH_THREADS, chip)}
+
+
+def flash_bwd_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
+    """Shared memory and threads of the two blocks of
+    ``csrc/flash_attention_bwd.cu`` at head dim ``D`` (``dq``: a block
+    of 64 queries walking key tiles; ``dkdv``: a block of 64 keys
+    walking the query tiles of its GQA group's heads), and whether both
+    fit; the wrapper checks it before each launch.
+
+    ``tensor_core`` (bf16, rows padded by ``FLASH_TC_PAD``; the launchers
+    ``tc_dq_smem`` and ``tc_dkdv_smem`` size the same sums): the block's
+    own two tiles (q and dO, or k and v) and two buffers each of the two
+    streamed tiles, [64, D + pad] each; fp32 lse of 64 rows (dQ), or lse
+    and D_i of 64 rows in two buffers (dK/dV).  dK/dV runs 8 warps above
+    head dim ``FLASH_BWD_TC_SPLIT_D`` (two warps a row group, each half
+    the head dim), else 4.  ``fma`` (fp32, rows padded by one;
+    ``fma_dq_smem``, ``fma_dkdv_smem``): the own tiles [64, D + 1], the
+    streamed tiles [T, D + 1] (T = 64, or ``FLASH_BWD_FMA_NARROW`` above
+    head dim ``FLASH_BWD_FMA_WIDE_D``), dS [64, T + 1] (dK/dV: P too and
+    lse and D_i of the T streamed rows); dQ 2 threads a query row, dK/dV
+    2 (4 above that head dim) a key row."""
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
+    R = FLASH_BWD_TILE
+    if path == "tensor_core":
+        tile = R * (D + FLASH_TC_PAD) * 2
+        need = {"dq": 6 * tile + R * 4, "dkdv": 6 * tile + 4 * R * 4}
+        threads = {"dq": FLASH_THREADS,
+                   "dkdv": FLASH_THREADS * (2 if D > FLASH_BWD_TC_SPLIT_D
+                                            else 1)}
+    elif path == "fma":
+        wide = D > FLASH_BWD_FMA_WIDE_D
+        T = FLASH_BWD_FMA_NARROW if wide else R
+        own = 2 * (R + T) * (D + 1)
+        need = {"dq": 4 * (own + R * (T + 1)),
+                "dkdv": 4 * (own + 2 * R * (T + 1) + 2 * T)}
+        threads = {"dq": 2 * R, "dkdv": (4 if wide else 2) * R}
+    else:
+        raise ValueError(f"path {path!r} not in {FLASH_PATHS}")
+    kernels = {name: {"smem_need": need[name], "threads": threads[name],
+                      "blocks_per_sm": blocks_per_sm(need[name],
+                                                     threads[name], chip)}
+               for name in need}
+    worst = max(need.values())
+    return {"kernels": kernels, "smem_need": worst,
+            "smem_bytes": chip.smem_bytes, "fits": worst <= chip.smem_bytes}
 
 
 def gpu_matmul_schedule(m: int, k: int, n: int, *, n_devices: int = 1,

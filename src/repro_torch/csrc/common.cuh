@@ -59,6 +59,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Rows r0..r0+ROWS-1 of G (row stride ld elements, D contiguous bf16) into
+// S [ROWS][LD] by cp.async, 16 bytes a copy, NT threads sharing the
+// copies; rows past R are zeros.  Rows of G and S start on 16 bytes.
+template <int ROWS, int D, int LD, int NT>
+__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* S,
+                                              const __nv_bfloat16* G,
+                                              long long ld, int r0, int R) {
+  constexpr int CPR = D / 8;  // 16-byte pieces per row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * 8;
+    const int gr = r0 + r;
+    const bool in = gr < R;
+    cp_async16_zfill(S + r * LD + c,
+                     G + (in ? static_cast<long long>(gr) * ld + c : 0), in);
+  }
+}
+
 // ------------------------------------------------------------ mma.sync
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,

@@ -48,6 +48,10 @@
 // rows still hit eight distinct bank groups.
 //
 // Both kernels:
+//   * Given an `lse` pointer ([B, H, Sq] fp32), they also write each
+//     row's log-sum-exp of its masked, scaled scores, m + log(l), for
+//     the backward (csrc/flash_attention_bwd.cu); with a null pointer
+//     they write nothing more, and o's bits are the same either way.
 //   * GQA: head h reads KV head h / (H / KV) through strides, so q, k
 //     and v are read in their [B, S, heads, D] layout without copies.
 //   * Ragged q and kv edges are masked here (the TPU kernel asserted
@@ -82,6 +86,7 @@ constexpr int kBQ = 64;  // queries per block
 constexpr int kBK = 64;  // keys per kv tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // p as the PV product sees it: rounded to v's type.
 template <typename T>
@@ -92,7 +97,8 @@ __device__ __forceinline__ float round_to(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K,
-                     const T* __restrict__ V, T* __restrict__ O, int Sq,
+                     const T* __restrict__ V, T* __restrict__ O,
+                     float* __restrict__ lse, int Sq,
                      int Sk, int H, int KV, long long q_sb, long long q_ss,
                      long long q_sh, long long k_sb, long long k_ss,
                      long long k_sh, long long v_sb, long long v_ss,
@@ -196,12 +202,14 @@ __global__ void __launch_bounds__(kThreads)
     T* orow = O + b * o_sb + qpos * o_ss + h * o_sh + half * HALF_D;
 #pragma unroll
     for (int i = 0; i < HALF_D; ++i) orow[i] = from_f32<T>(acc[i] / denom);
+    if (lse != nullptr && half == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qpos] = m + logf(denom);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KV,
+                     float* lse, int B, int Sq, int Sk, int H, int KV,
                      const long long* st, int causal, int window, float scale,
                      cudaStream_t stream) {
   const size_t smem =
@@ -218,7 +226,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, st[0],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], causal, window, scale);
   return cudaGetLastError();
@@ -226,24 +234,25 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* o, int B, int Sq, int Sk, int H, int KV, int D,
+                         void* o, float* lse, int B, int Sq, int Sk, int H,
+                         int KV, int D,
                          const long long* st, int causal, int window,
                          float scale, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
-                             scale, s);
+      return launch_d<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
+                             window, scale, s);
     case 64:
-      return launch_d<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
-                             scale, s);
+      return launch_d<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
+                             window, scale, s);
     case 112:
-      return launch_d<T, 112>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+      return launch_d<T, 112>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                               window, scale, s);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+      return launch_d<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                               window, scale, s);
     case 256:
-      return launch_d<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+      return launch_d<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                               window, scale, s);
     default:
       return cudaErrorInvalidValue;
@@ -255,28 +264,12 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 using bf16 = __nv_bfloat16;
 
-// Rows r0..r0+63 of G (row stride ld elements, D contiguous) into S
-// [kBK][D + 8] by cp.async, 16 bytes a copy; rows past R are zeros.
-template <int D>
-__device__ __forceinline__ void tc_load_tile(bf16* S, const bf16* G,
-                                             long long ld, int r0, int R) {
-  constexpr int LD = D + 8;
-  constexpr int CPR = D / 8;  // 16-byte pieces per row
-  for (int idx = threadIdx.x; idx < kBK * CPR; idx += kThreads) {
-    const int r = idx / CPR;
-    const int c = (idx - r * CPR) * 8;
-    const int gr = r0 + r;
-    const bool in = gr < R;
-    cp_async16_zfill(S + r * LD + c,
-                     G + (in ? static_cast<long long>(gr) * ld + c : 0), in);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_tc_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                         const bf16* __restrict__ V, bf16* __restrict__ O,
-                        int Sq, int Sk, int H, int KV, int nqt,
+                        float* __restrict__ lse, int Sq, int Sk, int H,
+                        int KV, int nqt,
                         long long q_sb, long long q_ss, long long q_sh,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
@@ -317,11 +310,11 @@ __global__ void __launch_bounds__(kThreads)
   const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + kBK - 1) / kBK
                                        : 0;
 
-  tc_load_tile<D>(Qs, qb, q_ss, q0, Sq);
+  cp_async_tile<kBK, D, LD, kThreads>(Qs, qb, q_ss, q0, Sq);
   cp_async_commit();
   if (ntiles > 0) {
-    tc_load_tile<D>(Ks, kb, k_ss, kv_begin, Sk);
-    tc_load_tile<D>(Vs, vb, v_ss, kv_begin, Sk);
+    cp_async_tile<kBK, D, LD, kThreads>(Ks, kb, k_ss, kv_begin, Sk);
+    cp_async_tile<kBK, D, LD, kThreads>(Vs, vb, v_ss, kv_begin, Sk);
   }
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed
@@ -352,8 +345,10 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = kv_begin + it * kBK;
     const int buf = it & 1;
     if (it + 1 < ntiles) {  // the next tile loads while this one runs
-      tc_load_tile<D>(Ks + (buf ^ 1) * kBK * LD, kb, k_ss, k0 + kBK, Sk);
-      tc_load_tile<D>(Vs + (buf ^ 1) * kBK * LD, vb, v_ss, k0 + kBK, Sk);
+      cp_async_tile<kBK, D, LD, kThreads>(Ks + (buf ^ 1) * kBK * LD, kb,
+                                          k_ss, k0 + kBK, Sk);
+      cp_async_tile<kBK, D, LD, kThreads>(Vs + (buf ^ 1) * kBK * LD, vb,
+                                          v_ss, k0 + kBK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -472,11 +467,16 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<__nv_bfloat162*>(ob + row_hi * o_ss + j * 8) =
           __floats2bfloat162_rn(acc[j][2] / d_hi, acc[j][3] / d_hi);
   }
+  if (lse != nullptr && t == 0) {  // m is in the log2 domain
+    float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq;
+    if (row_lo < Sq) lrow[row_lo] = (m_lo + log2f(d_lo)) * kLn2;
+    if (row_hi < Sq) lrow[row_hi] = (m_hi + log2f(d_hi)) * kLn2;
+  }
 }
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int Sq, int Sk, int H, int KV,
+                      float* lse, int B, int Sq, int Sk, int H, int KV,
                       const long long* st, int causal, int window,
                       float scale, cudaStream_t stream) {
   const size_t smem =
@@ -493,7 +493,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, nqt);
   flash_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV, nqt,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H, KV,
+      nqt,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], causal, window, scale * kLog2e);
   return cudaGetLastError();
@@ -502,19 +503,22 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and o in
-// that order; the head dim must be contiguous.  bf16: 1 = bf16, 0 = fp32.
+// that order; the head dim must be contiguous.  lse: null, or [B, H, Sq]
+// fp32 for the rows' log-sum-exp.  bf16: 1 = bf16, 0 = fp32.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, float* lse,
+                                      int B, int Sq,
                                       int Sk, int H, int KV, int D,
                                       const long long* strides, int causal,
                                       int window, float scale, int bf16,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bf16 ? launch_typed<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, D,
-                                         strides, causal, window, scale, s)
-           : launch_typed<float>(q, k, v, o, B, Sq, Sk, H, KV, D, strides,
-                                 causal, window, scale, s);
+      bf16 ? launch_typed<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                         D, strides, causal, window, scale,
+                                         s)
+           : launch_typed<float>(q, k, v, o, lse, B, Sq, Sk, H, KV, D,
+                                 strides, causal, window, scale, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -523,7 +527,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // Every row of q, k and v must start on a 16-byte boundary (the
 // wrapper checks the pointers and strides).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B,
+                                         const void* v, void* o, float* lse,
+                                         int B,
                                          int Sq, int Sk, int H, int KV, int D,
                                          const long long* strides, int causal,
                                          int window, float scale,
@@ -532,23 +537,23 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   cudaError_t err;
   switch (D) {
     case 32:
-      err = launch_tc<32>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+      err = launch_tc<32>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
                           window, scale, s);
       break;
     case 64:
-      err = launch_tc<64>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+      err = launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
                           window, scale, s);
       break;
     case 112:
-      err = launch_tc<112>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+      err = launch_tc<112>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
                            window, scale, s);
       break;
     case 128:
-      err = launch_tc<128>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+      err = launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
                            window, scale, s);
       break;
     case 256:
-      err = launch_tc<256>(q, k, v, o, B, Sq, Sk, H, KV, strides, causal,
+      err = launch_tc<256>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
                            window, scale, s);
       break;
     default:

@@ -25,13 +25,20 @@ v are read in place through their strides (the head dim must be
 contiguous).
 
 Training: under grad mode, a call whose q, k or v needs a gradient runs
-through ``FlashAttention`` (a ``torch.autograd.Function``): the forward
-is this wrapper's call (the kernel on CUDA), the backward
-(``attention_grad``) recomputes the reference model's attention
-(``ref.attention_block``) under autograd, one block of queries at a
-time.  No TPU kernel computes attention's gradient: the reference has
-no backward kernel, and ``jax.grad`` differentiates its jnp ``sdpa``.
-Every other call, serving's among them, takes the direct route.
+through ``FlashAttention`` (a ``torch.autograd.Function``).  On CUDA its
+forward launches the kernel with the rows' log-sum-exp (``lse``) and
+keeps q, k, v and lse; its backward launches the hand-written
+backward ``csrc/flash_attention_bwd.cu`` (``attention_bwd``: a dQ launch
+and a dK/dV launch, deterministic) on the path ``bwd_dispatch`` routes
+it to, and adds one to ``attention.bwd_launches`` and to that path's
+count in ``attention.bwd_paths``; it launches or raises.  On the CPU and
+on ``meta`` the forward is the plain version and the backward is
+``attention_grad``, the backward's plain version, which recomputes the
+reference model's attention (``ref.attention_block``) under autograd,
+one block of queries at a time.  No TPU kernel computes attention's
+gradient: the reference has no backward kernel, and ``jax.grad``
+differentiates its jnp ``sdpa``.  Every other call, serving's among
+them, takes the direct route and asks for no lse.
 
 What bounds it on the card, and what the design does about it, is in
 the source note of ``csrc/flash_attention.cu``.
@@ -45,6 +52,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, FLASH_PATHS,
+                                          flash_bwd_smem_plan,
                                           flash_smem_plan)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (NEG_INF,
@@ -54,9 +62,10 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF,
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65_535
 PATHS = FLASH_PATHS
-# queries per block of attention_grad's recompute: one block's fp32
-# scores at qwen2's training shape (batch 4, 4096 keys, 14 heads) are
-# 4 x 14 x 512 x 4096 x 4 B = 470 MB
+# queries per block of attention_grad's recompute (the backward's plain
+# version, which runs for CPU and meta tensors and for chip_smoke.py's
+# comparison): one block's fp32 scores at qwen2's training shape (batch
+# 4, 4096 keys, 14 heads) are 4 x 14 x 512 x 4096 x 4 B = 470 MB
 BWD_CHUNK_Q = 512
 
 attention_plain = attention_ref
@@ -69,14 +78,30 @@ def select_path(dtype: torch.dtype, aligned: bool) -> str:
     return "tensor_core" if dtype == torch.bfloat16 and aligned else "fma"
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_COMMON = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-           ctypes.POINTER(ctypes.c_longlong), _I, _I, ctypes.c_float]
+def bwd_dispatch(D: int, dtype: torch.dtype, aligned: bool) -> dict:
+    """The backward's launch, decided before it: the path
+    (``select_path``'s rule over q, k, v and do) and
+    its two blocks' shared memory and threads
+    (``core.gpu_mapping.flash_bwd_smem_plan``).  Pure Python."""
+    path = select_path(dtype, aligned)
+    return {"path": path, **flash_bwd_smem_plan(D, path)}
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_COMMON = [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, _F]
 # each path's C entry in csrc/flash_attention.cu and its argument types:
-# q, k, v, o, B, Sq, Sk, H, KV, D, strides, causal, window, scale, (the
-# fma kernel's dtype flag,) the stream
+# q, k, v, o, lse (null: not written), B, Sq, Sk, H, KV, D, strides,
+# causal, window, scale, (the fma kernel's dtype flag,) the stream
 ENTRIES = {"tensor_core": ("flash_attention_tc_launch", _COMMON + [_P]),
            "fma": ("flash_attention_launch", _COMMON + [_I, _P])}
+_BWD_COMMON = [_P] * 9 + [_I] * 6 + [_STRIDES, _I, _I, _F]
+# the backward's C entries in csrc/flash_attention_bwd.cu: q, k, v, do,
+# lse, delta (scratch), dq, dk, dv, B, Sq, Sk, H, KV, D, strides, causal,
+# window, scale, (the fma kernels' dtype flag,) the stream
+BWD_ENTRIES = {
+    "tensor_core": ("flash_attention_bwd_tc_launch", _BWD_COMMON + [_P]),
+    "fma": ("flash_attention_bwd_launch", _BWD_COMMON + [_I, _P])}
 
 
 def launch_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
@@ -99,10 +124,13 @@ def launch_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
     return plan
 
 
-def _lib(path: str):
-    """The C entry of ``path``'s kernel, argument types set once."""
-    name, argtypes = ENTRIES[path]
-    fn = getattr(_build.load("flash_attention"), name)
+def _lib(path: str, backward: bool = False):
+    """The C entry of ``path``'s kernel (the backward's when
+    ``backward``), argument types set once."""
+    source, (name, argtypes) = (
+        ("flash_attention_bwd", BWD_ENTRIES[path]) if backward
+        else ("flash_attention", ENTRIES[path]))
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -153,34 +181,49 @@ def _attention(q, k, v, causal, window, scale, bq=None, bk=None):
     return _launch(q, k, v, causal, window, scale, bq, bk)
 
 
-def _launch(q, k, v, causal, window, scale, bq=None, bk=None):
-    """Launch the CUDA kernel ``select_path`` picks, or raise."""
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
+def _check_card(*ts: torch.Tensor) -> None:
+    """One CUDA device, contiguous head dims, a problem the grids take."""
+    q, k = ts[0], ts[1]
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError("flash_attention runs on one CUDA device or the "
-                         f"CPU: {q.device}, {k.device}, {v.device}")
-    launch_plan(B, Sq, Sk, H, KV, D, causal, window, q.dtype, bq, bk)
-    if any(t.stride(3) != 1 for t in (q, k, v)):
+                         f"CPU: {[str(t.device) for t in ts]}")
+    if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention needs a contiguous head dim")
+    B, Sq, H, _ = q.shape
+    Sk = k.shape[1]
     if B * H > _MAX_GRID_Y or min(B, Sq, Sk) == 0:
         raise ValueError(f"unsupported problem B={B} H={H} Sq={Sq} Sk={Sk}")
-    aligned = all(t.data_ptr() % 16 == 0
-                  and all(s % 8 == 0 for s in t.stride()[:3])
-                  for t in (q, k, v))
-    path = select_path(q.dtype, aligned)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Whether every row of every operand starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s in t.stride()[:3]) for t in ts)
+
+
+def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
+            with_lse=False):
+    """Launch the CUDA kernel ``select_path`` picks, or raise: o, or
+    with ``with_lse`` (o, lse [B, H, Sq] fp32)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    _check_card(q, k, v)
+    launch_plan(B, Sq, Sk, H, KV, D, causal, window, q.dtype, bq, bk)
+    path = select_path(q.dtype, _aligned(q, k, v))
     plan = flash_smem_plan(D, path)
     if not plan["fits"]:
         raise ValueError(f"flash_attention {path} at head dim {D} needs "
                          f"{plan['smem_need']} bytes of shared memory, "
                          f"over {plan['smem_bytes']}")
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-            Sk, H, KV, D, strides, int(causal), int(window), float(scale))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, D,
+            strides, int(causal), int(window), float(scale))
     if path == "tensor_core":
         err = _lib(path)(*args, stream)
     else:
@@ -191,7 +234,60 @@ def _launch(q, k, v, causal, window, scale, bq=None, bk=None):
                            f" {path})")
     attention.launches += 1
     attention.paths[path] += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def attention_bwd(q, k, v, lse, do, *, causal: bool, window: int,
+                  scale: float):
+    """(dq, dk, dv) by the backward kernel (``csrc/flash_attention_bwd
+    .cu``) on CUDA operands: ``lse`` is the forward's, ``do`` the
+    output's gradient.  Routed by ``bwd_dispatch``; raises on what the
+    kernel does not take."""
+    _check(q, k, v)
+    do = do.contiguous() if do.stride(3) != 1 else do
+    _check_card(q, k, v, do)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise TypeError(f"do must match q: {tuple(do.shape)} {do.dtype}")
+    B, Sq, H, D = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be [B, H, Sq] fp32 contiguous: "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    return _bwd_launch(q, k, v, lse, do, causal, window, scale)
+
+
+def _bwd_launch(q, k, v, lse, do, causal, window, scale):
+    """The backward's two launches, on the path ``bwd_dispatch`` routes
+    the operands ``attention_bwd`` has checked to; the gradients come out
+    contiguous, in q's, k's and v's dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    route = bwd_dispatch(D, q.dtype, _aligned(q, k, v, do))
+    path = route["path"]
+    if not route["fits"]:
+        raise ValueError(f"flash_attention backward {path} at head dim {D} "
+                         f"needs {route['smem_need']} bytes of shared "
+                         f"memory, over {route['smem_bytes']}")
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KV, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KV, D), dtype=v.dtype, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 21)(
+        *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Sq, Sk, H, KV, D, strides, int(causal),
+            int(window), float(scale))
+    flag = () if path == "tensor_core" else (int(q.dtype == torch.bfloat16),)
+    err = _lib(path, backward=True)(*args, *flag, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err} (q {tuple(q.shape)}, kv "
+                           f"{tuple(k.shape)}, {path})")
+    attention.bwd_launches += 1
+    attention.bwd_paths[path] += 1
+    return dq, dk, dv
 
 
 def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -236,24 +332,33 @@ def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttention(torch.autograd.Function):
-    """flash_attention under autograd: the forward is the wrapper's call
-    (the kernel on CUDA, the plain version on the CPU); the backward is
-    ``attention_grad`` and returns dq, dk and dv."""
+    """flash_attention under autograd.  On CUDA: the forward kernel with
+    the rows' log-sum-exp, and the backward kernel (``attention_bwd``).
+    On the CPU and ``meta``: the plain forward, and ``attention_grad``.
+    The backward returns dq, dk and dv."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, pins):
-        ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, scale)
-        return _attention(q, k, v, causal, window, scale, *pins)
+        if _on_cpu(q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return attention_plain(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        o, lse = _launch(q, k, v, causal, window, scale, *pins,
+                         with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
         causal, window, scale = ctx.mask
-        dq, dk, dv = attention_grad(q, k, v, do, causal=causal,
-                                    window=window, scale=scale)
-        return dq, dk, dv, None, None, None, None
+        saved = ctx.saved_tensors       # unpacked once (remat's rule)
+        grad = attention_grad if len(saved) == 3 else attention_bwd
+        grads = grad(*saved, do, causal=causal, window=window, scale=scale)
+        return (*grads, None, None, None, None)
 
 
 attention.launches = 0
+attention.bwd_launches = 0
 attention.paths = dict.fromkeys(PATHS, 0)
+attention.bwd_paths = dict.fromkeys(PATHS, 0)

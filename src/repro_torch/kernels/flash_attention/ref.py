@@ -7,14 +7,23 @@ inputs' dtype and casts, which for bf16 rounds the scores first; the
 TPU kernel and the CUDA kernel both accumulate in fp32).
 
 The wrapper in ``ops.py`` runs this for CPU tensors; ``chip_smoke.py``
-holds the CUDA kernel against it on the card.
+holds the CUDA kernel against it on the card.  ``with_lse=True`` also
+returns each row's log-sum-exp of its masked, scaled scores, [B, H, Sq]
+fp32, which the CUDA forward writes for the backward.
 
 ``attention_block`` is the reference model's attention over one block
 (its ``models/attention.py::_block_attn``): products in the inputs'
 dtype, softmax in fp32.  ``jax.grad`` of that form is the reference's
 attention gradient; the port's ``models.attention.sdpa`` runs it, and
-``ops.attention_grad`` recomputes it under autograd for the kernel's
-backward.
+``ops.attention_grad``, the backward's plain version, recomputes it
+under autograd for CPU and ``meta`` tensors.
+
+``attention_bwd_tiles`` is the recipe of the CUDA backward
+(``csrc/flash_attention_bwd.cu``) written tile by tile in plain torch:
+P from the saved log-sum-exp, D_i = sum_k P dP, dS = P (dP - D_i),
+with the kernel's tile walk, masks and rounding points.  The CPU tests
+hold it to ``jax.grad`` of the reference's ``sdpa`` and to
+``attention_grad``.
 """
 import math
 from typing import Optional
@@ -22,6 +31,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+BLOCK = 64      # the CUDA kernels' query and key tiles
 
 
 def visible(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
@@ -49,8 +59,9 @@ def attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] -> [B,Sq,H,D]."""
+                  scale: Optional[float] = None, with_lse: bool = False):
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] -> [B,Sq,H,D]; with ``with_lse``
+    also the rows' log-sum-exp [B,H,Sq] fp32."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -60,7 +71,89 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ok = visible(torch.arange(Sq, device=q.device),
                  torch.arange(Sk, device=q.device), causal, window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
+    s_max = s.amax(-1, keepdim=True)
+    p = torch.exp(s - s_max)
+    total = p.sum(-1, keepdim=True)
+    p = p / total
     o = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), v.float())
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    o = o.reshape(B, Sq, H, D).to(q.dtype)
+    if not with_lse:
+        return o
+    lse = (s_max + torch.log(total)).reshape(B, H, Sq)
+    return o, lse
+
+
+def attention_bwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool, window: int, scale: float,
+                        block: int = BLOCK,
+                        o: Optional[torch.Tensor] = None,
+                        split_dq: bool = True):
+    """(dq, dk, dv) of attention by the CUDA backward's recipe.
+    q, do: [B,Sq,H,D]; k, v: [B,Sk,KV,D]; lse: [B,H,Sq] from the
+    forward.  In fp32: S = scale q k^T, P = exp(S - lse) (0 where
+    masked), dP = dO v^T, D_i = sum_k P dP (not rowsum(dO * O), whose O
+    the forward rounded), dS = P (dP - D_i); then per (key tile, query
+    tile) pair that the mask lets through, dV +=
+    P^T dO, dK += dS^T q, dQ += dS k, with P and dS rounded to the
+    inputs' dtype as the tensor cores take them (a no-op in fp32), dS for
+    dQ as the sum of two such parts (hi and the rounded rest: along a
+    query's row dS sums to zero, and one rounding of each term leaves
+    the sum's error to rows that see few keys); dQ and dK times
+    ``scale`` at the end, each gradient rounded once to its input's
+    dtype.  ``o`` given (the forward's output) and ``split_dq`` False
+    model the usual FlashAttention-2 recipe instead, D_i = rowsum(dO * O)
+    and one rounding of dS for dQ, which ``tolerance.flash_bwd_main``
+    reads beside this one."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dt = q.dtype
+
+    def operand(x):
+        return x.to(dt).float()
+
+    def split(x):               # hi + lo, each in the inputs' dtype
+        hi = operand(x)
+        return hi + operand(x - hi)
+
+    qf = q.float().reshape(B, Sq, KV, G, D)
+    dof = do.float().reshape(B, Sq, KV, G, D)
+    kf, vf = k.float(), v.float()
+    lse = lse.float().reshape(B, KV, G, Sq)
+    ok = visible(torch.arange(Sq, device=q.device),
+                 torch.arange(Sk, device=q.device), causal, window)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, kf) * scale
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    if o is None:
+        delta = (p * torch.einsum("bqkgd,btkd->bkgqt", dof, vf)).sum(-1)
+    else:
+        delta = (do.float() * o.float()).sum(-1).reshape(B, Sq, KV, G)
+        delta = delta.permute(0, 2, 3, 1)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k0 in range(0, Sk, block):
+        k1 = min(Sk, k0 + block)
+        # the query tiles that may see a key of [k0, k1): causal, none
+        # before k0's; a window, none from k1 - 1 + window on
+        q_begin = k0 if causal else 0
+        q_end = min(Sq, k1 - 1 + window) if window > 0 else Sq
+        for q0 in range(q_begin, q_end, block):
+            q1 = min(Sq, q0 + block)
+            ok = visible(torch.arange(q0, q1, device=q.device),
+                         torch.arange(k0, k1, device=q.device), causal,
+                         window)
+            qt, dot = qf[:, q0:q1], dof[:, q0:q1]
+            kt, vt = kf[:, k0:k1], vf[:, k0:k1]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qt, kt) * scale
+            p = torch.where(ok, torch.exp(s - lse[..., q0:q1, None]), 0.0)
+            dp = torch.einsum("bqkgd,btkd->bkgqt", dot, vt)
+            ds = p * (dp - delta[..., q0:q1, None])
+            dv[:, k0:k1] += torch.einsum("bkgqt,bqkgd->btkd", operand(p), dot)
+            dk[:, k0:k1] += torch.einsum("bkgqt,bqkgd->btkd", operand(ds), qt)
+            dq[:, q0:q1] += torch.einsum(
+                "bkgqt,btkd->bqkgd", split(ds) if split_dq else operand(ds),
+                kt)
+    return ((dq * scale).reshape(B, Sq, H, D).to(dt), (dk * scale).to(dt),
+            dv.to(dt))

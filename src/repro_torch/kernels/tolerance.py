@@ -49,6 +49,27 @@ would need a wider allowance (``python -m
 repro_torch.kernels.tolerance``).  The backward's planted faults
 (``wkv_bwd_planted_faults``) read over 1e3.
 
+flash_attention's backward (``csrc/flash_attention_bwd.cu``) is held
+gradient by gradient (``check_flash_grad``) to its plain version
+(``ops.attention_grad``) evaluated in fp32 on the same inputs: dq, dk
+and dv each by the rule above in q's dtype; dk and dv with a row per
+(key, head), dq with its rows along the sequence, one per (b, head,
+dim), as wkv6's dw_log: under the causal mask the first query's row is
+exactly 0 (its softmax has one term, so dP = D_i), which the plain
+version's softmax backward gives exactly and the kernel, taking D_i =
+rowsum(dO * O) in another order than dP, only to rounding.  The plain
+version in bf16 takes its products in bf16 (the reference model's
+block form), so its scores are rounded to bf16 before the softmax: on
+the CPU that alone reads 0.55-2.0 of the allowance against its fp32
+evaluation, while the kernel's recipe in plain torch
+(``flash_attention.ref.attention_bwd_tiles``: P and dS rounded to bf16
+before their products, dS in two bf16 parts for dQ, D_i = sum_k P dP)
+reads 0.15-0.4, the usual FlashAttention-2 recipe (D_i = rowsum(dO *
+O) with O rounded to bf16, one rounding of dS) 1.3-2.5 on dq under the
+causal mask, and the planted faults (``flash_bwd_planted_faults``: the
+scale 5 % off, lse shifted by 0.05, the last key tile dropped) over 3
+(``flash_bwd_main``; ``tests/test_torch_flash_grad.py``).
+
 Run it to print, at the serve prefill shapes on the CPU, the worst error
 of the modelled kernels and of planted faults as shares of the
 allowance (under 1 passes), and for attention that older reading
@@ -116,6 +137,51 @@ def check_wkv_grad(got, want, dtype: torch.dtype):
         shares[name], diff = check(g, w, dt, "wkv6_bwd")
         worst_diff = max(worst_diff, diff)
     return max(shares.values()), worst_diff, shares
+
+
+# flash_attention's gradients, in the order the backward returns them
+FLASH_GRADS = ("dq", "dk", "dv")
+
+
+def check_flash_grad(got, want, dtype: torch.dtype):
+    """``check`` of flash_attention's (dq, dk, dv) against the plain
+    version's, each in ``dtype``; dq with its rows along the sequence,
+    one per (b, head, dim).  (worst share, max abs err, {gradient:
+    share})."""
+    shares, worst_diff = {}, 0.0
+    for name, g, w in zip(FLASH_GRADS, got, want):
+        if name == "dq":            # its rows run down the sequence
+            g, w = g.movedim(1, -1), w.movedim(1, -1)
+        shares[name], diff = check(g, w, dtype)
+        worst_diff = max(worst_diff, diff)
+    return max(shares.values()), worst_diff, shares
+
+
+def flash_bwd_planted_faults(bwd_fn, q, k, v, lse, do, *, causal: bool,
+                             window: int, scale: float,
+                             tile: int = 64) -> dict:
+    """{name: (dq, dk, dv)}: wrong gradients made from ``bwd_fn`` (the
+    backward kernel on the card, ``ref.attention_bwd_tiles`` here; it
+    takes q, k, v, lse, do and the keywords causal, window, scale):
+    the scale 5 % off (the forward's lse kept); lse shifted by 0.05 (P
+    5 % low); the last key tile dropped (the backward over the keys
+    before it, that tile's dk and dv left zero)."""
+    kw = {"causal": causal, "window": window}
+    cut = (k.shape[1] - 1) // tile * tile
+    if cut == 0:
+        raise ValueError("dropping a key tile needs more than one tile")
+    dq, dk, dv = bwd_fn(q, k[:, :cut], v[:, :cut], lse, do, scale=scale,
+                        **kw)
+
+    def pad(g):
+        return torch.cat([g, torch.zeros_like(g[:, :k.shape[1] - cut])], 1)
+
+    return {
+        "scale x1.05": bwd_fn(q, k, v, lse, do, scale=1.05 * scale, **kw),
+        "lse shifted by 0.05": bwd_fn(q, k, v, lse + 0.05, do, scale=scale,
+                                      **kw),
+        "last key tile dropped": (dq, pad(dk), pad(dv)),
+    }
 
 
 def wkv_bwd_planted_faults(bwd_fn, r, k, v, w_log, u, dy, dstate,
@@ -873,7 +939,49 @@ def wkv_bwd_main() -> None:
                       for name, f in faults.items()))
 
 
+def flash_bwd_main() -> None:
+    """flash_attention's backward on the CPU, bf16, against
+    ``attention_grad`` evaluated in fp32 on the same inputs (the check
+    ``chip_smoke.py`` holds the kernel to): the plain version itself in
+    bf16, the kernel's recipe (``ref.attention_bwd_tiles``), the usual
+    FlashAttention-2 recipe (D_i = rowsum(dO * O) with the forward's
+    rounded O, one bf16 rounding of dS for dQ) and the planted faults."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_tiles,
+                                                         attention_ref)
+    bf = torch.bfloat16
+    for B, Sq, Sk, H, KV, D, causal, window in (
+            (1, 192, 192, 7, 1, 64, True, 0), (1, 160, 160, 4, 2, 32, True, 48),
+            (1, 96, 200, 4, 4, 112, False, 0), (1, 256, 256, 7, 1, 64, True, 0)):
+        rng = np.random.default_rng(Sq + D)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(bf) for shape in ((B, Sq, H, D), (B, Sk, KV, D),
+                                              (B, Sk, KV, D), (B, Sq, H, D)))
+        kw = {"causal": causal, "window": window, "scale": D ** -0.5}
+        want = ops.attention_grad(*(t.float() for t in (q, k, v, do)), **kw)
+        o, lse = attention_ref(q, k, v, with_lse=True, **kw)
+        read = {
+            "plain in bf16": ops.attention_grad(q, k, v, do, **kw),
+            "recipe": attention_bwd_tiles(q, k, v, lse, do, **kw),
+            "FA2 recipe": attention_bwd_tiles(q, k, v, lse, do, o=o,
+                                              split_dq=False, **kw)}
+        faults = flash_bwd_planted_faults(attention_bwd_tiles, q, k, v, lse,
+                                          do, **kw)
+        print(f"flash backward B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} D{D} causal="
+              f"{causal} window {window} bf16, against attention_grad in "
+              f"fp32: " + ", ".join(
+                  f"{name} " + "/".join(f"{r:.3f}" for r in check_flash_grad(
+                      g, want, bf)[2].values()) + " (dq/dk/dv)"
+                  for name, g in read.items())
+              + "; faults " + ", ".join(
+                  f"{name} {check_flash_grad(g, want, bf)[0]:.1f}"
+                  for name, g in faults.items()))
+
+
 if __name__ == "__main__":
     main()
     wkv_main()
     wkv_bwd_main()
+    flash_bwd_main()

@@ -20,8 +20,8 @@ num_layers=N), ...)``.
 
 On CUDA every forward and backward product of the step is an
 ``spm_matmul`` launch, every prefill-form attention a
-``flash_attention`` launch (its backward, ``attention_grad``,
-recomputes the attention under autograd), and every RWKV layer's WKV a
+``flash_attention`` launch and, in the backward, a
+``csrc/flash_attention_bwd.cu`` launch, and every RWKV layer's WKV a
 ``wkv6`` forward launch and a ``csrc/wkv6_bwd.cu`` backward launch
 (with ``--remat`` the forward launches twice a layer: once in the step,
 once in the recompute).  The kernels are built before the first step.
@@ -38,8 +38,8 @@ per second, the model-FLOP share of the card's bf16 peak under two
 definitions (``model_flops``: 6 x params x tokens plus causal
 attention; the reference's ``analysis.flops.model_flops``: 6 x active
 params x tokens), the peak device memory, the kernel launches per step
-(spm_matmul by path, flash_attention, wkv6 by path and wkv6's
-backward), the deadline summary and
+(spm_matmul by path, flash_attention, its backward by path, wkv6 by
+path and wkv6's backward), the deadline summary and
 the card's name and power limit.  ``train`` returns them.
 
 The loss is chunked every ``LOSS_CHUNK`` positions, where the
@@ -181,6 +181,7 @@ def train(cfg, *, batch: int, seq: int, steps: int, lr: float = 1e-3,
     def counts():
         return {"spm_matmul": dict(spm_ops.matmul.paths),
                 "flash_attention": flash_ops.attention.launches,
+                "flash_attention_bwd": dict(flash_ops.attention.bwd_paths),
                 "wkv6": dict(wkv_ops.wkv.paths),
                 "wkv6_bwd": dict(wkv_ops.wkv.bwd_paths)}
 

@@ -23,11 +23,13 @@ Port of the reference's ``models/attention.py``.  What differs:
 * Softmax arithmetic is fp32 regardless of model dtype.
 * Training: under grad mode, when q, k or v needs a gradient, the
   prefill-form calls run ``flash_attention`` on either device (on the
-  CPU its plain version), whose autograd backward
-  (``flash_ops.attention_grad``) recomputes ``sdpa``'s block form
-  (``attention_block``) under autograd, one block of queries at a
-  time.  The reference's gradient is ``jax.grad`` of its jnp ``sdpa``;
-  it has no backward kernel either.
+  CPU its plain version).  Its autograd backward on CUDA is the
+  hand-written kernel ``csrc/flash_attention_bwd.cu``
+  (``flash_ops.attention_bwd``); on the CPU and on ``meta`` it is the
+  kernel's plain version (``flash_ops.attention_grad``), which
+  recomputes ``sdpa``'s block form (``attention_block``) under
+  autograd, one block of queries at a time.  The reference's gradient
+  is ``jax.grad`` of its jnp ``sdpa``; it has no backward kernel.
 """
 from __future__ import annotations
 

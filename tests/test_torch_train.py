@@ -56,6 +56,7 @@ from repro_torch import convert
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_bwd_tiles
 from repro_torch.kernels.spm_matmul import ops as mm_ops
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.launch import train as train_cli
@@ -465,18 +466,27 @@ def _fake_card(monkeypatch):
     """CPU tensors take the wrappers' CUDA branches; each launch runs the
     plain version (detached, as a kernel's output is) and is counted as
     the kernel counts it (wkv6's backward launch: its plain version,
-    ``wkv_grad_plain``)."""
+    ``wkv_grad_plain``; flash_attention's backward launch: the kernel's
+    recipe, ``ref.attention_bwd_tiles``, from the forward's lse)."""
     def mm_launch(a, b, trans_b, out_dtype, *pins):
         mm_ops.matmul.launches += 1
         mm_ops.matmul.paths["wgmma"] += 1
         return mm_ops.matmul_plain(a, b, out_dtype,
                                    trans_b=trans_b).detach()
 
-    def fa_launch(q, k, v, causal, window, scale, *pins):
+    def fa_launch(q, k, v, causal, window, scale, *pins, with_lse=False):
         fa_ops.attention.launches += 1
         fa_ops.attention.paths["tensor_core"] += 1
-        return fa_ops.attention_plain(q, k, v, causal=causal,
-                                      window=window, scale=scale).detach()
+        out = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, with_lse=with_lse)
+        return (tuple(t.detach() for t in out) if with_lse
+                else out.detach())
+
+    def fa_bwd_launch(q, k, v, lse, do, causal, window, scale):
+        fa_ops.attention.bwd_launches += 1
+        fa_ops.attention.bwd_paths["tensor_core"] += 1
+        return attention_bwd_tiles(q, k, v, lse, do, causal=causal,
+                                   window=window, scale=scale)
 
     def wkv_launch(r, k, v, w_log, u, chunk):
         wkv_ops.wkv.launches += 1
@@ -493,6 +503,8 @@ def _fake_card(monkeypatch):
     monkeypatch.setattr(mm_ops, "_launch", mm_launch)
     monkeypatch.setattr(fa_ops, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(fa_ops, "_launch", fa_launch)
+    monkeypatch.setattr(fa_ops, "_check_card", lambda *ts: None)
+    monkeypatch.setattr(fa_ops, "_bwd_launch", fa_bwd_launch)
     monkeypatch.setattr(wkv_ops, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(wkv_ops, "_launch", wkv_launch)
     monkeypatch.setattr(wkv_ops, "wkv_bwd", wkv_backward)
@@ -509,6 +521,9 @@ def _fake_card(monkeypatch):
     monkeypatch.setattr(fa_ops.attention, "launches", 0)
     monkeypatch.setattr(fa_ops.attention, "paths",
                         dict.fromkeys(fa_ops.attention.paths, 0))
+    monkeypatch.setattr(fa_ops.attention, "bwd_launches", 0)
+    monkeypatch.setattr(fa_ops.attention, "bwd_paths",
+                        dict.fromkeys(fa_ops.attention.bwd_paths, 0))
 
 
 @pytest.mark.parametrize("trans_b", [False, True])
@@ -635,7 +650,8 @@ def test_card_wkv_under_grad_mode_goes_through_the_function(monkeypatch):
 def test_card_train_step_launches_every_product(monkeypatch):
     """One training step of reduced qwen2 on the faked card: every
     forward and backward product through the spm_matmul wrapper's
-    launch, every prefill-form attention through flash_attention's."""
+    launch, every prefill-form attention through flash_attention's, and
+    its gradient through the backward kernel's launch."""
     _fake_card(monkeypatch)
     cfg, np_params, batch, tcfg = _step_setup()
     step = padamw.make_train_step(cfg, tcfg, _opts(plm.RunOptions))
@@ -645,6 +661,7 @@ def test_card_train_step_launches_every_product(monkeypatch):
     # chunk's logits recomputed
     assert mm_ops.matmul.launches == 3 * 7 * L + 4 * chunks
     assert fa_ops.attention.launches == L
+    assert fa_ops.attention.bwd_launches == L
 
 
 @pytest.mark.parametrize("remat", [False, True])
