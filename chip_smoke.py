@@ -167,14 +167,18 @@ Phases, one result line each; any failure exits non-zero:
             cross shape (Sq 448, Sk 1500, unmasked), fp32 (D 64, and
             D 256 windowed), bf16 off the 16-byte grid and a ragged
             window: the forward's o the same bits with and without its
-            lse, that lse against the plain forward's; dq, dk and dv on
+            lse and o_lo, that lse against the plain forward's, o + o_lo
+            against the forward's fp32 output, the forward timed both
+            ways; dq, dk and dv on
             the routed path (``tensor_core`` for aligned bf16, ``fma``
             else) against ``attention_grad`` evaluated in fp32
             (``tolerance.check_flash_grad``), twice for the same bits,
             three planted faults caught (the scale 5 % off, lse shifted,
-            the last key tile dropped); the kernel's, the plain
-            version's and SDPA's backward time and the bound (the five
-            products, 10 D x pairs x B x H).  (b) reduced qwen2 fp32 (2 layers, remat
+            the last key tile dropped); the kernel's time and each of
+            its launches' (dQ, dK/dV, the group sum; a profile), the
+            plain version's and SDPA's backward time and the bound (the
+            five products, 10 D x pairs x B x H) beside the products a
+            pair the path runs.  (b) reduced qwen2 fp32 (2 layers, remat
             on): one step's gradient of every leaf and 5 steps of loss
             on the card against the CPU, within 1e-4.  (c)
             ``python -m repro_torch.launch.train --arch qwen2-0.5b
@@ -300,6 +304,7 @@ chip_smoke.py 10`` runs phases 1 and 10 only, likewise
 runs phases 1, 2 and 11 only, likewise
 (``chiprun_out/chip_smoke_multidevice.json``).
 """
+import functools
 import gc
 import json
 import math
@@ -909,20 +914,68 @@ def flash_bwd_cases():
              bf, False)]
 
 
+# the backward's launches by the kernel names a profile shows
+FLASH_BWD_LAUNCHES = {"dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv",
+                      "group sum": "flash_bwd_group_sum"}
+
+
+def flash_bwd_launch_ms(fn, reps=3):
+    """Device ms per call of each of the backward's launches
+    (``FLASH_BWD_LAUNCHES``): each kernel's mean over the launches a
+    profile of ``reps`` calls of ``fn()`` (after one warm-up) recorded
+    (one a call); a launch that did not run reads 0."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(FLASH_BWD_LAUNCHES, 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        for name, pattern in FLASH_BWD_LAUNCHES.items():
+            if pattern in ev.key:
+                out[name] += t / 1e3 / max(ev.count, 1)
+    return out
+
+
+def flash_bwd_products(path, D):
+    """The products a visible pair that a backward path runs: in the dQ
+    launch S, dP and dQ (on ``tensor_core`` as two bf16 parts), and S
+    and dP in a walk for D_i before them (``fma``; ``tensor_core`` at
+    head dim 256, where the forward writes no o_lo); in the dK/dV launch
+    S, dP, dV and dK, its two ``tensor_core`` warpgroups above head dim
+    64 each running S and dP over the same keys."""
+    if path == "tensor_core":
+        return 8 + (2 if D > 64 else 0) + (2 if D > 128 else 0)
+    return 9
+
+
 def run_flash_bwd(dev, gen):
     """flash_attention's backward (``csrc/flash_attention_bwd.cu``) at
     ``flash_bwd_cases``: the forward's o the same bits with and without
-    its lse, and that lse against the plain forward's; the backward on
-    the path ``ops.bwd_dispatch`` routes it to, each of dq, dk and dv
-    held to ``attention_grad`` evaluated in fp32 on the same inputs
+    its lse and o_lo, that lse against the plain forward's, o + o_lo
+    against the tensor-core forward's full fp32 output by its arithmetic
+    in plain torch (``ref.attention_tc_fp32``: its RMS difference under a
+    tenth of o's alone), and the forward's time with and without them;
+    the backward on the path ``ops.bwd_dispatch`` routes it to, each of
+    dq, dk and dv held to ``attention_grad`` evaluated in fp32 on the
+    same inputs
     (``tolerance.check_flash_grad``), run twice for the same bits, its
     planted faults caught (``tolerance.flash_bwd_planted_faults``); the
-    kernel's time, the plain version's (``attention_grad`` on the case's
-    dtype, as the CPU route runs it), SDPA's backward and the bound: the
-    five products, 10 D x visible pairs x B x H, at the dtype's rate,
-    and q, k, v, do and lse read and dq, dk and dv written once."""
+    kernel's time and each of its launches' (a profile), the plain
+    version's (``attention_grad`` on the case's dtype, as the CPU route
+    runs it), SDPA's backward and the bound: the five products, 10 D x
+    visible pairs x B x H, at the dtype's rate, and q, k, v, do and lse
+    read and dq, dk and dv written once; beside it the products a pair
+    the path runs."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         attention_tc_fp32)
     from repro_torch.kernels.tolerance import (ATOL_FRAC, RTOL, check,
                                                check_flash_grad,
                                                flash_bwd_planted_faults)
@@ -935,7 +988,7 @@ def run_flash_bwd(dev, gen):
                        for s, n in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H)))
         scale = 1.0 / math.sqrt(D)
         kw = {"causal": causal, "window": w, "scale": scale}
-        o, lse = ops._launch(q, k, v, causal, w, scale, with_lse=True)
+        o, lse, o_lo = ops._launch(q, k, v, causal, w, scale, with_lse=True)
         if not torch.equal(o, ops._launch(q, k, v, causal, w, scale)):
             fail(f"flash_attention {label}: o differs with and without lse")
         lse_ratio, _ = check(lse, attention_ref(q, k, v, with_lse=True,
@@ -943,9 +996,25 @@ def run_flash_bwd(dev, gen):
         if not lse_ratio < 1:
             fail(f"flash_attention {label}: lse at {lse_ratio:.3f} of the "
                  f"fp32 allowance")
-        del o
+        lo_share = None
+        if o_lo is not None:
+            _, full, _ = attention_tc_fp32(q, k, v, **kw)
+            lo_share = ((o.float() + o_lo.float() - full).pow(2).mean()
+                        / (o.float() - full).pow(2).mean()).sqrt().item()
+            del full
+            if not lo_share < 0.1:
+                fail(f"flash_attention {label}: o + o_lo misses the fp32 "
+                     f"output by {lo_share:.3f} of o's RMS error")
+        fwd_ms = {
+            "plain launch": time_ms(lambda *a: ops._launch(
+                *a, causal, w, scale), [(q, k, v)], min_reps=5),
+            "with lse and o_lo": time_ms(lambda *a: ops._launch(
+                *a, causal, w, scale, with_lse=True), [(q, k, v)],
+                min_reps=5)}
+        # the backward, fed the forward's o and o_lo for its D_i
+        bwd = functools.partial(ops.attention_bwd, o=o, o_lo=o_lo)
         before = dict(ops.attention.bwd_paths)
-        got = ops.attention_bwd(q, k, v, lse, do, **kw)
+        got = bwd(q, k, v, lse, do, **kw)
         torch.cuda.synchronize()
         path = launched_path(ops.attention.bwd_paths, before)
         want_path = "tensor_core" if dt == torch.bfloat16 and not off \
@@ -953,7 +1022,7 @@ def run_flash_bwd(dev, gen):
         if path != want_path:
             fail(f"flash_attention_bwd {label}: launched {path}, expected "
                  f"{want_path}")
-        again = ops.attention_bwd(q, k, v, lse, do, **kw)
+        again = bwd(q, k, v, lse, do, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"flash_attention_bwd {label}: two runs differ")
         del again
@@ -965,7 +1034,7 @@ def run_flash_bwd(dev, gen):
         faults = {
             name: check_flash_grad(wrong, want, dt)[0]
             for name, wrong in flash_bwd_planted_faults(
-                ops.attention_bwd, q, k, v, lse, do, **kw).items()}
+                bwd, q, k, v, lse, do, **kw).items()}
         if not min(faults.values()) > 1:
             fail(f"flash_attention_bwd {label}: a planted fault passes: "
                  f"{faults}")
@@ -977,13 +1046,19 @@ def run_flash_bwd(dev, gen):
                "window": w, "dtype": str(dt), "path": path,
                "deterministic": True, "err_ratio": ratio,
                "err_shares": shares, "fault_ratios": faults,
-               "lse_ratio": lse_ratio, "max_abs_err": diff,
+               "lse_ratio": lse_ratio, "o_lo_rms_share": lo_share,
+               "max_abs_err": diff,
                "rtol": RTOL[dt], "atol_frac": ATOL_FRAC[dt],
-               "main_path": main, "pairs_per_head": pairs}
-        row["ms"] = time_ms(lambda *a: ops.attention_bwd(*a, **kw),
+               "main_path": main, "pairs_per_head": pairs,
+               "products_per_pair": flash_bwd_products(path, D),
+               "bound_products_per_pair": 5}
+        row["ms"] = time_ms(lambda *a: bwd(*a, **kw),
                             [(q, k, v, lse, do)], min_reps=5)
+        row["launch_ms"] = flash_bwd_launch_ms(
+            lambda: bwd(q, k, v, lse, do, **kw))
         row["plain_ms"] = eager_ms(lambda: ops.attention_grad(q, k, v, do,
                                                               **kw), reps=2)
+        row["forward_ms"] = fwd_ms
         row["library_ms"], row["library_backend"] = \
             library_attention_bwd_ms(q, k, v, do, causal, w, mask)
         nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() \
@@ -993,15 +1068,22 @@ def run_flash_bwd(dev, gen):
         rows.append(row)
         per_grad = ", ".join(f"{n} {r:.3f}" for n, r in shares.items())
         per_fault = ", ".join(f"{n} {r:.1f}" for n, r in faults.items())
+        per_launch = ", ".join(f"{n} {t:.4f}"
+                               for n, t in row["launch_ms"].items())
+        lo = "" if lo_share is None else f"; o_lo rms {lo_share:.4f}"
         print(f"  flash_attention_bwd {label:34s} B{B} Sq{Sq} Sk{Sk} H{H} "
               f"KV{KV} D{D} causal={causal} window={w} {str(dt)[6:]:8s} "
               f"{path} err {ratio:.3f} of allowance ({per_grad}; lse "
-              f"{lse_ratio:.3f}) faults {per_fault}  "
-              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-              f"library {row['library_ms']} ms (SDPA backward "
+              f"{lse_ratio:.3f}{lo}) faults {per_fault}  "
+              f"kernel {row['ms']:.4f} ms ({per_launch}; "
+              f"{row['products_per_pair']} products a pair, the bound's 5)"
+              f"  plain {row['plain_ms']:.4f} ms  forward "
+              + "/".join(f"{t:.4f}" for t in fwd_ms.values())
+              + f" ms (plain/with lse and o_lo)  library "
+              f"{row['library_ms']} ms (SDPA backward "
               f"{row['library_backend']})  bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})", flush=True)
-        del q, k, v, do, lse, mask
+        del q, k, v, do, lse, mask, o, o_lo, bwd
         release()
     return rows
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 from repro_torch.core.schedule import DMA, Schedule, core_resource
 
@@ -77,11 +78,19 @@ FLASH_BK = 64           # keys of a K/V tile
 FLASH_TC_PAD = 8        # tensor-core path: row padding, in elements
 FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)   # the compiled head dims
 FLASH_PATHS = ("tensor_core", "fma")
+FLASH_FWD_LO_MAX_D = 128  # tensor_core: the largest head dim whose forward
+#                           writes o_lo (at 256 a second accumulator would
+#                           not fit), so whose backward reads D_i from it
 # csrc/flash_attention_bwd.cu's layouts (the kernels' constants; tests
 # read them back)
-FLASH_BWD_TILE = 64     # own rows of a block: queries (dQ), keys (dK/dV)
-FLASH_BWD_TC_SPLIT_D = 128   # tensor_core dK/dV: above this head dim the
-#                              block's 8 warps split the head dim in two
+FLASH_BWD_TILE = 64     # rows of a tile (fma: a block's own rows;
+#                         tensor_core: a consumer warpgroup's wgmma M)
+FLASH_BWD_TC_CHUNK = 64  # tensor_core: head dims of a TMA box (128 bytes)
+FLASH_BWD_TC_SPLIT_D = 64   # tensor_core: above this head dim the dK/dV
+#                             block's two warpgroups split the head dim
+FLASH_BWD_TC_WIDE_D = 128   # tensor_core: above this head dim the dQ
+#                             block has one warpgroup, both two stages
+FLASH_BWD_TC_PRODUCER = 32  # tensor_core: each block's producer warp
 FLASH_BWD_FMA_WIDE_D = 128   # fma: above this head dim the streamed tile
 FLASH_BWD_FMA_NARROW = 32    # is 32 rows (else FLASH_BWD_TILE) and dK/dV
 #                              takes 4 threads a key row (else 2)
@@ -267,34 +276,59 @@ def flash_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
             "blocks_per_sm": blocks_per_sm(need, FLASH_THREADS, chip)}
 
 
-def flash_bwd_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
-    """Shared memory and threads of the two blocks of
-    ``csrc/flash_attention_bwd.cu`` at head dim ``D`` (``dq``: a block
-    of 64 queries walking key tiles; ``dkdv``: a block of 64 keys
-    walking the query tiles of its GQA group's heads), and whether both
-    fit; the wrapper checks it before each launch.
+def flash_bwd_smem_plan(D: int, path: str, chip: GPUChip = H100,
+                        shape: Optional[tuple] = None) -> dict:
+    """Shared memory, threads and warpgroups of the blocks of
+    ``csrc/flash_attention_bwd.cu`` at head dim ``D``, and whether each
+    fits; the wrapper checks it before each launch.
 
-    ``tensor_core`` (bf16, rows padded by ``FLASH_TC_PAD``; the launchers
-    ``tc_dq_smem`` and ``tc_dkdv_smem`` size the same sums): the block's
-    own two tiles (q and dO, or k and v) and two buffers each of the two
-    streamed tiles, [64, D + pad] each; fp32 lse of 64 rows (dQ), or lse
-    and D_i of 64 rows in two buffers (dK/dV).  dK/dV runs 8 warps above
-    head dim ``FLASH_BWD_TC_SPLIT_D`` (two warps a row group, each half
-    the head dim), else 4.  ``fma`` (fp32, rows padded by one;
-    ``fma_dq_smem``, ``fma_dkdv_smem``): the own tiles [64, D + 1], the
-    streamed tiles [T, D + 1] (T = 64, or ``FLASH_BWD_FMA_NARROW`` above
-    head dim ``FLASH_BWD_FMA_WIDE_D``), dS [64, T + 1] (dK/dV: P too and
-    lse and D_i of the T streamed rows); dQ 2 threads a query row, dK/dV
-    2 (4 above that head dim) a key row."""
+    ``tensor_core`` (bf16; the source's ``tc_dq_smem`` and
+    ``tc_dkdv_smem`` sum the same way): warpgroups of 64 rows each,
+    compiled for one block an SM.  Tiles are TMA boxes of 64 rows by
+    ``FLASH_BWD_TC_CHUNK`` head dims (8 KB, 128-byte swizzle), the head
+    dim padded to a multiple of 64.  ``dq`` (two warpgroups, one above
+    head dim ``FLASH_BWD_TC_WIDE_D``, and a producer warp of
+    ``FLASH_BWD_TC_PRODUCER`` threads): the block's q and dO [64 x
+    warpgroups, D] once, then three stages (two above that head dim) of
+    a K and a V tile [64, D], walked once (twice above it: D_i, then dQ).
+    ``dkdv`` (two warpgroups and a producer warp): the block's k and v
+    [keys, D]
+    (128 keys; 64 above head dim ``FLASH_BWD_TC_SPLIT_D``, where each
+    warpgroup keeps half the head dim's dK and dV), then three stages
+    (two above ``FLASH_BWD_TC_WIDE_D``) of a q and a dO tile [64, D]
+    with lse and D_i of their 64 rows in fp32.  Each adds 1 KB of
+    alignment slack and an 8-byte ``full`` and ``empty`` barrier a
+    stage and one for its own tiles.  With ``shape`` = (B, Sk, H, KV)
+    and H > KV the plan gives ``scratch_bytes``: each head's fp32 dK and
+    dV partials [B, Sk, H, D], which a third launch sums over the GQA
+    group.
+
+    ``fma`` (fp32, rows padded by one; ``fma_dq_smem``, ``fma_dkdv_smem``):
+    the own tiles [64, D + 1], the streamed tiles [T, D + 1] (T = 64, or
+    ``FLASH_BWD_FMA_NARROW`` above head dim ``FLASH_BWD_FMA_WIDE_D``), dS
+    [64, T + 1] (dK/dV: P too and lse and D_i of the T streamed rows); dQ
+    2 threads a query row, dK/dV 2 (4 above that head dim) a key row."""
     if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
     R = FLASH_BWD_TILE
     if path == "tensor_core":
-        tile = R * (D + FLASH_TC_PAD) * 2
-        need = {"dq": 6 * tile + R * 4, "dkdv": 6 * tile + 4 * R * 4}
-        threads = {"dq": FLASH_THREADS,
-                   "dkdv": FLASH_THREADS * (2 if D > FLASH_BWD_TC_SPLIT_D
-                                            else 1)}
+        box = R * FLASH_BWD_TC_CHUNK * 2
+        nc = -(-D // FLASH_BWD_TC_CHUNK)
+        split = D > FLASH_BWD_TC_SPLIT_D
+        wide = D > FLASH_BWD_TC_WIDE_D
+        wgs = {"dq": 1 if wide else 2, "dkdv": 2}
+        rows = {"dq": R * wgs["dq"], "dkdv": R * (1 if split else 2)}
+        stages = {"dq": 2 if wide else 3, "dkdv": 2 if wide else 3}
+        own = {n: 2 * (rows[n] // R) * nc * box for n in wgs}
+        stage = {"dq": 2 * nc * box, "dkdv": 2 * nc * box + 2 * R * 4}
+        need = {n: 1024 + own[n] + stages[n] * stage[n]
+                + (2 * stages[n] + 1) * 8 for n in wgs}
+        threads = {n: FLASH_THREADS * wgs[n] + FLASH_BWD_TC_PRODUCER
+                   for n in wgs}
+        detail = {n: {"warpgroups": wgs[n], "stages": stages[n],
+                      "stage_bytes": stage[n], "own_bytes": own[n],
+                      "rows": rows[n]} for n in wgs}
+        resident = 1        # the launch bounds' registers: one an SM
     elif path == "fma":
         wide = D > FLASH_BWD_FMA_WIDE_D
         T = FLASH_BWD_FMA_NARROW if wide else R
@@ -302,15 +336,25 @@ def flash_bwd_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
         need = {"dq": 4 * (own + R * (T + 1)),
                 "dkdv": 4 * (own + 2 * R * (T + 1) + 2 * T)}
         threads = {"dq": 2 * R, "dkdv": (4 if wide else 2) * R}
+        detail = {n: {} for n in need}
+        resident = None
     else:
         raise ValueError(f"path {path!r} not in {FLASH_PATHS}")
-    kernels = {name: {"smem_need": need[name], "threads": threads[name],
-                      "blocks_per_sm": blocks_per_sm(need[name],
-                                                     threads[name], chip)}
-               for name in need}
+    kernels = {}
+    for name in need:
+        per_sm = blocks_per_sm(need[name], threads[name], chip)
+        kernels[name] = {"smem_need": need[name], "threads": threads[name],
+                         "fits": need[name] <= chip.smem_bytes,
+                         "blocks_per_sm": (per_sm if resident is None
+                                           else min(per_sm, resident)),
+                         **detail[name]}
     worst = max(need.values())
-    return {"kernels": kernels, "smem_need": worst,
+    plan = {"kernels": kernels, "smem_need": worst,
             "smem_bytes": chip.smem_bytes, "fits": worst <= chip.smem_bytes}
+    if shape is not None and path == "tensor_core":
+        B, Sk, H, KV = shape
+        plan["scratch_bytes"] = 0 if H == KV else 2 * B * Sk * H * D * 4
+    return plan
 
 
 def gpu_matmul_schedule(m: int, k: int, n: int, *, n_devices: int = 1,

@@ -52,6 +52,14 @@
 //     row's log-sum-exp of its masked, scaled scores, m + log(l), for
 //     the backward (csrc/flash_attention_bwd.cu); with a null pointer
 //     they write nothing more, and o's bits are the same either way.
+//   * The tensor-core kernel, given an `o_lo` pointer too (bf16, o's
+//     layout; head dims up to kLoMaxD), runs its PV product on each p as
+//     hi + lo (a second product into acc_lo; chip_smoke.py 9(a) times
+//     the forward both ways) and writes o_lo = (acc + acc_lo) / l - o, so
+//     that o + o_lo carries sum_k P V with fp32 P: the backward takes its
+//     D_i = rowsum(dO (o + o_lo)) instead of a walk over the keys.  That
+//     is `flash_fwd_tc_lo_kernel`; `flash_fwd_tc_kernel`, which serving
+//     runs, is the kernel as it was.
 //   * GQA: head h reads KV head h / (H / KV) through strides, so q, k
 //     and v are read in their [B, S, heads, D] layout without copies.
 //   * Ragged q and kv edges are masked here (the TPU kernel asserted
@@ -87,6 +95,7 @@ constexpr int kBK = 64;  // keys per kv tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kLoMaxD = 128;  // tensor_core: the largest head dim with o_lo
 
 // p as the PV product sees it: rounded to v's type.
 template <typename T>
@@ -264,17 +273,19 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 using bf16 = __nv_bfloat16;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_tc_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-                        const bf16* __restrict__ V, bf16* __restrict__ O,
-                        float* __restrict__ lse, int Sq, int Sk, int H,
-                        int KV, int nqt,
-                        long long q_sb, long long q_ss, long long q_sh,
-                        long long k_sb, long long k_ss, long long k_sh,
-                        long long v_sb, long long v_ss, long long v_sh,
-                        long long o_sb, long long o_ss, long long o_sh,
-                        int causal, int window, float scale_log2) {
+// LO: the PV product also takes the part of each p that its bf16
+// rounding drops (a second product into acc_lo), and o_lo gets the fp32
+// output (acc + acc_lo) / l less o; acc, and so o and lse, are the same
+// bits either way.
+template <int D, bool LO>
+__device__ __forceinline__ void flash_fwd_tc_body(
+    const bf16* __restrict__ Q, const bf16* __restrict__ K,
+    const bf16* __restrict__ V, bf16* __restrict__ O, float* __restrict__ lse,
+    bf16* __restrict__ o_lo, int Sq, int Sk, int H, int KV, int nqt,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    int causal, int window, float scale_log2) {
   constexpr int LD = D + 8;    // padded row: ldmatrix reads conflict-free
   constexpr int DK = D / 16;   // k16 steps of Q.K^T over the head dim
   constexpr int DN = D / 8;    // n8 chunks of the output
@@ -336,10 +347,17 @@ __global__ void __launch_bounds__(kThreads)
   float m_lo = kNegInf, m_hi = kNegInf;
   float l_lo = 0.f, l_hi = 0.f;  // this thread's share of the row sums
   float acc[DN][4];
+  float acc_lo[LO ? DN : 1][4];
 #pragma unroll
   for (int j = 0; j < DN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if constexpr (LO) {
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_lo[j][e] = 0.f;
+  }
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = kv_begin + it * kBK;
@@ -428,6 +446,12 @@ __global__ void __launch_bounds__(kThreads)
       acc[j][1] *= alpha_lo;
       acc[j][2] *= alpha_hi;
       acc[j][3] *= alpha_hi;
+      if constexpr (LO) {
+        acc_lo[j][0] *= alpha_lo;
+        acc_lo[j][1] *= alpha_lo;
+        acc_lo[j][2] *= alpha_hi;
+        acc_lo[j][3] *= alpha_hi;
+      }
     }
 
     // P (rounded to bf16) . V, P straight from the score registers
@@ -438,6 +462,15 @@ __global__ void __launch_bounds__(kThreads)
       pa[1] = pack_f32_bf16(s[2 * kc][2], s[2 * kc][3]);
       pa[2] = pack_f32_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
       pa[3] = pack_f32_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      uint32_t pl[4];  // LO: what the rounding of pa dropped
+      if constexpr (LO) {
+        const float* a = s[2 * kc];
+        const float* c = s[2 * kc + 1];
+        pl[0] = pack_f32_bf16(bf16_rest(a[0]), bf16_rest(a[1]));
+        pl[1] = pack_f32_bf16(bf16_rest(a[2]), bf16_rest(a[3]));
+        pl[2] = pack_f32_bf16(bf16_rest(c[0]), bf16_rest(c[1]));
+        pl[3] = pack_f32_bf16(bf16_rest(c[2]), bf16_rest(c[3]));
+      }
 #pragma unroll
       for (int j = 0; j < DN; j += 2) {
         uint32_t vf[4];
@@ -445,6 +478,10 @@ __global__ void __launch_bounds__(kThreads)
                                   (j + (mi >> 1)) * 8);
         mma_bf16(acc[j], pa, vf[0], vf[1]);
         mma_bf16(acc[j + 1], pa, vf[2], vf[3]);
+        if constexpr (LO) {
+          mma_bf16(acc_lo[j], pl, vf[0], vf[1]);
+          mma_bf16(acc_lo[j + 1], pl, vf[2], vf[3]);
+        }
       }
     }
     __syncthreads();  // this buffer is refilled two tiles on
@@ -467,6 +504,25 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<__nv_bfloat162*>(ob + row_hi * o_ss + j * 8) =
           __floats2bfloat162_rn(acc[j][2] / d_hi, acc[j][3] / d_hi);
   }
+  if constexpr (LO) {  // o_lo in o's layout
+    bf16* lb = o_lo + b * o_sb + h * o_sh + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = half ? row_hi : row_lo;
+        if (row >= Sq) continue;
+        const float dn = half ? d_hi : d_lo;
+        const float x0 = acc[j][2 * half] / dn;
+        const float x1 = acc[j][2 * half + 1] / dn;
+        const __nv_bfloat162 o2 = __floats2bfloat162_rn(x0, x1);
+        *reinterpret_cast<__nv_bfloat162*>(lb + row * o_ss + j * 8) =
+            __floats2bfloat162_rn(
+                (x0 - __low2float(o2)) + acc_lo[j][2 * half] / dn,
+                (x1 - __high2float(o2)) + acc_lo[j][2 * half + 1] / dn);
+      }
+    }
+  }
   if (lse != nullptr && t == 0) {  // m is in the log2 domain
     float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq;
     if (row_lo < Sq) lrow[row_lo] = (m_lo + log2f(d_lo)) * kLn2;
@@ -474,30 +530,76 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+#define FLASH_FWD_TC_PARAMS                                                 \
+  const bf16 *__restrict__ Q, const bf16 *__restrict__ K,                   \
+      const bf16 *__restrict__ V, bf16 *__restrict__ O,                     \
+      float *__restrict__ lse, bf16 *__restrict__ o_lo, int Sq, int Sk,     \
+      int H, int KV, int nqt, long long q_sb, long long q_ss,               \
+      long long q_sh, long long k_sb, long long k_ss, long long k_sh,       \
+      long long v_sb, long long v_ss, long long v_sh, long long o_sb,       \
+      long long o_ss, long long o_sh, int causal, int window,               \
+      float scale_log2
+#define FLASH_FWD_TC_ARGS                                                   \
+  Q, K, V, O, lse, o_lo, Sq, Sk, H, KV, nqt, q_sb, q_ss, q_sh, k_sb, k_ss,  \
+      k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, scale_log2
+
+// The kernel serving runs, and (LO) its o_lo form, compiled for three
+// blocks an SM at head dim 64, where its second accumulator would leave
+// two.
 template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int Sq, int Sk, int H, int KV,
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_tc_kernel(FLASH_FWD_TC_PARAMS) {
+  flash_fwd_tc_body<D, false>(FLASH_FWD_TC_ARGS);
+}
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 1)
+    flash_fwd_tc_lo_kernel(FLASH_FWD_TC_PARAMS) {
+  flash_fwd_tc_body<D, true>(FLASH_FWD_TC_ARGS);
+}
+
+template <int D, bool LO>
+cudaError_t launch_tc_lo(const void* q, const void* k, const void* v, void* o,
+                         float* lse, void* o_lo, int B, int Sq, int Sk, int H,
+                         int KV,
                       const long long* st, int causal, int window,
                       float scale, cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
+  auto kernel = flash_fwd_tc_kernel<D>;
+  if constexpr (LO) kernel = flash_fwd_tc_lo_kernel<D>;
   static bool opted_in = false;  // once per instantiation
   if (smem > 48 * 1024 && !opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const int nqt = (Sq + kBQ - 1) / kBQ;
   const dim3 grid(B * H, nqt);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H, KV,
-      nqt,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
+      static_cast<bf16*>(o_lo), Sq, Sk, H, KV, nqt,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], causal, window, scale * kLog2e);
   return cudaGetLastError();
+}
+
+// o_lo only up to head dim kLoMaxD (at 256 the second accumulator would
+// not fit beside the first); null launches the kernel serving runs.
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, void* o_lo, int B, int Sq, int Sk, int H,
+                      int KV, const long long* st, int causal, int window,
+                      float scale, cudaStream_t stream) {
+  if (o_lo == nullptr)
+    return launch_tc_lo<D, false>(q, k, v, o, lse, nullptr, B, Sq, Sk, H, KV,
+                                  st, causal, window, scale, stream);
+  if constexpr (D <= kLoMaxD)
+    return launch_tc_lo<D, true>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV, st,
+                                 causal, window, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -523,38 +625,40 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 tensor-core kernel: same arguments, minus the dtype flag.
-// Every row of q, k and v must start on a 16-byte boundary (the
-// wrapper checks the pointers and strides).
+// The bf16 tensor-core kernel: same arguments, minus the dtype flag, plus
+// o_lo: null, or (head dims up to 128) bf16 in o's layout for the part of
+// the fp32 output, its PV product taking each p as hi + lo, that o's
+// rounding drops.  Every row of q, k and v must start on a 16-byte
+// boundary (the wrapper checks the pointers and strides).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, float* lse,
                                          int B,
                                          int Sq, int Sk, int H, int KV, int D,
                                          const long long* strides, int causal,
-                                         int window, float scale,
+                                         int window, float scale, void* o_lo,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
     case 32:
-      err = launch_tc<32>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
-                          window, scale, s);
+      err = launch_tc<32>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
+                          strides, causal, window, scale, s);
       break;
     case 64:
-      err = launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
-                          window, scale, s);
+      err = launch_tc<64>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
+                          strides, causal, window, scale, s);
       break;
     case 112:
-      err = launch_tc<112>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
-                           window, scale, s);
+      err = launch_tc<112>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
+                           strides, causal, window, scale, s);
       break;
     case 128:
-      err = launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
-                           window, scale, s);
+      err = launch_tc<128>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
+                           strides, causal, window, scale, s);
       break;
     case 256:
-      err = launch_tc<256>(q, k, v, o, lse, B, Sq, Sk, H, KV, strides, causal,
-                           window, scale, s);
+      err = launch_tc<256>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
+                           strides, causal, window, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

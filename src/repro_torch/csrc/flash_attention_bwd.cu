@@ -13,78 +13,98 @@
 // The recipe (FlashAttention-2's): the forward saves each row's
 // log-sum-exp `lse` of its masked, scaled scores; here, tile by tile,
 //   S = scale q k^T,  P = exp(S - lse) (0 where masked),  dP = dO v^T,
-//   D_i = sum_k P dP,  dS = P (dP - D_i),
+//   dS = P (dP - D_i),
 //   dV = P^T dO,  dK = scale dS^T q,  dQ = scale dS k,
 // with S, P, dP and dS kept out of device memory.  Along a query's row dS
 // sums to zero, and a row that sees few keys keeps whatever breaks that
-// whole, so two choices hold it: D_i is the sum of the kernel's own fp32
-// P dP, not rowsum(dO * O), which with O rounded to bf16 misses it by the
-// rounding; and dS enters the dQ product as two bf16 parts, hi and the
-// rounded rest.  On the CPU the recipe's dQ read 2.46 of the bf16
-// allowance with rowsum(dO * O) and one bf16 dS, 0.19 this way
-// (kernels/tolerance.py; tests/test_torch_flash_grad.py).
-//
-// Deterministic, with no atomics: two launches, in this order.
-//   * dQ: one block per (batch, head, 64-query tile).  It walks the key
-//     tiles its rows can see twice: first S, dP and D_i, which it writes
-//     to `delta`; then S, dP, dS and dQ += dS k.
-//   * dK/dV: one block per (batch, kv head, 64-key tile).  It walks the
-//     G query heads of its GQA group and, for each, the query tiles that
-//     can see its keys (reading lse and the dQ launch's D_i): S^T, P^T,
-//     dP^T, dS^T, dV += P^T dO, dK += dS^T q.  The group's sum stays in
-//     registers.
-//   Recomputing S and dP in the dQ launch (twice) and the split dQ
-//   product cost five products beyond the five; they buy the same bits
-//   on every run, a D_i that matches P and a dQ held to its bf16
-//   rounding.  Tiles the causal or window mask hides for every pair are
-//   skipped; the causal grid runs its heaviest tiles first (dQ: the last
-//   query tiles; dK/dV: the first key tiles).
-//
-// Elementwise work sits beside the products in every tile (an exp2 a
-// pair in each of the three walks), so the tensor-core kernels test the
-// mask per pair only on tiles it cuts (`tile_visible`): at qwen2's
-// training shape that took a launch from 3.53 to 2.57 ms (chip_smoke.py
-// 9a, the two versions in turns on one H100).
-//
-// bf16: `flash_bwd_dq_tc_kernel` and `flash_bwd_dkdv_tc_kernel`, on the
-// tensor cores, the forward's design: mma.sync m16n8k16 bf16 with fp32
-// accumulators, fragments by ldmatrix from rows padded by 16 bytes, the
-// streamed tiles double-buffered by cp.async.  Each warp owns 16 rows of
-// the block's 64; score-shaped fragments (P, dS) become the A operand of
-// the next product in registers, rounded to bf16.  dK/dV at D = 256 runs
-// 8 warps, two a row group, each with half of the head dim's dK and dV
-// accumulators (both compute the group's S and dP): 4 warps would need
-// 256 accumulator registers a thread.
-//
-// fp32 (and bf16 off the 16-byte grid): `flash_bwd_dq_kernel` and
-// `flash_bwd_dkdv_kernel`, fp32 FMAs from shared memory (the tensor cores
-// cannot meet the 1e-5 fp32 policy).  Threads share a row (2, or 4 in
-// dK/dV at D = 256): each scores a share of the streamed tile's columns
-// into shared memory, then keeps a share of the row's head dims.  At
-// D = 256 the streamed tile is 32 rows, so that both blocks fit.
-//
-// Head dims 32, 64, 112, 128 and 256 are compiled, as in the forward.
-// Rows past Sq or Sk are zero-filled and masked.
+// whole, so two choices hold dq to its bf16 check.  D_i must be sum_k P
+// dP with fp32 P: rowsum(dO * O) with O rounded to bf16 misses it by
+// that rounding, and so, at long rows, does O's fp32 value before the
+// rounding, since the forward's PV product takes p rounded to bf16.  Up
+// to head dim 128 the forward therefore writes o_lo from a PV product on
+// p as hi + lo (csrc/flash_attention.cu), and D_i = rowsum(dO (o +
+// o_lo)); at 256 (no room for a second accumulator there) the dQ launch
+// sums D_i over a first walk of the keys, as the fp32 path does.  And dS
+// enters the dQ product as two bf16 parts, hi and the rounded rest.  On
+// the CPU (kernels/tolerance.py's printer) dq reads 0.16-0.21 of the
+// bf16 allowance either way; D_i from o rounded up to 2.39, from o + o_lo
+// of a PV product on p rounded once 1.04 at S 4096 (1.92 on the card at
+// qwen2's training shape).
 //
 // What bounds it on an H100 SXM: at qwen2-0.5b's training shape (B 4,
 // S 4096, H 14, KV 2, D 64, causal) the five products over the 8.39 M
-// visible pairs a head take 300.7 GFLOP (0.304 ms at the bf16 tensor-core
-// rate) against ~106 MB of inputs and outputs (q, k, v, dO and lse read,
-// dq, dk and dv written: 0.032 ms): operations bound it.  This design runs ten products (S and dP three times, dQ
-// twice) on mma.sync, which reaches a share of wgmma's rate.
+// visible pairs a head take 300.7 GFLOP (0.304 ms at the bf16
+// tensor-core rate) against ~106 MB of inputs and outputs (q, k, v, dO
+// and lse read, dq, dk and dv written: 0.032 ms): the tensor cores
+// bound it, and only wgmma reaches their full rate.
+//
+// bf16 (`tensor_core`, rows on the 16-byte grid): wgmma fed by TMA,
+// deterministic, with no atomics, three launches in this order:
+//   * dQ (`flash_bwd_dq_tc_kernel`): one block per (batch, head, 128
+//     query rows), heaviest first under the causal mask.  A producer
+//     warp brings the block's q and dO once and keeps a ring of K and V
+//     tiles (64 keys) in flight by TMA, each stage guarded by a `full`
+//     and an `empty` mbarrier; two warpgroups of 64 rows each take D_i
+//     of their rows from dO, o and o_lo (written out for dK/dV), then
+//     walk the key tiles their rows can see once: S and dP by wgmma from
+//     shared memory, P and dS in registers (the per-pair mask only on
+//     tiles it cuts), dQ += dS_hi k + dS_lo k by wgmma with A from
+//     registers (the accumulator layout is the A layout).  Four products
+//     a pair (six at head dim 256, with its D_i walk).
+//   * dK/dV (`flash_bwd_dkdv_tc_kernel`): one block per (batch, query
+//     head, 128 keys), heaviest first: the blocks are the GQA group
+//     times more and lighter than one per kv head, so no wave waits on
+//     a block that walks the whole group.  A producer warp brings k and
+//     v once and rings q and dO tiles with their lse and D_i; each of two
+//     warpgroups owns 64 keys: S^T, dP^T, dV += P^T dO, dK += dS^T q,
+//     P^T and dS^T from registers.  Four products a pair.  With G = 1
+//     each block writes dk and dv; else each head's fp32 partials
+//     [B, Sk, H, D] go to scratch and
+//   * the group sum (`flash_bwd_group_sum_kernel`) adds each group's G
+//     partials in head order into dk (times scale) and dv.
+//   Eight products a visible pair against the bound's five.  A block's
+//   9 warps (two warpgroups and the producer) leave 168 registers a
+//   thread, and 128 head dims of dK and dV take 128 of them: above head
+//   dim 64 the dK/dV block's two warpgroups share 64 keys, each with
+//   half the head dim's dK and dV, both computing S and dP (ten
+//   products a pair; holding all the head dims spilled ~1 KB a thread,
+//   and ran slower).  At head dim 256 the dQ block has one warpgroup
+//   (its dQ accumulators take 128 registers a thread) and walks for
+//   D_i: twelve products a pair.  Tiles sit in shared memory as TMA
+//   writes them for wgmma: boxes of 64 rows by 64 head
+//   dims (128-byte rows, 128-byte swizzle) through a 4-D map (head dim,
+//   head, sequence, batch) whose edges fill zeros, so rows past Sq or Sk
+//   and head dims past D (112 -> 128, 32 -> 64) read as zeros.
+//
+// fp32 (and bf16 off the 16-byte grid): `flash_bwd_dq_kernel` and
+// `flash_bwd_dkdv_kernel`, fp32 FMAs from shared memory (the tensor cores
+// cannot meet the 1e-5 fp32 policy), two launches.  The dQ launch walks
+// its keys twice (D_i = sum P dP first, written to `delta`, then dS and
+// dQ); the dK/dV block owns 64 keys of a kv head and walks its GQA
+// group's heads, so the group's sum stays in registers.  Threads share a
+// row (2, or 4 in dK/dV at D = 256): each scores a share of the streamed
+// tile's columns into shared memory, then keeps a share of the row's
+// head dims.  At D = 256 the streamed tile is 32 rows, so that both
+// blocks fit.
+//
+// Head dims 32, 64, 112, 128 and 256 are compiled, as in the forward.
+// Rows past Sq or Sk are zero-filled and masked; tiles the causal or
+// window mask hides for every pair are skipped.
 //
 // Plain C interface, loaded with ctypes; each entry returns
-// cudaGetLastError() right after each of its two launches.
+// cudaGetLastError() right after each of its launches.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;    // 4 warps, 16 own rows each
-constexpr int kTile = 64;        // own rows of a block; tensor_core's
-                                 // streamed tile
-constexpr int kTcPad = 8;        // tensor_core row padding, in elements
-constexpr int kTcSplitD = 128;   // tensor_core dK/dV: 8 warps above it
+constexpr int kThreads = 128;    // fma: 4 warps; tensor_core: a warpgroup
+constexpr int kTile = 64;        // rows of a tile (a warpgroup's wgmma M)
+constexpr int kChunk = 64;       // tensor_core: head dims of a TMA box
+constexpr int kBox = kTile * kChunk * 2;  // bytes of a box, 128-byte rows
+constexpr int kTcSplitD = 64;    // tensor_core dK/dV: split above it
+constexpr int kTcWideD = 128;    // tensor_core: narrow blocks above it
+constexpr int kProducer = 32;    // tensor_core: the producer warp
 constexpr int kFmaWideD = 128;   // fma: narrow tiles above this head dim
 constexpr int kFmaNarrow = 32;   // fma: the streamed tile there
 constexpr float kLog2e = 1.4426950408889634f;
@@ -99,11 +119,15 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;     // tensor_core up to kTcWideD: the forward's o and
+  const void* o_lo;  // o_lo, contiguous [B, Sq, H, D] bf16
   const float* lse;
   float* delta;
   void* dq;
   void* dk;
   void* dv;
+  float* dk_part;    // tensor_core, G > 1: [B, Sk, H, D] fp32 partials;
+  float* dv_part;    // null: each block writes dk and dv
   int B, Sq, Sk, H, KV;
   long long st[21];
   int causal, window;
@@ -142,33 +166,75 @@ __device__ __forceinline__ bool tile_visible(const Params& p, int q0,
          (p.window <= 0 || q0 + kTile - 1 - k0 < p.window);
 }
 
-// Key tiles (of `tile` rows) that a row of the query tile at q0 may see:
-// [*begin, *end).
-__device__ __forceinline__ void key_range(const Params& p, int q0, int tile,
-                                          int* begin, int* end) {
-  const int q_last = min(q0 + kTile, p.Sq) - 1;
+// Keys that a row in [q_first, q_last] may see, from a multiple of
+// `tile`: [*begin, *end).
+__device__ __forceinline__ void key_span(const Params& p, int q_first,
+                                         int q_last, int tile, int* begin,
+                                         int* end) {
   *end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  const int kb = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int kb = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
   *begin = (kb / tile) * tile;
 }
 
-// Query rows that may see a key of the tile at k0: [*begin, *end).
-__device__ __forceinline__ void query_range(const Params& p, int k0,
-                                            int* begin, int* end) {
-  const int k_last = min(k0 + kTile, p.Sk) - 1;
-  *begin = p.causal ? k0 : 0;
+// Key tiles (of `tile` rows) that a row of the query tile at q0 may see.
+__device__ __forceinline__ void key_range(const Params& p, int q0, int tile,
+                                          int* begin, int* end) {
+  key_span(p, q0, min(q0 + kTile, p.Sq) - 1, tile, begin, end);
+}
+
+// Query rows that may see a key in [k_first, k_last]: [*begin, *end).
+__device__ __forceinline__ void query_span(const Params& p, int k_first,
+                                           int k_last, int* begin,
+                                           int* end) {
+  *begin = p.causal ? k_first : 0;
   *end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
 }
 
+// Query rows that may see a key of the tile at k0.
+__device__ __forceinline__ void query_range(const Params& p, int k0,
+                                            int* begin, int* end) {
+  query_span(p, k0, min(k0 + kTile, p.Sk) - 1, begin, end);
+}
+
 // The shared memory of each block, which flash_bwd_smem_plan in
-// core/gpu_mapping.py sums the same way.
+// core/gpu_mapping.py sums the same way.  tensor_core: 1 KB of alignment
+// slack (a box starts on 1024 bytes), the boxes, fp32 rows, barriers.
+template <int D>
+__host__ __device__ constexpr int tc_chunks() {
+  return (D + kChunk - 1) / kChunk;
+}
+// dQ: consumer warpgroups of 64 query rows each; at D 256 one, whose dQ
+// accumulators alone take 128 registers a thread
+template <int D>
+__host__ __device__ constexpr int tc_dq_wgs() {
+  return D > kTcWideD ? 1 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int tc_dq_stages() {
+  return D > kTcWideD ? 2 : 3;
+}
+// dK/dV: keys a block owns, 64 a consumer warpgroup; above 64 head dims
+// both warpgroups take the same 64, each half the head dim's dK and dV
+template <int D>
+__host__ __device__ constexpr int tc_dkdv_keys() {
+  return D > kTcSplitD ? kTile : 2 * kTile;
+}
+template <int D>
+__host__ __device__ constexpr int tc_dkdv_stages() {
+  return D > kTcWideD ? 2 : 3;
+}
 template <int D>
 __host__ __device__ constexpr size_t tc_dq_smem() {
-  return 6 * kTile * (D + kTcPad) * sizeof(bf16) + kTile * sizeof(float);
+  return 1024 + (2 * tc_dq_wgs<D>() + 2 * tc_dq_stages<D>()) *
+                    tc_chunks<D>() * kBox +
+         (2 * tc_dq_stages<D>() + 1) * sizeof(uint64_t);
 }
 template <int D>
 __host__ __device__ constexpr size_t tc_dkdv_smem() {
-  return 6 * kTile * (D + kTcPad) * sizeof(bf16) + 4 * kTile * sizeof(float);
+  return 1024 + (2 * tc_dkdv_keys<D>() / kTile + 2 * tc_dkdv_stages<D>()) *
+                    tc_chunks<D>() * kBox +
+         tc_dkdv_stages<D>() * 2 * kTile * sizeof(float) +
+         (2 * tc_dkdv_stages<D>() + 1) * sizeof(uint64_t);
 }
 template <int D>
 __host__ __device__ constexpr int fma_tile() {
@@ -187,478 +253,610 @@ __host__ __device__ constexpr size_t fma_dkdv_smem() {
          sizeof(float);
 }
 template <int D>
-__host__ __device__ constexpr int tc_dkdv_threads() {
-  return D > kTcSplitD ? 2 * kThreads : kThreads;
-}
-template <int D>
 __host__ __device__ constexpr int fma_dkdv_threads() {
   return (D > kFmaWideD ? 4 : 2) * kTile;
 }
 
 // ------------------------------------------------ bf16, tensor cores
+//
+// Tiles live in shared memory as TMA writes them for wgmma: a tile of
+// 64 rows is DP / 64 boxes of [64 rows][64 head dims] (8 KB, 128-byte
+// rows in the 128-byte swizzle), loaded through a 4-D map (head dim,
+// head, sequence, batch) whose edges fill zeros: rows past Sq or Sk, and
+// head dims past D (112 -> 128, 32 -> 64).  A product over the head dim
+// (S, dP) reads both operands K-major; a product over a tile's rows
+// (dQ, dV, dK) reads the tile MN-major (the transpose bit), its head
+// dims as N.
 
-// The row group's A fragment (16 rows from `rows`, k16 step kc).
-template <int LD>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* rows,
-                                       int kc) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, rows + (lane & 15) * LD + (lane >> 4) * 8 + kc * 16);
+// Descriptors of a tile at shared address `base`: K-major (over the head
+// dim) and MN-major (over the rows).  A step within the tile adds its
+// byte offset / 16 to the start-address field (addresses stay under
+// 2^18, the field's 14 bits).
+__device__ __forceinline__ uint64_t desc_k(uint32_t base) {
+  return wgmma_desc_sw128(base, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base) {
+  return wgmma_desc_sw128(base, kBox, 1024);
+}
+// K-major: the k16 step kk (32 bytes along a 128-byte row, then the next
+// box).  MN-major: rows 16 kk .. 16 kk + 15 (2 KB on), N across the
+// boxes from head dim 64 c0.
+__device__ __forceinline__ uint64_t step_k(uint64_t d, int kk) {
+  return d + (((kk >> 2) * kBox + (kk & 3) * 32) >> 4);
+}
+__device__ __forceinline__ uint64_t step_mn(uint64_t d, int kk, int c0) {
+  return d + ((c0 * kBox + kk * 2048) >> 4);
 }
 
-// B fragments of n8 chunks j and j + 1 of X^T for a product against the
-// rows of X (row-major [n][k], the k16 step kc).
-template <int LD>
-__device__ __forceinline__ void bt_frag(uint32_t (&f)[4], const bf16* X,
-                                        int j, int kc) {
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3;
-  ldmatrix_x4(f, X + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LD + kc * 16 +
-                     (mi & 1) * 8);
-}
-
-// B fragments of n8 chunks at columns col and col + 8 of X (row-major
-// [k][n], the k16 step kc).
-template <int LD>
-__device__ __forceinline__ void b_frag(uint32_t (&f)[4], const bf16* X,
-                                       int col, int kc) {
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3;
-  ldmatrix_x4_trans(f, X + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * LD +
-                           col + (mi >> 1) * 8);
-}
-
-// The m16n8 accumulators of chunks 2kc and 2kc + 1 as one m16k16 A
+// The m64n64 accumulators of n8 chunks 2kc and 2kc + 1 as the m64k16 A
 // operand, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (*s)[4], int kc) {
-  a[0] = pack_f32_bf16(s[2 * kc][0], s[2 * kc][1]);
-  a[1] = pack_f32_bf16(s[2 * kc][2], s[2 * kc][3]);
-  a[2] = pack_f32_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-  a[3] = pack_f32_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-}
-
-// x - bf16(x), the part of x that one bf16 rounding drops
-__device__ __forceinline__ float bf16_rest(float x) {
-  return x - __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* s,
+                                         int kc) {
+  const float* c = s + 8 * kc;
+  a[0] = pack_f32_bf16(c[0], c[1]);
+  a[1] = pack_f32_bf16(c[2], c[3]);
+  a[2] = pack_f32_bf16(c[4], c[5]);
+  a[3] = pack_f32_bf16(c[6], c[7]);
 }
 
 // The same operand in two bf16 parts, hi + lo, which together keep
 // ~16 bits of each value.
 __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4],
                                                uint32_t (&lo)[4],
-                                               const float (*s)[4], int kc) {
+                                               const float* s, int kc) {
   acc_to_a(hi, s, kc);
-  const float* a = s[2 * kc];
-  const float* b = s[2 * kc + 1];
-  lo[0] = pack_f32_bf16(bf16_rest(a[0]), bf16_rest(a[1]));
-  lo[1] = pack_f32_bf16(bf16_rest(a[2]), bf16_rest(a[3]));
-  lo[2] = pack_f32_bf16(bf16_rest(b[0]), bf16_rest(b[1]));
-  lo[3] = pack_f32_bf16(bf16_rest(b[2]), bf16_rest(b[3]));
+  const float* c = s + 8 * kc;
+  lo[0] = pack_f32_bf16(bf16_rest(c[0]), bf16_rest(c[1]));
+  lo[1] = pack_f32_bf16(bf16_rest(c[2]), bf16_rest(c[3]));
+  lo[2] = pack_f32_bf16(bf16_rest(c[4]), bf16_rest(c[5]));
+  lo[3] = pack_f32_bf16(bf16_rest(c[6]), bf16_rest(c[7]));
 }
 
-// S = q k^T and dP = dO v^T of the warp's 16 rows against a key tile.
-template <int D, int LD>
-__device__ __forceinline__ void scores_tc(float (&s)[kTile / 8][4],
-                                          float (&dp)[kTile / 8][4],
-                                          const bf16* qrow,
-                                          const bf16* dorow, const bf16* Kt,
-                                          const bf16* Vt) {
-  constexpr int NK = kTile / 8;
+// A = X (64 rows of a tile at xa) against B = Y^T (64 rows of a tile at
+// yb), over the DP head dims: s = X Y^T, m64n64, fp32.
+template <int DP>
+__device__ __forceinline__ void scores_wg(float (&s)[32], uint32_t xa,
+                                          uint32_t yb) {
+  const uint64_t da = desc_k(xa), db = desc_k(yb);
 #pragma unroll
-  for (int j = 0; j < NK; ++j)
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss_n64<0>(s, step_k(da, kk), step_k(db, kk), kk > 0);
+}
+
+// d (64 x NN, fp32) += A (64 x 64, four m64k16 fragments) * the 64 rows
+// of the tile at `base`, head dims 64 c0 .. 64 c0 + NN - 1.
+template <int NN>
+__device__ __forceinline__ void rows_product(float (&d)[NN / 2],
+                                             const uint32_t (&a)[4][4],
+                                             uint32_t base, int c0) {
+  const uint64_t db = desc_mn(base);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t qa[4], da[4];
-    a_frag<LD>(qa, qrow, kc);
-    a_frag<LD>(da, dorow, kc);
-#pragma unroll
-    for (int j = 0; j < NK; j += 2) {
-      uint32_t f[4];
-      bt_frag<LD>(f, Kt, j, kc);
-      mma_bf16(s[j], qa, f[0], f[1]);
-      mma_bf16(s[j + 1], qa, f[2], f[3]);
-      bt_frag<LD>(f, Vt, j, kc);
-      mma_bf16(dp[j], da, f[0], f[1]);
-      mma_bf16(dp[j + 1], da, f[2], f[3]);
-    }
+  for (int kc = 0; kc < 4; ++kc) {
+    if constexpr (NN == 128)
+      wgmma_rs_n128<1>(d, a[kc], step_mn(db, kc, c0));
+    else
+      wgmma_rs_n64<1>(d, a[kc], step_mn(db, kc, c0));
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_tc_kernel(const __grid_constant__ Params p, int nqt,
+__global__ void __launch_bounds__(tc_dq_wgs<D>() * kThreads + kProducer, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ Params p, int nqb,
                            float scale_log2) {
-  constexpr int LD = D + kTcPad;
-  constexpr int DN = D / 8;      // n8 chunks of dQ
-  constexpr int NK = kTile / 8;  // n8 chunks of a score tile
-  constexpr int R = kTile * LD;
+  constexpr int NC = tc_chunks<D>();
+  constexpr int DP = NC * kChunk;
+  constexpr int NWG = tc_dq_wgs<D>();
+  constexpr int ST = tc_dq_stages<D>();
+  constexpr int NN = DP > 128 ? 128 : DP;  // N of one dQ wgmma
+  constexpr int NP = DP / NN;              // dQ wgmmas a k16 step
+  // D_i by a first walk over the keys where the forward writes no o_lo
+  constexpr bool WALK = D > kTcWideD;
+  constexpr int NW = WALK ? 2 : 1;  // walks over the key tiles
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* dOs = Qs + R;                            // [kTile][LD]
-  bf16* Ks = dOs + R;                            // [2][kTile][LD]
-  bf16* Vs = Ks + 2 * R;                         // [2][kTile][LD]
-  float* lse_s = reinterpret_cast<float*>(Vs + 2 * R);  // [kTile], log2
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;                   // [NWG][NC] boxes
+  unsigned char* dOs = Qs + NWG * NC * kBox;  // [NWG][NC]
+  unsigned char* KVs = dOs + NWG * NC * kBox;  // [ST][K, V][NC]
+  uint64_t* full = reinterpret_cast<uint64_t*>(KVs + ST * 2 * NC * kBox);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
 
   const int b = blockIdx.x / p.H;
   const int h = blockIdx.x - b * p.H;
   const int kvh = h / (p.H / p.KV);
-  const int qt = p.causal ? nqt - 1 - static_cast<int>(blockIdx.y)
+  // under the causal mask the last query tiles see the most keys
+  const int qb = p.causal ? nqb - 1 - static_cast<int>(blockIdx.y)
                           : static_cast<int>(blockIdx.y);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const bf16* qb = head_base<bf16>(p.q, p.st + kQ, b, h);
-  const bf16* dob = head_base<bf16>(p.dout, p.st + kDO, b, h);
-  const bf16* kb = head_base<bf16>(p.k, p.st + kK, b, kvh);
-  const bf16* vb = head_base<bf16>(p.v, p.st + kV, b, kvh);
+  const int q0 = qb * NWG * kTile;
+  const int wg = threadIdx.x / kThreads;  // NWG: the producer warp
 
   int kv_begin, kv_end;
-  key_range(p, q0, kTile, &kv_begin, &kv_end);
+  key_span(p, q0, min(q0 + NWG * kTile, p.Sq) - 1, kTile, &kv_begin,
+           &kv_end);
   const int ntiles =
       kv_end > kv_begin ? (kv_end - kv_begin + kTile - 1) / kTile : 0;
 
-  auto issue = [&](int tile, int buf) {
-    const int k0 = kv_begin + tile * kTile;
-    cp_async_tile<kTile, D, LD, kThreads>(Ks + buf * R, kb, p.st[kK + 1],
-                                          k0, p.Sk);
-    cp_async_tile<kTile, D, LD, kThreads>(Vs + buf * R, vb, p.st[kV + 1],
-                                          k0, p.Sk);
-  };
-  // one pass over the key tiles, double-buffered: body(k0, Kt, Vt)
-  auto walk = [&](auto body) {
-    if (ntiles > 0) issue(0, 0);
-    cp_async_commit();
-    for (int it = 0; it < ntiles; ++it) {
-      const int buf = it & 1;
-      if (it + 1 < ntiles) {  // the next tile loads while this one runs
-        issue(it + 1, buf ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      body(kv_begin + it * kTile, Ks + buf * R, Vs + buf * R);
-      __syncthreads();  // this buffer is refilled two tiles on
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);  // one arrival per consumer warpgroup
     }
-  };
-
-  cp_async_tile<kTile, D, LD, kThreads>(Qs, qb, p.st[kQ + 1], q0, p.Sq);
-  cp_async_tile<kTile, D, LD, kThreads>(dOs, dob, p.st[kDO + 1], q0, p.Sq);
-  cp_async_commit();
-  if (threadIdx.x < kTile) {
-    const int qpos = q0 + threadIdx.x;
-    lse_s[threadIdx.x] =
-        qpos < p.Sq
-            ? p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qpos] *
-                  kLog2e
-            : 0.f;
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
-  cp_async_wait<0>();  // q and dO have landed
   __syncthreads();
 
-  const bf16* qrow = Qs + warp * 16 * LD;
-  const bf16* dorow = dOs + warp * 16 * LD;
-  const int row_lo = q0 + warp * 16 + g;
+  if (wg == NWG) {  // the producer: q and dO once, then the K/V ring
+    if (threadIdx.x == NWG * kThreads) {
+      mbar_arrive_expect_tx(qbar, 2 * NWG * NC * kBox);
+      for (int w = 0; w < NWG; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(Qs + (w * NC + c) * kBox, &tm_q, c * kChunk, h,
+                      q0 + w * kTile, b, qbar);
+          tma_load_4d(dOs + (w * NC + c) * kBox, &tm_do, c * kChunk, h,
+                      q0 + w * kTile, b, qbar);
+        }
+      for (int it = 0; it < NW * ntiles; ++it) {
+        const int st = it % ST;
+        if (it >= ST) mbar_wait(&empty[st], ((it / ST) - 1) & 1);
+        unsigned char* kt = KVs + st * 2 * NC * kBox;
+        const int k0 = kv_begin + (it % ntiles) * kTile;
+        mbar_arrive_expect_tx(&full[st], 2 * NC * kBox);
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(kt + c * kBox, &tm_k, c * kChunk, kvh, k0, b,
+                      &full[st]);
+          tma_load_4d(kt + (NC + c) * kBox, &tm_v, c * kChunk, kvh, k0, b,
+                      &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = wg;  // this consumer warpgroup: rows qw0 .. qw0 + 63
+  const int tid = threadIdx.x - wg * kThreads;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qw0 = q0 + cw * kTile;
+  const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
+
+  const int row_lo = qw0 + warp * 16 + g;
   const int row_hi = row_lo + 8;
-  const float lse_lo = lse_s[warp * 16 + g];
-  const float lse_hi = lse_s[warp * 16 + g + 8];
+  const float lse_lo = row_lo < p.Sq ? p.lse[row0 + row_lo] * kLog2e : 0.f;
+  const float lse_hi = row_hi < p.Sq ? p.lse[row0 + row_hi] * kLog2e : 0.f;
 
-  // P from lse, 0 where masked, in place of S
-  auto probs = [&](float (&s)[NK][4], int k0) {
-    if (tile_visible(p, q0, k0)) {  // no pair of the tile is masked
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = exp2f(s[j][e] * scale_log2 - (e < 2 ? lse_lo : lse_hi));
-      return;
-    }
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-        const bool lo = e < 2;
-        s[j][e] = visible(p, lo ? row_lo : row_hi, kpos)
-                      ? exp2f(s[j][e] * scale_log2 - (lo ? lse_lo : lse_hi))
-                      : 0.f;
-      }
-    }
-  };
+  // the key tiles this warpgroup's rows can see
+  int kb_w = 0, ke_w = 0;
+  if (qw0 < p.Sq)
+    key_span(p, qw0, min(qw0 + kTile, p.Sq) - 1, kTile, &kb_w, &ke_w);
 
-  // pass 1: D_i = sum_k P dP, from this kernel's own P and dP (fp32),
-  // written out for the dK/dV launch
+  float acc[NP][NN / 2];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int i = 0; i < NN / 2; ++i) acc[pp][i] = 0.f;
+
+  const uint32_t q_base = smem_addr(Qs + cw * NC * kBox);
+  const uint32_t do_base = smem_addr(dOs + cw * NC * kBox);
+  mbar_wait(qbar, 0);
+
   float d_lo = 0.f, d_hi = 0.f;
-  walk([&](int k0, const bf16* Kt, const bf16* Vt) {
-    float s[NK][4], dp[NK][4];
-    scores_tc<D, LD>(s, dp, qrow, dorow, Kt, Vt);
-    probs(s, k0);
+  if constexpr (!WALK) {
+    // D_i = sum_d dO (o + o_lo) in fp32 for the warp's 16 rows, two lanes
+    // a row (lane 2r + half), each every other 16-byte piece; written out
+    // for dK/dV
+    const int row = qw0 + warp * 16 + (lane >> 1);
+    float sum = 0.f;
+    if (row < p.Sq) {
+      const bf16* dor = head_base<bf16>(p.dout, p.st + kDO, b, h) +
+                        row * p.st[kDO + 1];
+      const long long at =
+          ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
+      const bf16* orow = static_cast<const bf16*>(p.o) + at;
+      const bf16* lrow = static_cast<const bf16*>(p.o_lo) + at;
+      for (int pc = lane & 1; pc < D / 8; pc += 2) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dor + pc * 8);
+        const uint4 o = *reinterpret_cast<const uint4*>(orow + pc * 8);
+        const uint4 l = *reinterpret_cast<const uint4*>(lrow + pc * 8);
+        const bf16* av = reinterpret_cast<const bf16*>(&a);
+        const bf16* ov = reinterpret_cast<const bf16*>(&o);
+        const bf16* lv = reinterpret_cast<const bf16*>(&l);
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      d_lo += s[j][0] * dp[j][0] + s[j][1] * dp[j][1];
-      d_hi += s[j][2] * dp[j][2] + s[j][3] * dp[j][3];
-    }
-  });
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {  // the quad shares its rows
-    d_lo += __shfl_xor_sync(0xffffffffu, d_lo, o);
-    d_hi += __shfl_xor_sync(0xffffffffu, d_hi, o);
-  }
-  if (t == 0) {
-    float* drow = p.delta + (static_cast<long long>(b) * p.H + h) * p.Sq;
-    if (row_lo < p.Sq) drow[row_lo] = d_lo;
-    if (row_hi < p.Sq) drow[row_hi] = d_hi;
-  }
-
-  // pass 2: dS = P (dP - D_i), dQ += dS k
-  float acc[DN][4];
-#pragma unroll
-  for (int j = 0; j < DN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  walk([&](int k0, const bf16* Kt, const bf16* Vt) {
-    float s[NK][4], dp[NK][4];
-    scores_tc<D, LD>(s, dp, qrow, dorow, Kt, Vt);
-    probs(s, k0);
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      s[j][0] *= dp[j][0] - d_lo;
-      s[j][1] *= dp[j][1] - d_lo;
-      s[j][2] *= dp[j][2] - d_hi;
-      s[j][3] *= dp[j][3] - d_hi;
-    }
-    // dS in two bf16 parts: along a row it sums to zero, which one
-    // rounding of each term would break for rows that see few keys
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t hi[4], lo[4];
-      acc_to_a_split(hi, lo, s, kc);
-#pragma unroll
-      for (int j = 0; j < DN; j += 2) {
-        uint32_t f[4];
-        b_frag<LD>(f, Kt, j * 8, kc);
-        mma_bf16(acc[j], hi, f[0], f[1]);
-        mma_bf16(acc[j + 1], hi, f[2], f[3]);
-        mma_bf16(acc[j], lo, f[0], f[1]);
-        mma_bf16(acc[j + 1], lo, f[2], f[3]);
+        for (int e = 0; e < 8; ++e)
+          sum = fmaf(__bfloat162float(av[e]),
+                     __bfloat162float(ov[e]) + __bfloat162float(lv[e]), sum);
       }
     }
-  });
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((lane & 1) == 0 && row < p.Sq) p.delta[row0 + row] = sum;
+    d_lo = __shfl_sync(0xffffffffu, sum, 2 * g);       // row g
+    d_hi = __shfl_sync(0xffffffffu, sum, 2 * g + 16);  // row g + 8
+  }
+
+  // WALK: walk 1 sums D_i = sum_k P dP from this kernel's own fp32 P and
+  // dP (each thread over its columns, then the quad); then (or at once)
+  // the walk that forms dS and dQ
+  for (int it = 0; it < NW * ntiles; ++it) {
+    const int st = it % ST;
+    const bool second = !WALK || it >= ntiles;
+    const int k0 = kv_begin + (it % ntiles) * kTile;
+    if (WALK && it == ntiles) {  // D_i of the rows: the quad shares them
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        d_lo += __shfl_xor_sync(0xffffffffu, d_lo, o);
+        d_hi += __shfl_xor_sync(0xffffffffu, d_hi, o);
+      }
+      if (t == 0) {  // for the dK/dV launch
+        if (row_lo < p.Sq) p.delta[row0 + row_lo] = d_lo;
+        if (row_hi < p.Sq) p.delta[row0 + row_hi] = d_hi;
+      }
+    }
+    mbar_wait(&full[st], (it / ST) & 1);
+    if (k0 < ke_w && k0 + kTile > kb_w) {
+      const uint32_t k_base = smem_addr(KVs + st * 2 * NC * kBox);
+      const uint32_t v_base = k_base + NC * kBox;
+      float s[32], dp[32];
+      wgmma_fence();
+      scores_wg<DP>(s, q_base, k_base);   // S = q k^T
+      scores_wg<DP>(dp, do_base, v_base);  // dP = dO v^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(s);
+      wgmma_fence_regs(dp);
+      // P from lse, 0 where masked, in place of S
+      if (tile_visible(p, qw0, k0)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = exp2f(s[i] * scale_log2 - ((i & 2) ? lse_hi : lse_lo));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int kpos = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          const bool hi = i & 2;
+          s[i] = visible(p, hi ? row_hi : row_lo, kpos)
+                     ? exp2f(s[i] * scale_log2 - (hi ? lse_hi : lse_lo))
+                     : 0.f;
+        }
+      }
+      if (!second) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) {
+          d_lo += s[i] * dp[i] + s[i + 1] * dp[i + 1];
+          d_hi += s[i + 2] * dp[i + 2] + s[i + 3] * dp[i + 3];
+        }
+      } else {
+        // dS = P (dP - D_i); dQ += dS k with dS in two bf16 parts: along
+        // a row it sums to zero, which one rounding of each term would
+        // break for rows that see few keys
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] *= dp[i] - ((i & 2) ? d_hi : d_lo);
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a_split(hi[kc], lo[kc], s, kc);
+        wgmma_fence();
+#pragma unroll
+        for (int pp = 0; pp < NP; ++pp) {
+          rows_product<NN>(acc[pp], hi, k_base, pp * (NN / kChunk));
+          rows_product<NN>(acc[pp], lo, k_base, pp * (NN / kChunk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int pp = 0; pp < NP; ++pp) wgmma_fence_regs(acc[pp]);
+      }
+    }
+    if (tid == 0) mbar_arrive(&empty[st]);  // the stage back to the producer
+  }
+  if (WALK && ntiles == 0 && t == 0) {  // rows that see no key: D_i = 0
+    if (row_lo < p.Sq) p.delta[row0 + row_lo] = 0.f;
+    if (row_hi < p.Sq) p.delta[row0 + row_hi] = 0.f;
+  }
 
   bf16* dqb = head_base_out<bf16>(p.dq, p.st + kDQ, b, h) + 2 * t;
   const float sc = p.scale;
 #pragma unroll
-  for (int j = 0; j < DN; ++j) {
-    if (row_lo < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row_lo * p.st[kDQ + 1] +
-                                         j * 8) =
-          __floats2bfloat162_rn(acc[j][0] * sc, acc[j][1] * sc);
-    if (row_hi < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row_hi * p.st[kDQ + 1] +
-                                         j * 8) =
-          __floats2bfloat162_rn(acc[j][2] * sc, acc[j][3] * sc);
-  }
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int j = 0; j < NN / 8; ++j) {
+      const int col = pp * NN + j * 8;
+      if (col >= D) continue;
+      const float* a = acc[pp] + 4 * j;
+      if (row_lo < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + row_lo * p.st[kDQ + 1] +
+                                           col) =
+            __floats2bfloat162_rn(a[0] * sc, a[1] * sc);
+      if (row_hi < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + row_hi * p.st[kDQ + 1] +
+                                           col) =
+            __floats2bfloat162_rn(a[2] * sc, a[3] * sc);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(tc_dkdv_threads<D>())
-    flash_bwd_dkdv_tc_kernel(const __grid_constant__ Params p, int nkt,
+__global__ void __launch_bounds__(2 * kThreads + kProducer, 1)
+    flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const __grid_constant__ Params p,
                              float scale_log2) {
-  constexpr int LD = D + kTcPad;
-  constexpr int DK = D / 16;                  // k16 steps over the head dim
-  constexpr int SPLIT = tc_dkdv_threads<D>() / kThreads;
-  constexpr int DW = D / SPLIT;               // head dims a warp keeps
-  constexpr int DN = DW / 8;                  // its n8 chunks of dK, dV
-  constexpr int NQ = kTile / 8;               // n8 chunks of a score tile
-  constexpr int NT = tc_dkdv_threads<D>();
-  constexpr int R = kTile * LD;
+  constexpr int NC = tc_chunks<D>();
+  constexpr int DP = NC * kChunk;
+  constexpr bool SPLIT = D > kTcSplitD;  // both warpgroups on 64 keys
+  constexpr int KW = tc_dkdv_keys<D>() / kTile;  // key boxes a block owns
+  constexpr int ST = tc_dkdv_stages<D>();
+  constexpr int NO = SPLIT ? DP / 2 : DP;  // head dims of a warpgroup's dK, dV
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* Vs = Ks + R;                             // [kTile][LD]
-  bf16* Qs = Vs + R;                             // [2][kTile][LD]
-  bf16* dOs = Qs + 2 * R;                        // [2][kTile][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * R);  // [2][kTile]
-  float* dlt_s = lse_s + 2 * kTile;                      // [2][kTile]
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = smem;                  // [KW][NC] boxes
+  unsigned char* Vs = Ks + KW * NC * kBox;   // [KW][NC]
+  unsigned char* QDs = Vs + KW * NC * kBox;  // [ST][q, dO][NC]
+  float* lsd = reinterpret_cast<float*>(QDs + ST * 2 * NC * kBox);
+  // lsd: [ST][lse * log2(e), D_i][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(lsd + ST * 2 * kTile);
+  uint64_t* empty = full + ST;
+  uint64_t* kbar = empty + ST;
 
-  const int b = blockIdx.x / p.KV;
-  const int kvh = blockIdx.x - b * p.KV;
-  const int G = p.H / p.KV;
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x - b * p.H;
+  const int kvh = h / (p.H / p.KV);
   // under the causal mask the first key tiles see the most queries
-  const int k0 = static_cast<int>(blockIdx.y) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int rg = warp & 3;          // the warp's group of 16 key rows
-  const int dpart = warp >> 2;      // its part of the head dim
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  (void)nkt;
-
-  const bf16* kb = head_base<bf16>(p.k, p.st + kK, b, kvh);
-  const bf16* vb = head_base<bf16>(p.v, p.st + kV, b, kvh);
+  const int k0 = static_cast<int>(blockIdx.y) * KW * kTile;
+  const int wg = threadIdx.x / kThreads;  // 2: the producer warp
 
   int q_begin, q_end;
-  query_range(p, k0, &q_begin, &q_end);
+  query_span(p, k0, min(k0 + KW * kTile, p.Sk) - 1, &q_begin, &q_end);
   const int nq = q_end > q_begin ? (q_end - q_begin + kTile - 1) / kTile : 0;
-  const int iters = G * nq;
+  const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  // iteration i: head kvh * G + i / nq, queries from q_begin + (i % nq) * 64
-  auto stage = [&](int i, int buf) {
-    const int hh = kvh * G + i / nq;
-    const int q0 = q_begin + (i % nq) * kTile;
-    cp_async_tile<kTile, D, LD, NT>(Qs + buf * R,
-                                 head_base<bf16>(p.q, p.st + kQ, b, hh),
-                                 p.st[kQ + 1], q0, p.Sq);
-    cp_async_tile<kTile, D, LD, NT>(dOs + buf * R,
-                                 head_base<bf16>(p.dout, p.st + kDO, b, hh),
-                                 p.st[kDO + 1], q0, p.Sq);
-    for (int r = threadIdx.x; r < kTile; r += NT) {
-      const int qpos = q0 + r;
-      const long long at =
-          (static_cast<long long>(b) * p.H + hh) * p.Sq + qpos;
-      lse_s[buf * kTile + r] = qpos < p.Sq ? p.lse[at] * kLog2e : 0.f;
-      dlt_s[buf * kTile + r] = qpos < p.Sq ? p.delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 33);  // the TMA's bytes and 32 lanes' lse, D_i
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
-  };
+    mbar_init(kbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  cp_async_tile<kTile, D, LD, NT>(Ks, kb, p.st[kK + 1], k0, p.Sk);
-  cp_async_tile<kTile, D, LD, NT>(Vs, vb, p.st[kV + 1], k0, p.Sk);
-  if (iters > 0) stage(0, 0);
-  cp_async_commit();
+  if (wg == 2) {  // the producer warp: k and v once, then the q/dO ring
+    const int lane = threadIdx.x - 2 * kThreads;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kbar, 2 * KW * NC * kBox);
+      for (int w = 0; w < KW; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(Ks + (w * NC + c) * kBox, &tm_k, c * kChunk, kvh,
+                      k0 + w * kTile, b, kbar);
+          tma_load_4d(Vs + (w * NC + c) * kBox, &tm_v, c * kChunk, kvh,
+                      k0 + w * kTile, b, kbar);
+        }
+    }
+    for (int it = 0; it < nq; ++it) {
+      const int st = it % ST;
+      const int q0 = q_begin + it * kTile;
+      if (it >= ST) mbar_wait(&empty[st], ((it / ST) - 1) & 1);
+      if (lane == 0) {
+        unsigned char* qt = QDs + st * 2 * NC * kBox;
+        mbar_arrive_expect_tx(&full[st], 2 * NC * kBox);
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(qt + c * kBox, &tm_q, c * kChunk, h, q0, b, &full[st]);
+          tma_load_4d(qt + (NC + c) * kBox, &tm_do, c * kChunk, h, q0, b,
+                      &full[st]);
+        }
+      }
+      float* l = lsd + st * 2 * kTile;
+      for (int r = lane; r < kTile; r += 32) {
+        const int qpos = q0 + r;
+        const bool in = qpos < p.Sq;
+        l[r] = in ? p.lse[row0 + qpos] * kLog2e : 0.f;
+        l[kTile + r] = in ? p.delta[row0 + qpos] : 0.f;
+      }
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
 
-  const bf16* krow = Ks + rg * 16 * LD;
-  const bf16* vrow = Vs + rg * 16 * LD;
-  const int key_lo = k0 + rg * 16 + g;
+  const int cw = wg;
+  const int tid = threadIdx.x - wg * kThreads;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kbox = SPLIT ? 0 : cw;         // this warpgroup's keys
+  const int kw0 = k0 + kbox * kTile;
+  const int c0 = SPLIT ? cw * (NO / kChunk) : 0;  // its first head-dim box
+  const int key_lo = kw0 + warp * 16 + g;
   const int key_hi = key_lo + 8;
 
-  float dk[DN][4], dv[DN][4];
-#pragma unroll
-  for (int j = 0; j < DN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  // the query tiles that can see this warpgroup's keys
+  int qb_w = 0, qe_w = 0;
+  if (kw0 < p.Sk) query_span(p, kw0, min(kw0 + kTile, p.Sk) - 1, &qb_w,
+                             &qe_w);
 
-  for (int it = 0; it < iters; ++it) {
-    const int buf = it & 1;
-    const int q0 = q_begin + (it % nq) * kTile;
-    if (it + 1 < iters) {  // the next (head, query tile) loads meanwhile
-      stage(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * R;
-    const bf16* dOt = dOs + buf * R;
-    const float* lt = lse_s + buf * kTile;
-    const float* dt = dlt_s + buf * kTile;
+  float dk[NO / 2], dv[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) dk[i] = dv[i] = 0.f;
 
-    // S^T = k q^T and dP^T = v dO^T over the warp's 16 keys
-    float s[NQ][4], dp[NQ][4];
+  const uint32_t k_base = smem_addr(Ks + kbox * NC * kBox);
+  const uint32_t v_base = smem_addr(Vs + kbox * NC * kBox);
+  mbar_wait(kbar, 0);
+
+  for (int it = 0; it < nq; ++it) {
+    const int st = it % ST;
+    const int q0 = q_begin + it * kTile;
+    mbar_wait(&full[st], (it / ST) & 1);
+    if (q0 < qe_w && q0 + kTile > qb_w) {
+      const uint32_t q_st = smem_addr(QDs + st * 2 * NC * kBox);
+      const uint32_t do_st = q_st + NC * kBox;
+      const float* lt = lsd + st * 2 * kTile;
+      const float* dt = lt + kTile;
+      float s[32], dp[32];
+      wgmma_fence();
+      scores_wg<DP>(s, k_base, q_st);    // S^T = k q^T
+      scores_wg<DP>(dp, v_base, do_st);  // dP^T = v dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(s);
+      wgmma_fence_regs(dp);
+      // P^T in place of S^T, dS^T in place of dP^T; column e of the
+      // thread's n8 chunk j is query 8j + 2t + (e & 1)
+      if (tile_visible(p, q0, kw0)) {
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lt + j * 8 + 2 * t);
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dt + j * 8 + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < DK; ++kc) {
-      uint32_t ka[4], va[4];
-      a_frag<LD>(ka, krow, kc);
-      a_frag<LD>(va, vrow, kc);
-#pragma unroll
-      for (int j = 0; j < NQ; j += 2) {
-        uint32_t f[4];
-        bt_frag<LD>(f, Qt, j, kc);
-        mma_bf16(s[j], ka, f[0], f[1]);
-        mma_bf16(s[j + 1], ka, f[2], f[3]);
-        bt_frag<LD>(f, dOt, j, kc);
-        mma_bf16(dp[j], va, f[0], f[1]);
-        mma_bf16(dp[j + 1], va, f[2], f[3]);
-      }
-    }
-    // P^T in place of S^T, dS^T in place of dP^T
-    if (tile_visible(p, q0, k0)) {  // no pair of the tile is masked
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const float2 l2 = *reinterpret_cast<const float2*>(lt + j * 8 + 2 * t);
-        const float2 d2 = *reinterpret_cast<const float2*>(dt + j * 8 + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool odd = e & 1;
-          s[j][e] = exp2f(s[j][e] * scale_log2 - (odd ? l2.y : l2.x));
-          dp[j][e] = s[j][e] * (dp[j][e] - (odd ? d2.y : d2.x));
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const bool odd = e & 1;
+            s[i] = exp2f(s[i] * scale_log2 - (odd ? l2.y : l2.x));
+            dp[i] = s[i] * (dp[i] - (odd ? d2.y : d2.x));
+          }
         }
-      }
-    } else {
+      } else {
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t + (e & 1);
-          const float pr = visible(p, q0 + qi, e < 2 ? key_lo : key_hi)
-                               ? exp2f(s[j][e] * scale_log2 - lt[qi])
+        for (int i = 0; i < 32; ++i) {
+          const int qi = (i >> 2) * 8 + 2 * t + (i & 1);
+          const float pr = visible(p, q0 + qi, (i & 2) ? key_hi : key_lo)
+                               ? exp2f(s[i] * scale_log2 - lt[qi])
                                : 0.f;
-          s[j][e] = pr;
-          dp[j][e] = pr * (dp[j][e] - dt[qi]);
+          s[i] = pr;
+          dp[i] = pr * (dp[i] - dt[qi]);
         }
       }
-    }
-    // dV += P^T dO and dK += dS^T q over the warp's head dims
+      // dV += P^T dO and dK += dS^T q over this warpgroup's head dims
+      uint32_t pa[4][4], da[4][4];
 #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s, kc);
-      acc_to_a(da, dp, kc);
-#pragma unroll
-      for (int j = 0; j < DN; j += 2) {
-        const int col = dpart * DW + j * 8;
-        uint32_t f[4];
-        b_frag<LD>(f, dOt, col, kc);
-        mma_bf16(dv[j], pa, f[0], f[1]);
-        mma_bf16(dv[j + 1], pa, f[2], f[3]);
-        b_frag<LD>(f, Qt, col, kc);
-        mma_bf16(dk[j], da, f[0], f[1]);
-        mma_bf16(dk[j + 1], da, f[2], f[3]);
+      for (int kc = 0; kc < 4; ++kc) {
+        acc_to_a(pa[kc], s, kc);
+        acc_to_a(da[kc], dp, kc);
       }
+      wgmma_fence();
+      rows_product<NO>(dv, pa, do_st, c0);
+      rows_product<NO>(dk, da, q_st, c0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(dv);
+      wgmma_fence_regs(dk);
     }
-    __syncthreads();  // this buffer is refilled two iterations on
+    if (tid == 0) mbar_arrive(&empty[st]);
   }
 
-  const int col0 = dpart * DW + 2 * t;
-  bf16* dkb = head_base_out<bf16>(p.dk, p.st + kDK, b, kvh) + col0;
-  bf16* dvb = head_base_out<bf16>(p.dv, p.st + kDV, b, kvh) + col0;
+  // G = 1: dk (scaled) and dv in bf16; else this head's fp32 partials,
+  // which flash_bwd_group_sum_kernel sums over the group
   const float sc = p.scale;
 #pragma unroll
-  for (int j = 0; j < DN; ++j) {
-    if (key_lo < p.Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key_lo * p.st[kDK + 1] +
-                                         j * 8) =
-          __floats2bfloat162_rn(dk[j][0] * sc, dk[j][1] * sc);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key_lo * p.st[kDV + 1] +
-                                         j * 8) =
-          __floats2bfloat162_rn(dv[j][0], dv[j][1]);
-    }
-    if (key_hi < p.Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key_hi * p.st[kDK + 1] +
-                                         j * 8) =
-          __floats2bfloat162_rn(dk[j][2] * sc, dk[j][3] * sc);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key_hi * p.st[kDV + 1] +
-                                         j * 8) =
-          __floats2bfloat162_rn(dv[j][2], dv[j][3]);
+  for (int j = 0; j < NO / 8; ++j) {
+    const int col = (c0 * kChunk) + j * 8 + 2 * t;
+    if (col >= D) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = half ? key_hi : key_lo;
+      if (key >= p.Sk) continue;
+      const float* k2 = dk + 4 * j + 2 * half;
+      const float* v2 = dv + 4 * j + 2 * half;
+      if (p.dk_part == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            head_base_out<bf16>(p.dk, p.st + kDK, b, kvh) +
+            key * p.st[kDK + 1] + col) =
+            __floats2bfloat162_rn(k2[0] * sc, k2[1] * sc);
+        *reinterpret_cast<__nv_bfloat162*>(
+            head_base_out<bf16>(p.dv, p.st + kDV, b, kvh) +
+            key * p.st[kDV + 1] + col) = __floats2bfloat162_rn(v2[0], v2[1]);
+      } else {
+        const long long at =
+            ((static_cast<long long>(b) * p.Sk + key) * p.H + h) * D + col;
+        *reinterpret_cast<float2*>(p.dk_part + at) = make_float2(k2[0], k2[1]);
+        *reinterpret_cast<float2*>(p.dv_part + at) = make_float2(v2[0], v2[1]);
+      }
     }
   }
+}
+
+// dk = scale * sum over the group's heads of dk_part, dv = the same sum of
+// dv_part (no scale), in head order; four head dims a thread
+// (blockIdx.y: 0 dk, 1 dv).  The partials are [B, Sk, H, D] fp32.
+__global__ void flash_bwd_group_sum_kernel(const __grid_constant__ Params p,
+                                           int D) {
+  const int dk = blockIdx.y == 0;
+  const float* part = dk ? p.dk_part : p.dv_part;
+  const long long* st = p.st + (dk ? kDK : kDV);
+  bf16* out = static_cast<bf16*>(dk ? p.dk : p.dv);
+  const float sc = dk ? p.scale : 1.f;
+  const int G = p.H / p.KV;
+  const int n4 = D / 4;
+  const long long total = static_cast<long long>(p.B) * p.Sk * p.KV * n4;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int d = static_cast<int>(e % n4) * 4;
+    long long rest = e / n4;
+    const int kvh = static_cast<int>(rest % p.KV);
+    rest /= p.KV;
+    const int s = static_cast<int>(rest % p.Sk);
+    const int b = static_cast<int>(rest / p.Sk);
+    const float* src =
+        part + ((static_cast<long long>(b) * p.Sk + s) * p.H + kvh * G) * D +
+        d;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < G; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(src + g * D);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    bf16* o = out + b * st[0] + s * st[1] + kvh * st[2] + d;
+    *reinterpret_cast<__nv_bfloat162*>(o) =
+        __floats2bfloat162_rn(sum.x * sc, sum.y * sc);
+    *reinterpret_cast<__nv_bfloat162*>(o + 2) =
+        __floats2bfloat162_rn(sum.z * sc, sum.w * sc);
+  }
+}
+
+// A bf16 map of a [B, S, heads, D] operand (element strides st: batch,
+// sequence, head; head dims contiguous) as (head dim, head, sequence,
+// batch), box [64 rows][64 head dims], 128-byte swizzle; reads past any
+// edge fill zeros.
+bool tensor_map_4d(CUtensorMap* out, const void* ptr, int D, int heads,
+                   int S, int B, const long long* st) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {kChunk, 1, kTile, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   constexpr size_t dq_smem = tc_dq_smem<D>();
   constexpr size_t dkdv_smem = tc_dkdv_smem<D>();
+  constexpr int NWG = tc_dq_wgs<D>();
   static bool opted_in = false;  // once per instantiation
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -671,16 +869,29 @@ cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map_4d(&tq, p.q, D, p.H, p.Sq, p.B, p.st + kQ) ||
+      !tensor_map_4d(&tk, p.k, D, p.KV, p.Sk, p.B, p.st + kK) ||
+      !tensor_map_4d(&tv, p.v, D, p.KV, p.Sk, p.B, p.st + kV) ||
+      !tensor_map_4d(&tdo, p.dout, D, p.H, p.Sq, p.B, p.st + kDO))
+    return cudaErrorInvalidValue;
   const float scale_log2 = p.scale * kLog2e;
-  const int nqt = (p.Sq + kTile - 1) / kTile;
-  const int nkt = (p.Sk + kTile - 1) / kTile;
-  flash_bwd_dq_tc_kernel<D><<<dim3(p.B * p.H, nqt), kThreads, dq_smem,
-                              stream>>>(p, nqt, scale_log2);
+  const int nqb = (p.Sq + NWG * kTile - 1) / (NWG * kTile);
+  const int nkb = (p.Sk + tc_dkdv_keys<D>() - 1) / tc_dkdv_keys<D>();
+  flash_bwd_dq_tc_kernel<D><<<dim3(p.B * p.H, nqb),
+                              NWG * kThreads + kProducer, dq_smem,
+                              stream>>>(tq, tk, tv, tdo, p, nqb, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_tc_kernel<D><<<dim3(p.B * p.KV, nkt),
-                                tc_dkdv_threads<D>(), dkdv_smem, stream>>>(
-      p, nkt, scale_log2);
+  flash_bwd_dkdv_tc_kernel<D><<<dim3(p.B * p.H, nkb),
+                                2 * kThreads + kProducer, dkdv_smem,
+                                stream>>>(tq, tk, tv, tdo, p, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.dk_part == nullptr) return err;
+  const long long quads = static_cast<long long>(p.B) * p.Sk * p.KV * D / 4;
+  const long long want = (quads + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  flash_bwd_group_sum_kernel<<<dim3(blocks, 2), 256, 0, stream>>>(p, D);
   return cudaGetLastError();
 }
 
@@ -937,7 +1148,7 @@ Params make_params(const void* q, const void* k, const void* v,
                    float* delta, void* dq, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int KV, const long long* strides,
                    int causal, int window, float scale) {
-  Params p;
+  Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -965,16 +1176,30 @@ Params make_params(const void* q, const void* k, const void* v,
 // the forward, delta (scratch, [B, H, Sq] fp32), dq, dk, dv; the shape;
 // strides: 21 element strides, (batch, seq, head) for q, k, v, do, dq,
 // dk and dv in that order (head dims contiguous); the mask and scale;
-// the stream.  Every row of q, k, v, do and the gradients must start on
-// a 16-byte boundary (the wrapper checks the pointers and strides).
+// then the forward's o and o_lo (contiguous [B, Sq, H, D] bf16; null at
+// head dim 256, where the dQ launch walks its keys for D_i), the group's
+// fp32 partials of dk and dv ([B, Sk, H, D] scratch; null when H == KV),
+// the stream.  Every row of q, k, v, do and the gradients
+// must start on a 16-byte boundary (the wrapper checks the pointers and
+// strides).  Returns cudaErrorInvalidValue when a tensor map cannot be
+// made.
 extern "C" int flash_attention_bwd_tc_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, float* delta, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int KV, int D,
     const long long* strides, int causal, int window, float scale,
+    const void* o, const void* o_lo, float* dk_part, float* dv_part,
     void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                               Sq, Sk, H, KV, strides, causal, window, scale);
+  Params p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk,
+                         H, KV, strides, causal, window, scale);
+  p.o = o;
+  p.o_lo = o_lo;
+  p.dk_part = dk_part;
+  p.dv_part = dv_part;
+  if ((D <= kTcWideD && (o == nullptr || o_lo == nullptr)) ||
+      (H != KV && (dk_part == nullptr || dv_part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (H == KV) p.dk_part = p.dv_part = nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {

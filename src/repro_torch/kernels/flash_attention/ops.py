@@ -26,12 +26,17 @@ contiguous).
 
 Training: under grad mode, a call whose q, k or v needs a gradient runs
 through ``FlashAttention`` (a ``torch.autograd.Function``).  On CUDA its
-forward launches the kernel with the rows' log-sum-exp (``lse``) and
-keeps q, k, v and lse; its backward launches the hand-written
-backward ``csrc/flash_attention_bwd.cu`` (``attention_bwd``: a dQ launch
-and a dK/dV launch, deterministic) on the path ``bwd_dispatch`` routes
-it to, and adds one to ``attention.bwd_launches`` and to that path's
-count in ``attention.bwd_paths``; it launches or raises.  On the CPU and
+forward launches the kernel with the rows' log-sum-exp (``lse``) and, on
+``tensor_core`` up to head dim ``FLASH_FWD_LO_MAX_D``, ``o_lo`` (the
+part of its fp32 output, its PV product taking each p as hi + lo, that
+o's bf16 rounding drops), and keeps q, k, v, lse, o and o_lo; its
+backward launches the hand-written backward
+``csrc/flash_attention_bwd.cu`` (``attention_bwd``; on ``tensor_core`` a
+dQ launch that takes D_i from o + o_lo, a dK/dV launch per query head
+and, under GQA, a launch that sums each group's partials;
+deterministic) on the path ``bwd_dispatch`` routes it to, and adds one to
+``attention.bwd_launches`` and to that path's count in
+``attention.bwd_paths``; it launches or raises.  On the CPU and
 on ``meta`` the forward is the plain version and the backward is
 ``attention_grad``, the backward's plain version, which recomputes the
 reference model's attention (``ref.attention_block``) under autograd,
@@ -51,7 +56,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, FLASH_PATHS,
+from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ,
+                                          FLASH_FWD_LO_MAX_D, FLASH_PATHS,
                                           flash_bwd_smem_plan,
                                           flash_smem_plan)
 from repro_torch.kernels import _build
@@ -78,13 +84,15 @@ def select_path(dtype: torch.dtype, aligned: bool) -> str:
     return "tensor_core" if dtype == torch.bfloat16 and aligned else "fma"
 
 
-def bwd_dispatch(D: int, dtype: torch.dtype, aligned: bool) -> dict:
+def bwd_dispatch(D: int, dtype: torch.dtype, aligned: bool,
+                 shape: Optional[tuple] = None) -> dict:
     """The backward's launch, decided before it: the path
-    (``select_path``'s rule over q, k, v and do) and
-    its two blocks' shared memory and threads
+    (``select_path``'s rule over q, k, v and do) and its blocks' shared
+    memory, threads and warpgroups, and with ``shape`` (B, Sk, H, KV)
+    the group sum's scratch bytes on ``tensor_core``
     (``core.gpu_mapping.flash_bwd_smem_plan``).  Pure Python."""
     path = select_path(dtype, aligned)
-    return {"path": path, **flash_bwd_smem_plan(D, path)}
+    return {"path": path, **flash_bwd_smem_plan(D, path, shape=shape)}
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -92,15 +100,19 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _COMMON = [_P] * 5 + [_I] * 6 + [_STRIDES, _I, _I, _F]
 # each path's C entry in csrc/flash_attention.cu and its argument types:
 # q, k, v, o, lse (null: not written), B, Sq, Sk, H, KV, D, strides,
-# causal, window, scale, (the fma kernel's dtype flag,) the stream
-ENTRIES = {"tensor_core": ("flash_attention_tc_launch", _COMMON + [_P]),
+# causal, window, scale, (tensor_core: o_lo, null when not written; fma:
+# the dtype flag,) the stream
+ENTRIES = {"tensor_core": ("flash_attention_tc_launch", _COMMON + [_P, _P]),
            "fma": ("flash_attention_launch", _COMMON + [_I, _P])}
 _BWD_COMMON = [_P] * 9 + [_I] * 6 + [_STRIDES, _I, _I, _F]
 # the backward's C entries in csrc/flash_attention_bwd.cu: q, k, v, do,
 # lse, delta (scratch), dq, dk, dv, B, Sq, Sk, H, KV, D, strides, causal,
-# window, scale, (the fma kernels' dtype flag,) the stream
+# window, scale, (tensor_core: the forward's o and o_lo, null above
+# FLASH_FWD_LO_MAX_D, and the group's fp32 dk and dv partials, null when
+# H == KV; fma: the dtype flag,) the stream
 BWD_ENTRIES = {
-    "tensor_core": ("flash_attention_bwd_tc_launch", _BWD_COMMON + [_P]),
+    "tensor_core": ("flash_attention_bwd_tc_launch",
+                    _BWD_COMMON + [_P] * 5),
     "fma": ("flash_attention_bwd_launch", _BWD_COMMON + [_I, _P])}
 
 
@@ -204,7 +216,10 @@ def _aligned(*ts: torch.Tensor) -> bool:
 def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
             with_lse=False):
     """Launch the CUDA kernel ``select_path`` picks, or raise: o, or
-    with ``with_lse`` (o, lse [B, H, Sq] fp32)."""
+    with ``with_lse`` (o, lse [B, H, Sq] fp32, o_lo): ``o_lo`` in o's
+    dtype and layout on ``tensor_core`` up to head dim
+    ``FLASH_FWD_LO_MAX_D`` (the backward's D_i comes from o + o_lo),
+    else None."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _check_card(q, k, v)
@@ -218,6 +233,8 @@ def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    o_lo = (torch.empty_like(o) if with_lse and path == "tensor_core"
+            and D <= FLASH_FWD_LO_MAX_D else None)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -225,7 +242,8 @@ def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
             None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, D,
             strides, int(causal), int(window), float(scale))
     if path == "tensor_core":
-        err = _lib(path)(*args, stream)
+        err = _lib(path)(*args, None if o_lo is None else o_lo.data_ptr(),
+                         stream)
     else:
         err = _lib(path)(*args, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
@@ -234,15 +252,19 @@ def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
                            f" {path})")
     attention.launches += 1
     attention.paths[path] += 1
-    return (o, lse) if with_lse else o
+    return (o, lse, o_lo) if with_lse else o
 
 
 def attention_bwd(q, k, v, lse, do, *, causal: bool, window: int,
-                  scale: float):
+                  scale: float, o: Optional[torch.Tensor] = None,
+                  o_lo: Optional[torch.Tensor] = None):
     """(dq, dk, dv) by the backward kernel (``csrc/flash_attention_bwd
-    .cu``) on CUDA operands: ``lse`` is the forward's, ``do`` the
-    output's gradient.  Routed by ``bwd_dispatch``; raises on what the
-    kernel does not take."""
+    .cu``) on CUDA operands: ``lse``, ``o`` and ``o_lo`` are the
+    forward's (``_launch(..., with_lse=True)``), ``do`` the output's
+    gradient.  Routed by ``bwd_dispatch``; ``tensor_core`` up to head dim
+    ``FLASH_FWD_LO_MAX_D`` needs o and o_lo (its D_i is rowsum(do * (o +
+    o_lo))); the other launches read neither.  Raises on what the kernel
+    does not take."""
     _check(q, k, v)
     do = do.contiguous() if do.stride(3) != 1 else do
     _check_card(q, k, v, do)
@@ -253,16 +275,29 @@ def attention_bwd(q, k, v, lse, do, *, causal: bool, window: int,
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be [B, H, Sq] fp32 contiguous: "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    return _bwd_launch(q, k, v, lse, do, causal, window, scale)
+    if select_path(q.dtype, _aligned(q, k, v, do)) == "tensor_core" \
+            and D <= FLASH_FWD_LO_MAX_D:
+        if o is None or o_lo is None:
+            raise ValueError("the tensor_core backward needs the forward's "
+                             "o and o_lo")
+        if any(t.shape != q.shape or t.dtype != q.dtype
+               or t.device != q.device for t in (o, o_lo)):
+            raise ValueError(f"o and o_lo must match q: {tuple(o.shape)} "
+                             f"{o.dtype}, {tuple(o_lo.shape)} {o_lo.dtype}")
+        o, o_lo = o.contiguous(), o_lo.contiguous()
+    else:
+        o = o_lo = None
+    return _bwd_launch(q, k, v, lse, do, o, o_lo, causal, window, scale)
 
 
-def _bwd_launch(q, k, v, lse, do, causal, window, scale):
-    """The backward's two launches, on the path ``bwd_dispatch`` routes
-    the operands ``attention_bwd`` has checked to; the gradients come out
-    contiguous, in q's, k's and v's dtypes."""
+def _bwd_launch(q, k, v, lse, do, o, o_lo, causal, window, scale):
+    """The backward's launches, on the path ``bwd_dispatch`` routes the
+    operands ``attention_bwd`` has checked to; the gradients come out
+    contiguous, in q's, k's and v's dtypes.  ``tensor_core`` under GQA
+    takes [B, Sk, H, D] fp32 scratch for each head's dk and dv."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    route = bwd_dispatch(D, q.dtype, _aligned(q, k, v, do))
+    route = bwd_dispatch(D, q.dtype, _aligned(q, k, v, do), (B, Sk, H, KV))
     path = route["path"]
     if not route["fits"]:
         raise ValueError(f"flash_attention backward {path} at head dim {D} "
@@ -279,8 +314,15 @@ def _bwd_launch(q, k, v, lse, do, causal, window, scale):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, Sq, Sk, H, KV, D, strides, int(causal),
             int(window), float(scale))
-    flag = () if path == "tensor_core" else (int(q.dtype == torch.bfloat16),)
-    err = _lib(path, backward=True)(*args, *flag, stream)
+    if path == "tensor_core":
+        parts = ([torch.empty((B, Sk, H, D), dtype=torch.float32,
+                              device=q.device) for _ in range(2)]
+                 if route["scratch_bytes"] else [])
+        tail = tuple(None if t is None else t.data_ptr() for t in (o, o_lo)) \
+            + (tuple(t.data_ptr() for t in parts) or (None, None))
+    else:
+        tail = (int(q.dtype == torch.bfloat16),)
+    err = _lib(path, backward=True)(*args, *tail, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, kv "
@@ -333,7 +375,8 @@ def attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """flash_attention under autograd.  On CUDA: the forward kernel with
-    the rows' log-sum-exp, and the backward kernel (``attention_bwd``).
+    the rows' log-sum-exp and o_lo, and the backward kernel
+    (``attention_bwd``, fed the forward's o and o_lo).
     On the CPU and ``meta``: the plain forward, and ``attention_grad``.
     The backward returns dq, dk and dv."""
 
@@ -344,17 +387,21 @@ class FlashAttention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v)
             return attention_plain(q, k, v, causal=causal, window=window,
                                    scale=scale)
-        o, lse = _launch(q, k, v, causal, window, scale, *pins,
-                         with_lse=True)
-        ctx.save_for_backward(q, k, v, lse)
+        o, lse, o_lo = _launch(q, k, v, causal, window, scale, *pins,
+                               with_lse=True)
+        ctx.save_for_backward(q, k, v, lse, o, o_lo)
         return o
 
     @staticmethod
     def backward(ctx, do):
         causal, window, scale = ctx.mask
         saved = ctx.saved_tensors       # unpacked once (remat's rule)
-        grad = attention_grad if len(saved) == 3 else attention_bwd
-        grads = grad(*saved, do, causal=causal, window=window, scale=scale)
+        kw = {"causal": causal, "window": window, "scale": scale}
+        if len(saved) == 3:
+            grads = attention_grad(*saved, do, **kw)
+        else:
+            q, k, v, lse, o, o_lo = saved
+            grads = attention_bwd(q, k, v, lse, do, o=o, o_lo=o_lo, **kw)
         return (*grads, None, None, None, None)
 
 

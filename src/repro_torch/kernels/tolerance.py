@@ -56,18 +56,26 @@ and dv each by the rule above in q's dtype; dk and dv with a row per
 (key, head), dq with its rows along the sequence, one per (b, head,
 dim), as wkv6's dw_log: under the causal mask the first query's row is
 exactly 0 (its softmax has one term, so dP = D_i), which the plain
-version's softmax backward gives exactly and the kernel, taking D_i =
-rowsum(dO * O) in another order than dP, only to rounding.  The plain
-version in bf16 takes its products in bf16 (the reference model's
-block form), so its scores are rounded to bf16 before the softmax: on
-the CPU that alone reads 0.55-2.0 of the allowance against its fp32
-evaluation, while the kernel's recipe in plain torch
-(``flash_attention.ref.attention_bwd_tiles``: P and dS rounded to bf16
-before their products, dS in two bf16 parts for dQ, D_i = sum_k P dP)
-reads 0.15-0.4, the usual FlashAttention-2 recipe (D_i = rowsum(dO *
-O) with O rounded to bf16, one rounding of dS) 1.3-2.5 on dq under the
-causal mask, and the planted faults (``flash_bwd_planted_faults``: the
-scale 5 % off, lse shifted by 0.05, the last key tile dropped) over 3
+version's softmax backward gives exactly and the kernel only to the
+rounding of its D_i.  The plain version in bf16 takes its products in
+bf16 (the reference model's block form), so its scores are rounded to
+bf16 before the softmax: on the CPU that alone reads 0.55-2.0 of the
+allowance against its fp32 evaluation.  The kernels' recipe in plain
+torch is ``flash_attention.ref.attention_bwd_tiles`` (P and dS rounded
+to bf16 before their products, dS in two bf16 parts for dQ).  Its D_i
+must carry fp32 P: the ``tensor_core`` kernel takes D_i = rowsum(dO *
+(o + o_lo)), o_lo being the part of the forward's fp32 output, its PV
+product taking each p as hi + lo (``ref.attention_tc_model``), that the
+bf16 rounding of o drops; at head dim 256 and on ``fma`` D_i = sum_k P
+dP from the kernel's own fp32 P and dP.  Both read 0.16-0.21 on dq.  D_i
+from the rounded o reads up to 2.39, the usual FlashAttention-2 recipe
+(that D_i and one rounding of dS) up to 2.52 on dq under the causal
+mask; o + o_lo of a forward whose PV product takes p rounded once reads
+0.16-0.50 at S up to 256 but 1.04 at S 4096 (``FLASH_BWD_LONG_CASE``;
+1.92 on the card at qwen2's training shape): its output carries sum_k
+bf16(p) dP, not sum_k P dP.  The
+planted faults (``flash_bwd_planted_faults``: the scale 5 % off, lse
+shifted by 0.05, the last key tile dropped) read over 3
 (``flash_bwd_main``; ``tests/test_torch_flash_grad.py``).
 
 Run it to print, at the serve prefill shapes on the CPU, the worst error
@@ -747,40 +755,12 @@ def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
                           window: int = 0, scale: Optional[float] = None,
                           tile: int = 64) -> torch.Tensor:
     """The rounding of ``csrc/flash_attention.cu``'s bf16 tensor-core
-    kernel in plain torch: fp32 scores scaled by ``scale * log2(e)``,
-    masked to -1e30 after that scaling, an online softmax over
-    ``tile``-key tiles in the log2 domain (exp2), each tile's
-    unnormalised p rounded to v's dtype before the PV product, the row
-    sum kept from the fp32 p, the output divided once at the end.
-    q: [B,S,H,D]; k,v: [B,S,KV,D] -> [B,S,H,D] in q's dtype."""
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    scale = scale or 1.0 / math.sqrt(D)
-    qg = q.float().reshape(B, S, KV, H // KV, D)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * (scale * LOG2E)
-    pos_q = torch.arange(S)[:, None]
-    pos_k = torch.arange(S)[None, :]
-    ok = torch.ones(S, S, dtype=torch.bool)
-    if causal:
-        ok &= pos_k <= pos_q
-    if window > 0:
-        ok &= (pos_q - pos_k) < window
-    s = torch.where(ok, s, torch.full_like(s, -1e30))
-    m = torch.full(s.shape[:-1], -1e30)
-    l = torch.zeros(s.shape[:-1])
-    acc = torch.zeros(*s.shape[:-1], D)
-    for t0 in range(0, S, tile):
-        st = s[..., t0:t0 + tile]
-        m_new = torch.maximum(m, st.amax(-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(st - m_new[..., None])
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
-            v[:, t0:t0 + tile].float())
-        m = m_new
-    o = acc / torch.clamp(l, min=1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    kernel in plain torch (``flash_attention.ref.attention_tc_model``,
+    whose o this is).  q: [B,S,H,D]; k,v: [B,S,KV,D] -> [B,S,H,D] in
+    q's dtype."""
+    from repro_torch.kernels.flash_attention.ref import attention_tc_model
+    return attention_tc_model(q, k, v, causal=causal, window=window,
+                              scale=scale, block=tile)[0]
 
 
 def matmul_split_model(a: torch.Tensor, b: torch.Tensor, rows: int, *,
@@ -939,45 +919,74 @@ def wkv_bwd_main() -> None:
                       for name, f in faults.items()))
 
 
-def flash_bwd_main() -> None:
-    """flash_attention's backward on the CPU, bf16, against
-    ``attention_grad`` evaluated in fp32 on the same inputs (the check
-    ``chip_smoke.py`` holds the kernel to): the plain version itself in
-    bf16, the kernel's recipe (``ref.attention_bwd_tiles``), the usual
-    FlashAttention-2 recipe (D_i = rowsum(dO * O) with the forward's
-    rounded O, one bf16 rounding of dS for dQ) and the planted faults."""
+FLASH_BWD_MAIN_CASES = (  # (B, Sq, Sk, H, KV, D, causal, window)
+    (1, 192, 192, 7, 1, 64, True, 0), (1, 160, 160, 4, 2, 32, True, 48),
+    (1, 96, 200, 4, 4, 112, False, 0), (1, 256, 256, 7, 1, 64, True, 0),
+    (1, 256, 256, 14, 2, 64, True, 0))     # the last: qwen2's group
+# qwen2's training sequence at two heads of one group (the CPU's memory)
+FLASH_BWD_LONG_CASE = (1, 4096, 4096, 2, 1, 64, True, 0)
+
+
+def flash_bwd_readings(B, Sq, Sk, H, KV, D, causal, window) -> dict:
+    """At one case of ``FLASH_BWD_MAIN_CASES`` (bf16 inputs from numpy's
+    seed Sq + D), against ``attention_grad`` evaluated in fp32 on the
+    same inputs: {recipe: {gradient: share of the allowance}} for the
+    plain version itself in bf16; the kernels' recipes, D_i from the
+    tensor-core forward's o + o_lo (``ref.attention_tc_model``, its PV
+    product taking each p as hi + lo) and D_i = sum P dP; D_i from o +
+    o_lo of a forward whose PV product takes p rounded once (tried and
+    not taken: it misses dq at S 4096); D_i from the rounded o; and the
+    usual FlashAttention-2 recipe (that D_i and one bf16 rounding of dS
+    for dQ); and {fault: worst share} of the planted faults on the
+    tensor-core recipe."""
     import numpy as np
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_tiles,
-                                                         attention_ref)
+                                                         attention_tc_model)
     bf = torch.bfloat16
-    for B, Sq, Sk, H, KV, D, causal, window in (
-            (1, 192, 192, 7, 1, 64, True, 0), (1, 160, 160, 4, 2, 32, True, 48),
-            (1, 96, 200, 4, 4, 112, False, 0), (1, 256, 256, 7, 1, 64, True, 0)):
-        rng = np.random.default_rng(Sq + D)
-        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(bf) for shape in ((B, Sq, H, D), (B, Sk, KV, D),
-                                              (B, Sk, KV, D), (B, Sq, H, D)))
-        kw = {"causal": causal, "window": window, "scale": D ** -0.5}
-        want = ops.attention_grad(*(t.float() for t in (q, k, v, do)), **kw)
-        o, lse = attention_ref(q, k, v, with_lse=True, **kw)
-        read = {
-            "plain in bf16": ops.attention_grad(q, k, v, do, **kw),
-            "recipe": attention_bwd_tiles(q, k, v, lse, do, **kw),
-            "FA2 recipe": attention_bwd_tiles(q, k, v, lse, do, o=o,
-                                              split_dq=False, **kw)}
-        faults = flash_bwd_planted_faults(attention_bwd_tiles, q, k, v, lse,
-                                          do, **kw)
+    rng = np.random.default_rng(Sq + D)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(bf) for shape in ((B, Sq, H, D), (B, Sk, KV, D),
+                                          (B, Sk, KV, D), (B, Sq, H, D)))
+    kw = {"causal": causal, "window": window, "scale": D ** -0.5}
+    want = ops.attention_grad(*(t.float() for t in (q, k, v, do)), **kw)
+    o, o_lo, lse = attention_tc_model(q, k, v, **kw)
+    _, o_lo1, _ = attention_tc_model(q, k, v, split_pv=False, **kw)
+
+    def recipe(*a, **k):
+        return attention_bwd_tiles(*a, o=o, o_lo=o_lo, **k)
+
+    read = {
+        "plain in bf16": ops.attention_grad(q, k, v, do, **kw),
+        "D_i from o + o_lo": recipe(q, k, v, lse, do, **kw),
+        "D_i = sum P dP": attention_bwd_tiles(q, k, v, lse, do, **kw),
+        "o_lo of PV unsplit": attention_bwd_tiles(q, k, v, lse, do, o=o,
+                                                  o_lo=o_lo1, **kw),
+        "D_i from o": attention_bwd_tiles(q, k, v, lse, do, o=o, **kw),
+        "FA2 recipe": attention_bwd_tiles(q, k, v, lse, do, o=o,
+                                          split_dq=False, **kw)}
+    faults = flash_bwd_planted_faults(recipe, q, k, v, lse, do, **kw)
+    return ({name: check_flash_grad(g, want, bf)[2]
+             for name, g in read.items()},
+            {name: check_flash_grad(g, want, bf)[0]
+             for name, g in faults.items()})
+
+
+def flash_bwd_main() -> None:
+    """flash_attention's backward on the CPU, bf16: ``flash_bwd_readings``
+    at every case of ``FLASH_BWD_MAIN_CASES`` and ``FLASH_BWD_LONG_CASE``
+    (the check ``chip_smoke.py`` holds the kernel to)."""
+    for case in FLASH_BWD_MAIN_CASES + (FLASH_BWD_LONG_CASE,):
+        B, Sq, Sk, H, KV, D, causal, window = case
+        read, faults = flash_bwd_readings(*case)
         print(f"flash backward B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} D{D} causal="
               f"{causal} window {window} bf16, against attention_grad in "
               f"fp32: " + ", ".join(
-                  f"{name} " + "/".join(f"{r:.3f}" for r in check_flash_grad(
-                      g, want, bf)[2].values()) + " (dq/dk/dv)"
-                  for name, g in read.items())
-              + "; faults " + ", ".join(
-                  f"{name} {check_flash_grad(g, want, bf)[0]:.1f}"
-                  for name, g in faults.items()))
+                  f"{name} " + "/".join(f"{r:.3f}" for r in shares.values())
+                  + " (dq/dk/dv)" for name, shares in read.items())
+              + "; faults " + ", ".join(f"{name} {r:.1f}"
+                                        for name, r in faults.items()))
 
 
 if __name__ == "__main__":

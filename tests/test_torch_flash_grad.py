@@ -4,7 +4,9 @@ that carry it.
 
 * ``ref.attention_bwd_tiles`` (the recipe of
   ``csrc/flash_attention_bwd.cu``, tile by tile: P from the forward's
-  lse, D_i = rowsum(dO * O), dS = P (dP - D_i)) against ``jax.grad`` of
+  lse, D_i = sum P dP or rowsum(dO * (o + o_lo)) from the tensor-core
+  forward's model ``ref.attention_tc_model``, dS = P (dP - D_i)) against
+  ``jax.grad`` of
   the reference's ``models/attention.py::sdpa``: the same numpy-seeded
   inputs, fp32, causal, windowed and non-causal with Sq != Sk, GQA
   groups 1, 2 and 7, head dims 32, 64 and 112; each gradient within the
@@ -15,8 +17,12 @@ that carry it.
   ``ops.attention_grad`` (the backward's plain version) evaluated in
   fp32 on the same bf16 inputs, as ``chip_smoke.py`` holds the kernel,
   and each planted fault (``tolerance.flash_bwd_planted_faults``) breaks
-  it.  Two choices of the recipe are what keeps dq there: D_i as the sum
-  of its own P dP and dS split in two bf16 parts for the dQ product.
+  it, at ``tolerance.flash_bwd_main``'s shapes too.  Two choices of the
+  recipe are what keeps dq there: D_i from fp32 P and dP (summed, or
+  through the forward's unrounded output o + o_lo, whose PV product
+  takes each p as hi + lo) and dS split in two bf16 parts for the dQ
+  product.  D_i from the rounded o misses dq, and so, at S 4096, does o
+  + o_lo of a forward that rounds p once.
 * The plain forward's lse is the reference's log-sum-exp of its masked
   scores.
 * ``bwd_dispatch`` routes aligned bf16 to ``tensor_core`` and all else
@@ -24,7 +30,7 @@ that carry it.
   and never calls ``attention_grad``; on the CPU and on ``meta`` it
   calls ``attention_grad`` and counts no launch.
 * The backward's C entries and shared-memory constants against the
-  source.
+  source; ``flash_bwd_smem_plan``'s blocks and scratch.
 """
 import ctypes
 import math
@@ -42,7 +48,9 @@ from repro_torch.core import gpu_mapping
 from repro_torch.kernels import _build, tolerance
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_tiles,
-                                                     attention_ref)
+                                                     attention_ref,
+                                                     attention_tc_fp32,
+                                                     attention_tc_model)
 from test_torch_kernels import _CTYPES, _c_params
 from test_torch_train import _fake_card
 
@@ -157,6 +165,81 @@ def test_fa2_recipe_misses_dq_that_the_kernels_recipe_holds(Sq, D, window):
     assert tolerance.check_flash_grad(fa2, want, bf)[2]["dq"] > 1
 
 
+@pytest.mark.parametrize("case", tolerance.FLASH_BWD_MAIN_CASES)
+def test_recipe_in_bf16_at_flash_bwd_main_shapes(case):
+    """The kernels' recipes in bf16 at ``flash_bwd_main``'s shapes
+    (qwen2's group of 7 and of 14 / 2 among them) against
+    ``attention_grad`` evaluated in fp32: D_i from the forward's o + o_lo
+    and D_i = sum P dP, every gradient under half of the allowance, and
+    each planted fault over 1."""
+    read, faults = tolerance.flash_bwd_readings(*case)
+    for recipe in ("D_i from o + o_lo", "D_i = sum P dP"):
+        assert max(read[recipe].values()) < 0.5, (recipe, read[recipe])
+    assert len(faults) == 3 and min(faults.values()) > 1, faults
+
+
+def test_o_lo_needs_the_split_pv_product_at_qwen2s_sequence():
+    """At S 4096 (``tolerance.FLASH_BWD_LONG_CASE``) D_i from o + o_lo holds
+    dq only when the forward's PV product takes each p as hi + lo: o_lo
+    of a forward that rounds p once carries sum bf16(p) dP, and misses."""
+    read, _ = tolerance.flash_bwd_readings(*tolerance.FLASH_BWD_LONG_CASE)
+    assert read["D_i from o + o_lo"]["dq"] < 0.5, read
+    assert read["o_lo of PV unsplit"]["dq"] > 1, read
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KV,D,causal,window", [
+    (130, 130, 4, 2, 64, True, 0), (96, 200, 4, 4, 112, False, 0),
+    (100, 100, 2, 1, 32, True, 24)])
+def test_o_plus_o_lo_is_the_forwards_fp32_output(Sq, Sk, H, KV, D, causal,
+                                                 window):
+    """The forward model's o is its fp32 output rounded once, and o +
+    o_lo its full output (the PV product taking each p as hi + lo) to
+    within one bf16 rounding (2^-8 relative) of the part o drops."""
+    q, k, v, _ = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _inputs(2, Sq, Sk, H, KV, D, Sq + D))
+    kw = {"causal": causal, "window": window, "scale": 1.0 / math.sqrt(D)}
+    out, full, lse = attention_tc_fp32(q, k, v, **kw)
+    o, o_lo, lse_m = attention_tc_model(q, k, v, **kw)
+    assert o.dtype == o_lo.dtype == torch.bfloat16
+    assert torch.equal(o, out.to(torch.bfloat16)) and torch.equal(lse, lse_m)
+    rest = full - o.float()
+    err = (o.float() + o_lo.float() - full).abs()
+    assert (err <= 2.0 ** -8 * rest.abs()).all(), err.max()
+    assert (o_lo.float().abs() > 0).any()
+
+
+def test_forward_models_give_the_same_o():
+    """The forward model's o is the one the forward kernel is held to
+    (``tolerance.flash_kernel_rounding``), and the plain forward gives
+    the same o with and without its lse."""
+    q, k, v, _ = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _inputs(1, 96, 96, 4, 2, 64, 11))
+    o, _, _ = attention_tc_model(q, k, v, causal=True, window=40)
+    assert torch.equal(o, tolerance.flash_kernel_rounding(q, k, v,
+                                                          window=40))
+    plain = attention_ref(q, k, v, causal=True, window=40)
+    assert torch.equal(plain, attention_ref(q, k, v, causal=True, window=40,
+                                            with_lse=True)[0])
+
+
+@pytest.mark.parametrize("H,KV", [(7, 1), (14, 2)])
+def test_o_in_bf16_misses_dq_that_o_plus_o_lo_holds(H, KV):
+    """The companion of the case above: with dS split for dQ, D_i from
+    the forward's o rounded to bf16 breaks dq's allowance under the
+    causal mask at S 256, where D_i from o + o_lo, the forward's
+    unrounded output, holds it."""
+    bf = torch.bfloat16
+    q, k, v, do = (torch.from_numpy(a).to(bf)
+                   for a in _inputs(1, 256, 256, H, KV, 64, 256 + 64))
+    kw = {"causal": True, "window": 0, "scale": 0.125}
+    want = fa_ops.attention_grad(*(t.float() for t in (q, k, v, do)), **kw)
+    o, o_lo, lse = attention_tc_model(q, k, v, **kw)
+    ours = attention_bwd_tiles(q, k, v, lse, do, o=o, o_lo=o_lo, **kw)
+    rounded = attention_bwd_tiles(q, k, v, lse, do, o=o, **kw)
+    assert tolerance.check_flash_grad(ours, want, bf)[2]["dq"] < 0.6
+    assert tolerance.check_flash_grad(rounded, want, bf)[2]["dq"] > 1
+
+
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (64, 64, True, 0), (100, 100, True, 24), (70, 150, False, 0)])
 def test_plain_forward_lse_is_the_references_logsumexp(Sq, Sk, causal,
@@ -224,15 +307,16 @@ def _grid_tensor(shape, dtype, gen, off):
 
 
 @pytest.mark.parametrize("dtype,off,entry,flag", [
-    (torch.bfloat16, 0, "flash_attention_bwd_tc_launch", ()),
+    (torch.bfloat16, 0, "flash_attention_bwd_tc_launch", None),
     (torch.bfloat16, 1, "flash_attention_bwd_launch", (1,)),
     (torch.float32, 0, "flash_attention_bwd_launch", (0,))])
 def test_faked_card_backward_launches_the_routed_entry(monkeypatch, dtype,
                                                        off, entry, flag):
     """On the faked card the autograd backward runs the real dispatch: it
     launches the entry ``bwd_dispatch`` routes to (the shape, strides,
-    mask and scale in place), counts one launch by path, and never calls
-    ``attention_grad``."""
+    mask and scale in place; on ``tensor_core`` the forward's o and o_lo
+    and the group's two fp32 partials), counts one launch by path, and
+    never calls ``attention_grad``."""
     calls = _recording_backward(monkeypatch)
     gen = torch.Generator().manual_seed(5)
     q = _grid_tensor((2, 96, 4, 64), dtype, gen, off)
@@ -247,7 +331,13 @@ def test_faked_card_backward_launches_the_routed_entry(monkeypatch, dtype,
     assert a[9:15] == (2, 96, 96, 4, 2, 64)
     assert list(a[15]) == [s for t in (q, k, v, do, dq, dk, dv)
                            for s in t.stride()[:3]]
-    assert a[16:19] == (1, 40, 0.125) and a[19:-1] == flag
+    assert a[16:19] == (1, 40, 0.125)
+    if flag is None:    # o (the output itself), o_lo, dk and dv partials
+        assert a[19] == o.data_ptr() and len(a[19:-1]) == 4
+        assert all(isinstance(x, int) and x for x in a[20:-1])
+        assert len(set(a[19:-1])) == 4
+    else:
+        assert a[19:-1] == flag
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     path = "tensor_core" if entry.endswith("tc_launch") else "fma"
     assert fa_ops.attention.bwd_launches == 1
@@ -290,35 +380,62 @@ def test_backward_entries_and_smem_plan_match_the_source():
                              text).group(1))
     assert c("kThreads") == gpu_mapping.FLASH_THREADS
     assert c("kTile") == gpu_mapping.FLASH_BWD_TILE == gpu_mapping.FLASH_BQ
-    assert c("kTcPad") == gpu_mapping.FLASH_TC_PAD
+    assert c("kChunk") == gpu_mapping.FLASH_BWD_TC_CHUNK
     assert c("kTcSplitD") == gpu_mapping.FLASH_BWD_TC_SPLIT_D
+    assert c("kTcWideD") == gpu_mapping.FLASH_BWD_TC_WIDE_D
+    assert c("kProducer") == gpu_mapping.FLASH_BWD_TC_PRODUCER
     assert c("kFmaWideD") == gpu_mapping.FLASH_BWD_FMA_WIDE_D
     assert c("kFmaNarrow") == gpu_mapping.FLASH_BWD_FMA_NARROW
     for d in gpu_mapping.FLASH_HEAD_DIMS:
         assert f"launch_bwd_tc<{d}>(" in text
         assert f"launch_bwd_fma<T, {d}>(" in text
-    # the launchers' sums, buffer by buffer, at gemma3's head dim 256:
-    # tensor_core six bf16 tiles [64, 264] and fp32 lse (dQ) or lse and
-    # D_i in two buffers (dK/dV); fma fp32 [64 + 32, 257] twice, dS
-    # [64, 33] (dK/dV: P too, and lse and D_i of 32 rows)
+    # the launchers' sums: tensor_core 1 KB of slack, 8 KB boxes (own
+    # tiles and stages), dK/dV's fp32 lse and D_i a stage, barriers; fma fp32 [64 + 32, 257]
+    # twice, dS [64, 33] (dK/dV: P too, and lse and D_i of 32 rows)
     flat = " ".join(text.split())
     for body in (
-            "6 * kTile * (D + kTcPad) * sizeof(bf16) + kTile * sizeof(float)",
-            "6 * kTile * (D + kTcPad) * sizeof(bf16) + 4 * kTile * "
-            "sizeof(float)",
+            "1024 + (2 * tc_dq_wgs<D>() + 2 * tc_dq_stages<D>()) * "
+            "tc_chunks<D>() * kBox + (2 * tc_dq_stages<D>() + 1) * "
+            "sizeof(uint64_t)",
+            "1024 + (2 * tc_dkdv_keys<D>() / kTile + 2 * "
+            "tc_dkdv_stages<D>()) * tc_chunks<D>() * kBox + "
+            "tc_dkdv_stages<D>() * 2 * kTile * sizeof(float) + (2 * "
+            "tc_dkdv_stages<D>() + 1) * sizeof(uint64_t)",
             "(2 * (kTile + fma_tile<D>()) * (D + 1) + kTile * "
             "(fma_tile<D>() + 1)) * sizeof(float)",
             "(2 * (kTile + fma_tile<D>()) * (D + 1) + 2 * kTile * "
             "(fma_tile<D>() + 1) + 2 * fma_tile<D>()) * sizeof(float)"):
         assert f"return {body};" in flat, body
+    # at gemma3's head dim 256: dQ one warpgroup, q and dO [64, 256] and
+    # two stages of K and V; dK/dV k and v [64, 256] and two stages of q
+    # and dO; at qwen2's 64: two warpgroups and three stages each, dK/dV
+    # on 128 keys; at 128 dK/dV's warpgroups share 64 keys
+    box = 64 * 64 * 2
     tc = gpu_mapping.flash_bwd_smem_plan(256, "tensor_core")
-    fma = gpu_mapping.flash_bwd_smem_plan(256, "fma")
     assert {n: k["smem_need"] for n, k in tc["kernels"].items()} \
-        == {"dq": 6 * 64 * 264 * 2 + 256, "dkdv": 6 * 64 * 264 * 2 + 1024}
+        == {"dq": 1024 + (2 + 4) * 4 * box + 5 * 8,
+            "dkdv": 1024 + (2 + 4) * 4 * box + 2 * 512 + 5 * 8}
+    assert {n: k["threads"] for n, k in tc["kernels"].items()} \
+        == {"dq": 160, "dkdv": 288}
+    tc64 = gpu_mapping.flash_bwd_smem_plan(64, "tensor_core",
+                                           shape=(4, 4096, 14, 2))
+    assert {n: k["smem_need"] for n, k in tc64["kernels"].items()} \
+        == {"dq": 1024 + (4 + 6) * box + 7 * 8,
+            "dkdv": 1024 + (4 + 6) * box + 3 * 512 + 7 * 8}
+    assert {n: k["threads"] for n, k in tc64["kernels"].items()} \
+        == {"dq": 288, "dkdv": 288}
+    tc128 = gpu_mapping.flash_bwd_smem_plan(128, "tensor_core")
+    assert tc128["kernels"]["dkdv"]["rows"] == 64
+    assert tc128["kernels"]["dkdv"]["smem_need"] \
+        == 1024 + (2 + 6) * 2 * box + 3 * 512 + 7 * 8
+    assert tc64["scratch_bytes"] == 2 * 4 * 4096 * 14 * 64 * 4
+    assert gpu_mapping.flash_bwd_smem_plan(
+        112, "tensor_core", shape=(4, 1024, 32, 32))["scratch_bytes"] == 0
+    assert all(k["blocks_per_sm"] == 1 for k in tc64["kernels"].values())
+    fma = gpu_mapping.flash_bwd_smem_plan(256, "fma")
     assert {n: k["smem_need"] for n, k in fma["kernels"].items()} \
         == {"dq": 4 * (2 * 96 * 257 + 64 * 33),
             "dkdv": 4 * (2 * 96 * 257 + 2 * 64 * 33 + 64)}
-    assert tc["kernels"]["dkdv"]["threads"] == 256
     assert fma["kernels"]["dkdv"]["threads"] == 256
     assert tc["fits"] and fma["fits"]
     for d in gpu_mapping.FLASH_HEAD_DIMS:

@@ -56,7 +56,8 @@ from repro_torch import convert
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_bwd_tiles
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_tiles,
+                                                     attention_tc_model)
 from repro_torch.kernels.spm_matmul import ops as mm_ops
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.launch import train as train_cli
@@ -467,7 +468,9 @@ def _fake_card(monkeypatch):
     plain version (detached, as a kernel's output is) and is counted as
     the kernel counts it (wkv6's backward launch: its plain version,
     ``wkv_grad_plain``; flash_attention's backward launch: the kernel's
-    recipe, ``ref.attention_bwd_tiles``, from the forward's lse)."""
+    recipe, ``ref.attention_bwd_tiles``, from the forward's lse, o and
+    o_lo, which the forward's launch takes from the tensor-core kernel's
+    model, ``ref.attention_tc_model``)."""
     def mm_launch(a, b, trans_b, out_dtype, *pins):
         mm_ops.matmul.launches += 1
         mm_ops.matmul.paths["wgmma"] += 1
@@ -477,16 +480,19 @@ def _fake_card(monkeypatch):
     def fa_launch(q, k, v, causal, window, scale, *pins, with_lse=False):
         fa_ops.attention.launches += 1
         fa_ops.attention.paths["tensor_core"] += 1
-        out = fa_ops.attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, with_lse=with_lse)
-        return (tuple(t.detach() for t in out) if with_lse
-                else out.detach())
+        if with_lse:    # the tensor_core kernel's o, lse and o_lo
+            o, o_lo, lse = attention_tc_model(q, k, v, causal=causal,
+                                              window=window, scale=scale)
+            return o.detach(), lse.detach(), o_lo.detach()
+        return fa_ops.attention_plain(q, k, v, causal=causal, window=window,
+                                      scale=scale).detach()
 
-    def fa_bwd_launch(q, k, v, lse, do, causal, window, scale):
+    def fa_bwd_launch(q, k, v, lse, do, o, o_lo, causal, window, scale):
         fa_ops.attention.bwd_launches += 1
         fa_ops.attention.bwd_paths["tensor_core"] += 1
         return attention_bwd_tiles(q, k, v, lse, do, causal=causal,
-                                   window=window, scale=scale)
+                                   window=window, scale=scale, o=o,
+                                   o_lo=o_lo)
 
     def wkv_launch(r, k, v, w_log, u, chunk):
         wkv_ops.wkv.launches += 1
