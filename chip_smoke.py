@@ -9,7 +9,9 @@ Phases, one result line each; any failure exits non-zero:
             anything but sm_90 fails.
 2. build    nvcc builds every kernel of ``src/repro_torch/csrc`` for
             sm_90a, one process per source, all at once, and prints
-            each kernel's registers and spills (``-Xptxas -v``).
+            each kernel's registers and spills (``-Xptxas -v``) and
+            any line of ptxas's that reports its wgmma serialised; such
+            a line for a kernel of the tensor-core forward fails.
 3. kernels  each kernel against its plain PyTorch version on the card,
             at the shapes the main paths give it (bf16), at edge shapes
             and at the reference's conformance shapes, element by
@@ -156,7 +158,9 @@ Phases, one result line each; any failure exits non-zero:
             rows against the 151,936-row table): the fp32-out forward,
             dA from dC rounded to bf16 (beside the plain fp32 product of
             the unrounded dC: its time and its difference) and dB;
-            plus the forward flash launch at [4, 4096, 14/2, 64]; each
+            plus the forward flash launch at [4, 4096, 14/2, 64] (its
+            o the same bits with and without lse and o_lo, timed both
+            ways, ``run_train_flash``); each
             held element by element to its plain version with a
             planted fault caught (phase 3's rule), run twice for the
             same bits, with its path, time, ``torch.mm``'s (SDPA's)
@@ -292,16 +296,16 @@ and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside this file, it fails before printing
 any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``,
 phase 11's record to ``chiprun_out/chip_smoke_multidevice.json``.
-``python3 chip_smoke.py 3`` runs phases 1 and 2 and phase 3's wkv6
-backward cases only and prints no result lines
-(``chiprun_out/chip_smoke_wkv_bwd.json``); ``python3 chip_smoke.py 9a``
-runs phases 1 and 2 and phase 9(a)'s flash backward cases only,
-likewise (``chiprun_out/chip_smoke_flash_bwd.json``); ``python3
-chip_smoke.py 9`` runs phases 1, 2 and 9 only, likewise
-(``chiprun_out/chip_smoke_train.json``); ``python3
-chip_smoke.py 10`` runs phases 1 and 10 only, likewise
-(``chiprun_out/chip_smoke_dryrun.json``); ``python3 chip_smoke.py 11``
-runs phases 1, 2 and 11 only, likewise
+``python3 chip_smoke.py <name>`` runs one subset of ``SUBSETS`` and
+prints no result lines: ``3``, phases 1 and 2 and phase 3's wkv6
+backward cases only (``chiprun_out/chip_smoke_wkv_bwd.json``); ``fwd``,
+phases 1 and 2 and the flash forward's cases, phase 3's and phase
+9(a)'s train forward with and without lse and o_lo
+(``chiprun_out/chip_smoke_flash_fwd.json``); ``9a``, phases 1 and 2
+and phase 9(a)'s flash backward cases
+(``chiprun_out/chip_smoke_flash_bwd.json``); ``9``, phases 1, 2 and 9
+(``chiprun_out/chip_smoke_train.json``); ``10``, phases 1 and 10
+(``chiprun_out/chip_smoke_dryrun.json``); ``11``, phases 1, 2 and 11
 (``chiprun_out/chip_smoke_multidevice.json``).
 """
 import functools
@@ -309,6 +313,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -399,7 +404,10 @@ def phase_device():
 
 def phase_build():
     """Build the kernels; returns the build time and, per kernel entry,
-    ptxas's register and spill lines."""
+    ptxas's register and spill lines and any line of its that reports
+    the entry's wgmma serialised.  Fails if that line names a kernel of
+    the tensor-core forward, whose design rests on its products
+    overlapping (the source note of ``csrc/flash_attention.cu``)."""
     from repro_torch.kernels import _build
     t0 = time.monotonic()
     logs = _build.build(_build.SOURCES + tuple(_build.VARIANTS),
@@ -408,7 +416,7 @@ def phase_build():
     print(f"phase 2 build: {sorted(_build.SOURCES)} and the variants "
           f"{sorted(_build.VARIANTS)} with {' '.join(_build.NVCC_FLAGS)} "
           f"in {secs:.1f} s (newly built: {sorted(logs)})", flush=True)
-    usage = {}
+    usage, serialised = {}, []
     for name, text in logs.items():
         if name not in _build.SOURCES:
             continue
@@ -416,11 +424,23 @@ def phase_build():
         for line in text.splitlines():
             if "Compiling entry function" in line and "'" in line:
                 entry = line.split("'")[1]
+            elif "wgmma" in line and "serialized" in line:
+                # "... serialized due to <why> {in,for} the function
+                # '<entry>'"
+                fn = line.split("'")[-2] if line.count("'") >= 2 else entry
+                why = re.split(r" (?:in|for) the function",
+                               line.split("serialized", 1)[1])[0]
+                usage.setdefault(fn, []).append(f"wgmma serialized{why}")
+                serialised.append(fn)
             elif entry and ("registers" in line or "spill" in line):
                 usage.setdefault(entry, []).append(
                     line.split(":", 1)[-1].strip())
     for entry, lines in usage.items():
         print(f"  {entry}: {'; '.join(lines)}")
+    lost = sorted({fn for fn in serialised if "flash_fwd_tc" in fn})
+    if lost:
+        fail(f"ptxas serialised the wgmma of the tensor-core forward's "
+             f"{lost}")
     return secs, usage
 
 
@@ -2524,12 +2544,78 @@ def run_train_case(label, fn, plain, lib, args, fault_args, flops,
     return row
 
 
+def run_train_flash(dev, gen):
+    """The forward flash launch at qwen2-0.5b's training shape (phase 9(a),
+    ``TRAIN_B`` x ``TRAIN_S``, causal, bf16): held to its plain version
+    with a planted fault caught (phase 3's rule), twice for the same
+    bits, its o the same bits with and without lse and o_lo; the kernel's
+    time as serving launches it (``ms``) and as training launches it,
+    with lse and o_lo (``lo_ms``, the o_lo kernel), the plain version's,
+    SDPA's and the bound."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.tolerance import check
+    a = train_cfg().attention
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    q = rnd(TRAIN_B, TRAIN_S, a.num_heads, a.head_dim)
+    k, v = (rnd(TRAIN_B, TRAIN_S, a.num_kv_heads, a.head_dim)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(a.head_dim)
+    before = dict(fa.attention.paths)
+    got = fa.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    path = launched_path(fa.attention.paths, before)
+    if path != "tensor_core" or not torch.equal(got, fa.attention(q, k, v)):
+        fail(f"train flash: path {path}, or two runs differ")
+    if not torch.equal(got, fa._launch(q, k, v, True, 0, scale,
+                                       with_lse=True)[0]):
+        fail("train flash: o differs with and without lse and o_lo")
+    want = fa.attention_plain(q, k, v, causal=True)
+    ratio, diff = check(got, want, bf)
+    fault, _ = check(fa.attention(q, k, v, scale=1.05 * scale), want, bf)
+    if not ratio < 1 or not fault > 1:
+        fail(f"train flash: error {ratio:.3f}, planted fault {fault:.3f} "
+             f"of the allowance")
+    del got, want
+    mask = mask_of(TRAIN_S, TRAIN_S, True, 0, dev)
+    row = {"kernel": "flash_attention", "case": "train forward",
+           "shape": [TRAIN_B, TRAIN_S, TRAIN_S, a.num_heads,
+                     a.num_kv_heads, a.head_dim], "causal": True,
+           "window": 0, "dtype": str(bf), "path": path,
+           "deterministic": True, "err_ratio": ratio, "fault_ratio": fault,
+           "max_abs_err": diff, "main_path": True,
+           "ms": time_ms(lambda x, y, z: fa.attention(x, y, z), [(q, k, v)],
+                         min_reps=5),
+           "lo_ms": time_ms(lambda x, y, z: fa._launch(
+               x, y, z, True, 0, scale, with_lse=True), [(q, k, v)],
+               min_reps=5),
+           "plain_ms": time_ms(lambda x, y, z: fa.attention_plain(x, y, z),
+                               [(q, k, v)], min_reps=3)}
+    row["library_ms"], row["library_backend"] = library_attention_ms(
+        q, k, v, True, 0, mask)
+    row["bound_ms"], row["bound_by"] = bound(
+        (2 * q.numel() + k.numel() + v.numel()) * 2,
+        4 * a.head_dim * int(mask.sum()) * TRAIN_B * a.num_heads, bf)
+    print(f"  flash_attention train B{TRAIN_B} S{TRAIN_S} H{a.num_heads}/"
+          f"{a.num_kv_heads} D{a.head_dim} causal {path} err {ratio:.3f} "
+          f"(scale x1.05 {fault:.1f})  kernel {row['ms']:.4f} ms (with lse "
+          f"and o_lo {row['lo_ms']:.4f} ms)  plain "
+          f"{row['plain_ms']:.4f} ms  library {row['library_ms']} ms "
+          f"(SDPA {row['library_backend']})  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    del q, k, v, mask
+    release()
+    return row
+
+
 def phase_train_kernels(dev):
     """Phase 9(a): the backward's products at qwen2's training widths
     (T = 4 x 4096 rows; d 896, k/v 128, FFN 4864; the loss chunk's 2048
     rows against the 151,936-row table), the forward flash launch, and
     flash_attention's backward kernel (``run_flash_bwd``)."""
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.spm_matmul import ops
     from repro_torch.kernels.tolerance import check
     from repro_torch.launch import train
@@ -2610,50 +2696,7 @@ def phase_train_kernels(dev):
         2 * R * d * V, 2 * (R * d + R * V + V * d),
         extra={"copied": "A"}))
     del x, table, dc32, dc
-    # the forward attention at the training shape
-    a = cfg.attention
-    q = rnd(TRAIN_B, TRAIN_S, a.num_heads, a.head_dim)
-    k, v = (rnd(TRAIN_B, TRAIN_S, a.num_kv_heads, a.head_dim)
-            for _ in range(2))
-    before = dict(fa.attention.paths)
-    got = fa.attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    path = launched_path(fa.attention.paths, before)
-    if path != "tensor_core" or not torch.equal(got, fa.attention(q, k, v)):
-        fail(f"train flash: path {path}, or two runs differ")
-    want = fa.attention_plain(q, k, v, causal=True)
-    ratio, diff = check(got, want, bf)
-    fault, _ = check(fa.attention(q, k, v, scale=1.05 / math.sqrt(
-        a.head_dim)), want, bf)
-    if not ratio < 1 or not fault > 1:
-        fail(f"train flash: error {ratio:.3f}, planted fault {fault:.3f} "
-             f"of the allowance")
-    del got, want
-    mask = mask_of(TRAIN_S, TRAIN_S, True, 0, dev)
-    row = {"kernel": "flash_attention", "case": "train forward",
-           "shape": [TRAIN_B, TRAIN_S, TRAIN_S, a.num_heads,
-                     a.num_kv_heads, a.head_dim], "causal": True,
-           "window": 0, "dtype": str(bf), "path": path,
-           "deterministic": True, "err_ratio": ratio, "fault_ratio": fault,
-           "max_abs_err": diff, "main_path": True,
-           "ms": time_ms(lambda x, y, z: fa.attention(x, y, z), [(q, k, v)],
-                         min_reps=5),
-           "plain_ms": time_ms(lambda x, y, z: fa.attention_plain(x, y, z),
-                               [(q, k, v)], min_reps=3)}
-    row["library_ms"], row["library_backend"] = library_attention_ms(
-        q, k, v, True, 0, mask)
-    row["bound_ms"], row["bound_by"] = bound(
-        (2 * q.numel() + k.numel() + v.numel()) * 2,
-        4 * a.head_dim * int(mask.sum()) * TRAIN_B * a.num_heads, bf)
-    print(f"  flash_attention train B{TRAIN_B} S{TRAIN_S} H{a.num_heads}/"
-          f"{a.num_kv_heads} D{a.head_dim} causal {path} err {ratio:.3f} "
-          f"(scale x1.05 {fault:.1f})  kernel {row['ms']:.4f} ms  plain "
-          f"{row['plain_ms']:.4f} ms  library {row['library_ms']} ms "
-          f"(SDPA {row['library_backend']})  bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
-    rows.append(row)
-    del q, k, v, mask
-    release()
+    rows.append(run_train_flash(dev, gen))
     gen.manual_seed(10)
     rows += run_flash_bwd(dev, gen)
     print(f"phase 9 train kernels: {len(rows)} cases within tolerance, "
@@ -3737,63 +3780,62 @@ def phase_train_phases(dev):
                   "family_runs": wide, "cases": rows}
 
 
+def seeded(dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def subset_flash_forward(dev):
+    """The forward's cases alone: phase 3's ``flash_cases`` and phase
+    9(a)'s train forward (with and without lse and o_lo)."""
+    rows = run_flash(dev, seeded(dev, 0))
+    rows.append(run_train_flash(dev, seeded(dev, 9)))
+    return rows
+
+
+def subset_multidevice(dev):
+    multi, _, _ = phase_multidevice(dev)
+    multi["dryrun"] = phase_dryrun(EP_DRYRUNS, 11, "dryrun_moe_ep")
+    return multi
+
+
+# ``python3 chip_smoke.py <name>``: phase 1, phase 2 where ``build`` (and
+# then no plan cache, ``REPRO_AUTOTUNE=0``), then ``run(dev)``, whose
+# record goes to ``chiprun_out/<file>``; no result lines.
+#   name: (what it runs, build, run, file)
+SUBSETS = {
+    "3": ("phase 3's wkv6 backward cases", True,
+          lambda dev: run_wkv_bwd(dev, seeded(dev, 0)),
+          "chip_smoke_wkv_bwd.json"),
+    "fwd": ("the flash forward's cases (phase 3's and phase 9(a)'s train "
+            "forward)", True, subset_flash_forward,
+            "chip_smoke_flash_fwd.json"),
+    "9a": ("phase 9(a)'s flash backward cases", True,
+           lambda dev: run_flash_bwd(dev, seeded(dev, 10)),
+           "chip_smoke_flash_bwd.json"),
+    "9": ("the training phase", True,
+          lambda dev: phase_train_phases(dev)[1], "chip_smoke_train.json"),
+    "10": ("the dry run", False, lambda dev: phase_dryrun(),
+           "chip_smoke_dryrun.json"),
+    "11": ("the multi-device layer and the wide serves", True,
+           subset_multidevice, "chip_smoke_multidevice.json")}
+
+
 def main():
-    if sys.argv[1:] == ["3"]:
-        # wkv6's backward cases of phase 3 alone, after the device and the
-        # build: no result lines
-        os.environ["REPRO_AUTOTUNE"] = "0"
+    if len(sys.argv) > 1:
+        if sys.argv[1:] not in [[name] for name in SUBSETS]:
+            fail(f"usage: chip_smoke.py [{'|'.join(SUBSETS)}]")
+        _, build, run, name = SUBSETS[sys.argv[1]]
+        if build:
+            os.environ["REPRO_AUTOTUNE"] = "0"
         dev, _ = phase_device()
-        phase_build()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        rows = run_wkv_bwd(dev, gen)
+        if build:
+            phase_build()
+        record = run(dev)
         OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / "chip_smoke_wkv_bwd.json").write_text(json.dumps(
-            rows, indent=1, default=str))
-        return
-    if sys.argv[1:] == ["9a"]:
-        # flash_attention's backward cases of phase 9(a) alone, after the
-        # device and the build: no result lines
-        os.environ["REPRO_AUTOTUNE"] = "0"
-        dev, _ = phase_device()
-        phase_build()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(10)
-        rows = run_flash_bwd(dev, gen)
-        OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / "chip_smoke_flash_bwd.json").write_text(json.dumps(
-            rows, indent=1, default=str))
-        return
-    if sys.argv[1:] == ["11"]:
-        # the multi-device layer and the wide serves alone, after the
-        # device and the build: no result lines
-        os.environ["REPRO_AUTOTUNE"] = "0"
-        dev, _ = phase_device()
-        phase_build()
-        OUT_DIR.mkdir(exist_ok=True)
-        multi, _, _ = phase_multidevice(dev)
-        multi["dryrun"] = phase_dryrun(EP_DRYRUNS, 11, "dryrun_moe_ep")
-        (OUT_DIR / "chip_smoke_multidevice.json").write_text(json.dumps(
-            multi, indent=1, default=str))
-        return
-    if sys.argv[1:] == ["10"]:
-        # the dry run alone, after the device: no result lines
-        phase_device()
-        OUT_DIR.mkdir(exist_ok=True)
-        dry = phase_dryrun()
-        (OUT_DIR / "chip_smoke_dryrun.json").write_text(json.dumps(
-            dry, indent=1))
-        return
-    if sys.argv[1:] == ["9"]:
-        # the training phase alone, after the device and the build: a
-        # quicker check of that path, with no result lines
-        os.environ["REPRO_AUTOTUNE"] = "0"
-        dev, _ = phase_device()
-        phase_build()
-        OUT_DIR.mkdir(exist_ok=True)
-        _, train = phase_train_phases(dev)
-        (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(
-            train, indent=1, default=str))
+        (OUT_DIR / name).write_text(json.dumps(record, indent=1,
+                                               default=str))
         return
     # phases 1-7 read no plan cache: they launch what they launched
     # before tuning existed (phase 8 turns it on)

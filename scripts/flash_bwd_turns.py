@@ -1,4 +1,4 @@
-"""flash_attention's backward at the main path's three training shapes,
+"""flash_attention's forward and backward at the main path's shapes,
 timed from several checkouts of this repository in turns on one card.
 
 Each ``--trees`` entry is a checkout's root (this one, ``.``, or an
@@ -6,12 +6,19 @@ unpacked parent commit under a git-ignored directory); each run is a
 subprocess that imports that tree's ``repro_torch`` and builds its
 kernels into that tree's ``build/``.  The builds start together first;
 then the runs go in the order given, so ``--trees build/parent . .
-build/parent`` times parent, change, change, parent.  A run launches the
-tree's forward with its lse (and o_lo where the tree's forward writes
-it), then times its backward by CUDA events around a captured graph of
-``--reps`` calls, the median of three replays, as ``chip_smoke.py``'s
-``time_ms`` does.  Prints one JSON line a run with the card's name and
-power limit, and writes them all to ``chiprun_out/flash_bwd_turns.json``.
+build/parent`` times parent, change, change, parent.  A run times, by
+CUDA events around a captured graph of ``--reps`` calls (the median of
+three replays, as ``chip_smoke.py``'s ``time_ms`` does):
+
+- the forward (``ops._launch``) at phase 3's main-path cases and at
+  qwen2-0.5b's training shape, as serving launches it (``fwd_ms``) and
+  with lse and o_lo as training launches it (``fwd_lo_ms``);
+- the backward (``ops.attention_bwd``) at the three training shapes,
+  fed that tree's forward's lse (and o and o_lo where its backward
+  takes them) (``ms``).
+
+Prints one JSON line a run with the card's name and power limit, and
+writes them all to ``chiprun_out/flash_bwd_turns.json``.
 
   python3 scripts/flash_bwd_turns.py --trees build/parent . . build/parent
 """
@@ -28,6 +35,21 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("qwen2-0.5b", 4, 4096, 14, 2, 64),
           ("zamba2-7b", 4, 1024, 32, 32, 112),
           ("qwen3-moe", 4, 1024, 64, 4, 128))
+# (label, B, Sq, Sk, H, KV, D, causal, window): phase 3's main-path
+# forward cases (bf16) and phase 9(a)'s train forward
+FWD_SHAPES = (
+    ("serve prefill", 4, 256, 256, 14, 2, 64, True, 0),
+    ("gemma3 prefill, global", 4, 2048, 2048, 16, 8, 256, True, 0),
+    ("gemma3 prefill, local", 4, 2048, 2048, 16, 8, 256, True, 1024),
+    ("zamba2 shared-attention prefill", 4, 512, 512, 32, 32, 112, True, 0),
+    ("whisper encoder and cross prefill", 4, 1536, 1536, 8, 8, 64, False,
+     0),
+    ("whisper decoder self prefill", 4, 1536, 1536, 8, 8, 64, True, 0),
+    ("pixtral prefill", 4, 1024, 1024, 32, 8, 128, True, 0),
+    ("qwen3-moe prefill (group 16)", 4, 256, 256, 64, 4, 128, True, 0),
+    ("deepseek, qwen2-72b prefill", 4, 256, 256, 64, 8, 128, True, 0),
+    ("llama4 prefill", 4, 256, 256, 40, 8, 128, True, 0),
+    ("qwen2-0.5b train", 4, 4096, 4096, 14, 2, 64, True, 0))
 
 
 def graph_ms(fn, reps):
@@ -56,6 +78,23 @@ def graph_ms(fn, reps):
     return sorted(times)[1]
 
 
+def time_forward(ops, out, reps, gen):
+    """The forward at ``FWD_SHAPES`` into ``out['fwd_ms']`` (serving's
+    launch) and ``out['fwd_lo_ms']`` (with lse and o_lo)."""
+    import torch
+    out["fwd_ms"], out["fwd_lo_ms"] = {}, {}
+    for label, B, Sq, Sk, H, KV, D, causal, w in FWD_SHAPES:
+        gen.manual_seed(Sq * D + H)
+        q, k, v = (torch.randn(B, s, n, D, generator=gen, device="cuda")
+                   .bfloat16() for s, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        scale = 1.0 / math.sqrt(D)
+        out["fwd_ms"][label] = graph_ms(lambda: ops._launch(
+            q, k, v, causal, w, scale), reps)
+        out["fwd_lo_ms"][label] = graph_ms(lambda: ops._launch(
+            q, k, v, causal, w, scale, with_lse=True), reps)
+        del q, k, v
+
+
 def child(tree: Path, reps: int) -> dict:
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -63,6 +102,8 @@ def child(tree: Path, reps: int) -> dict:
     params = inspect.signature(ops.attention_bwd).parameters
     out = {"tree": str(tree), "ms": {}}
     gen = torch.Generator(device="cuda")
+    time_forward(ops, out, reps, gen)
+    torch.cuda.empty_cache()
     gen.manual_seed(10)
     for label, B, S, H, KV, D in SHAPES:
         q, k, v, do = (torch.randn(B, S, n, D, generator=gen, device="cuda")

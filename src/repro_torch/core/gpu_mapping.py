@@ -72,12 +72,20 @@ WKV_BWD_TC_PAD = 8      # tensor-core path: row padding, in elements
 
 # csrc/flash_attention.cu's layouts (the kernels' constants; tests read
 # them back)
-FLASH_THREADS = 128     # both paths: threads of a block
-FLASH_BQ = 64           # queries of a block
-FLASH_BK = 64           # keys of a K/V tile
-FLASH_TC_PAD = 8        # tensor-core path: row padding, in elements
+FLASH_THREADS = 128     # fma: threads of a block; tensor_core: of a warpgroup
 FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)   # the compiled head dims
 FLASH_PATHS = ("tensor_core", "fma")
+FLASH_FMA_BQ = 64       # fma: queries of a block
+FLASH_FMA_BK = 64       # fma: keys of a K/V tile
+FLASH_TC_WG_ROWS = 64   # tensor_core: query rows of a consumer warpgroup
+FLASH_TC_CONSUMERS = 2  # tensor_core: consumer warpgroups of a block (and
+#                         one producer warpgroup)
+FLASH_TC_KEYS = 64      # tensor_core: keys of a K/V tile
+FLASH_TC_CHUNK = 64     # tensor_core: head dims of a TMA box (128 bytes)
+FLASH_TC_STAGES = 3     # tensor_core: K/V ring stages
+FLASH_TC_REGS = (24, 240)   # tensor_core: setmaxnreg of the producer and
+#                             of each consumer warpgroup
+FLASH_TC_REG_BUDGET = 120   # of a consumer's 240, for its live tiles
 FLASH_FWD_LO_MAX_D = 128  # tensor_core: the largest head dim whose forward
 #                           writes o_lo (at 256 a second accumulator would
 #                           not fit), so whose backward reads D_i from it
@@ -252,23 +260,80 @@ def wkv_bwd_smem_plan(K: int, chip: GPUChip = H100, *, path: str = "fma",
             "resident": min(2, resident)}
 
 
-def flash_smem_plan(D: int, path: str, chip: GPUChip = H100) -> dict:
-    """Shared-memory feasibility of one ``csrc/flash_attention.cu``
-    block at head dim ``D``, and the blocks one SM holds; the wrapper
-    checks it before each launch.
+def flash_tc_registers(D: int, lo: bool) -> dict:
+    """The ``tensor_core`` kernel's schedule at head dim ``D`` (``lo``:
+    the o_lo kernel), from the fp32 registers a consumer thread keeps
+    live across a key tile (``tc_live_regs``, ``tc_split`` and
+    ``tc_overlap`` in the source): O takes dp / 2 (dp the head dims the
+    warpgroup holds, padded to ``FLASH_TC_CHUNK``), the tile's scores
+    ``FLASH_TC_KEYS`` / 2 and, overlapped (the next tile's S beside the
+    last P V), p as the PV product's bf16 A operand ``FLASH_TC_KEYS`` /
+    4; with ``lo`` a second O and a second p.  The two warpgroups split
+    the head dim (``split``: both on the block's 64 query rows) where
+    one holding all of it does not fit ``FLASH_TC_REG_BUDGET`` in
+    series; a warpgroup overlaps where its tiles fit that way
+    (``overlap``).  ``live`` is the schedule's count.  The rule holds at
+    any head dim (the CPU models run it at small ones); the kernel is
+    compiled at ``FLASH_HEAD_DIMS``."""
+    n = 2 if lo else 1
 
-    ``tensor_core``: bf16 Q [FLASH_BQ, D + FLASH_TC_PAD] and two buffers
-    each of K and V [FLASH_BK, D + FLASH_TC_PAD] (``launch_tc`` in the
-    source sizes the same sum).  ``fma``: fp32 Q, K and V with rows
-    padded by one [rows, D + 1], and p [FLASH_BQ, FLASH_BK + 1]
-    (``launch_d``)."""
+    def live(dp, overlap):
+        return (dp // 2 * n + FLASH_TC_KEYS // 2
+                + (FLASH_TC_KEYS // 4 * n if overlap else 0))
+    dp = _round_up(D, FLASH_TC_CHUNK)
+    split = live(dp, False) > FLASH_TC_REG_BUDGET
+    held = dp // 2 if split else dp
+    overlap = live(held, True) <= FLASH_TC_REG_BUDGET
+    return {"split": split, "overlap": overlap, "head_dims": held,
+            "live": live(held, overlap), "budget": FLASH_TC_REG_BUDGET,
+            "rows": FLASH_TC_WG_ROWS * (1 if split else FLASH_TC_CONSUMERS)}
+
+
+def flash_tile(D: int, path: str) -> tuple:
+    """(queries of a block, keys of a K/V tile) that ``path``'s kernel
+    serving runs is compiled for at head dim ``D`` (the o_lo kernel's
+    rows: ``flash_tc_registers``)."""
+    if path == "tensor_core":
+        return flash_tc_registers(D, False)["rows"], FLASH_TC_KEYS
+    if path == "fma":
+        return FLASH_FMA_BQ, FLASH_FMA_BK
+    raise ValueError(f"path {path!r} not in {FLASH_PATHS}")
+
+
+def flash_smem_plan(D: int, path: str, chip: GPUChip = H100,
+                    lo: bool = False) -> dict:
+    """Shared-memory feasibility of one ``csrc/flash_attention.cu``
+    block at head dim ``D`` (``lo``: the o_lo kernel's), and the blocks
+    one SM holds; the wrapper checks it before each launch.
+
+    ``tensor_core`` (``tc_smem`` in the source sums the same way): TMA
+    boxes of 64 rows by ``FLASH_TC_CHUNK`` head dims (8 KB, 128-byte
+    swizzle), the head dim padded to a multiple of 64: 1 KB of
+    alignment slack, the block's Q [rows, D] (``flash_tc_registers``'
+    rows), then a ring of ``FLASH_TC_STAGES`` stages of a K and a V tile
+    [``FLASH_TC_KEYS``, D], and an 8-byte ``full`` and ``empty`` barrier
+    a stage and one for Q; one block an SM (its launch bounds'
+    registers).  ``fma``: fp32 Q, K and
+    V with rows padded by one [rows, D + 1], and p [FLASH_FMA_BQ,
+    FLASH_FMA_BK + 1] (``launch_d``)."""
     if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
     if path == "tensor_core":
-        need = (FLASH_BQ + 4 * FLASH_BK) * (D + FLASH_TC_PAD) * 2
-    elif path == "fma":
-        need = ((FLASH_BQ + 2 * FLASH_BK) * (D + 1)
-                + FLASH_BQ * (FLASH_BK + 1)) * 4
+        tile = -(-D // FLASH_TC_CHUNK) * FLASH_TC_WG_ROWS * FLASH_TC_CHUNK * 2
+        rows = flash_tc_registers(D, lo)["rows"]
+        q_bytes = rows // FLASH_TC_WG_ROWS * tile
+        stages = FLASH_TC_STAGES
+        need = 1024 + q_bytes + stages * 2 * tile + (2 * stages + 1) * 8
+        threads = FLASH_THREADS * (FLASH_TC_CONSUMERS + 1)
+        return {"smem_need": need, "smem_bytes": chip.smem_bytes,
+                "fits": need <= chip.smem_bytes,
+                "blocks_per_sm": min(1, blocks_per_sm(need, threads, chip)),
+                "stages": stages, "stage_bytes": 2 * tile,
+                "q_bytes": q_bytes, "rows": rows, "keys": FLASH_TC_KEYS,
+                "threads": threads}
+    if path == "fma":
+        need = ((FLASH_FMA_BQ + 2 * FLASH_FMA_BK) * (D + 1)
+                + FLASH_FMA_BQ * (FLASH_FMA_BK + 1)) * 4
     else:
         raise ValueError(f"path {path!r} not in {FLASH_PATHS}")
     return {"smem_need": need, "smem_bytes": chip.smem_bytes,

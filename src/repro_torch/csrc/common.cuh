@@ -1,8 +1,8 @@
 // Device helpers shared by the port's CUDA sources (sm_90a): type
 // conversion, cp.async, mma.sync m16n8k16 and ldmatrix, and the Hopper
 // pieces (mbarriers, TMA loads and the host's tensor-map encoder, wgmma
-// descriptors and products) of spm_matmul's wgmma path and the flash
-// backward's tensor-core path.
+// descriptors and products, setmaxnreg, named barriers) of spm_matmul's
+// wgmma path and the flash forward's and backward's tensor-core paths.
 //
 // Header-only, included by each csrc/*.cu, each of which is compiled into
 // its own library; kernels/_build.py hashes this file into every
@@ -228,6 +228,29 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A bf16 map of a [B, S, heads, D] operand (element strides st: batch,
+// sequence, head; head dims contiguous) as (head dim, head, sequence,
+// batch), box [rows][64 head dims], 128-byte swizzle; reads past any
+// edge fill zeros (rows past S, head dims past D).
+inline bool tensor_map_4d(CUtensorMap* out, const void* ptr, int D, int heads,
+                          int S, int B, const long long* st, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // --------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor of a tile stored in the 128-byte
@@ -350,6 +373,47 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+
+// The m64n(8j) accumulators of n8 chunks 2kc and 2kc + 1 as the m64k16 A
+// operand of a register-sourced wgmma, rounded to bf16 (the accumulator
+// layout is the A layout).
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* s,
+                                         int kc) {
+  const float* c = s + 8 * kc;
+  a[0] = pack_f32_bf16(c[0], c[1]);
+  a[1] = pack_f32_bf16(c[2], c[3]);
+  a[2] = pack_f32_bf16(c[4], c[5]);
+  a[3] = pack_f32_bf16(c[6], c[7]);
+}
+
+// The same operand in two bf16 parts, hi + lo, which together keep
+// ~16 bits of each value.
+__device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4],
+                                               const float* s, int kc) {
+  acc_to_a(hi, s, kc);
+  const float* c = s + 8 * kc;
+  lo[0] = pack_f32_bf16(bf16_rest(c[0]), bf16_rest(c[1]));
+  lo[1] = pack_f32_bf16(bf16_rest(c[2]), bf16_rest(c[3]));
+  lo[2] = pack_f32_bf16(bf16_rest(c[4]), bf16_rest(c[5]));
+  lo[3] = pack_f32_bf16(bf16_rest(c[6]), bf16_rest(c[7]));
+}
+
+// ------------------------------------------ warp specialisation (sm_90a)
+
+// A warpgroup's registers a thread, set to N (a multiple of 8 in 24..256)
+// by every warp of the warpgroup: a producer gives its registers back
+// (dec), consumers take them (inc) from the block's pool, which the
+// launch bounds size.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace

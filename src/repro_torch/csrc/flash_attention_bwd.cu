@@ -288,30 +288,6 @@ __device__ __forceinline__ uint64_t step_mn(uint64_t d, int kk, int c0) {
   return d + ((c0 * kBox + kk * 2048) >> 4);
 }
 
-// The m64n64 accumulators of n8 chunks 2kc and 2kc + 1 as the m64k16 A
-// operand, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* s,
-                                         int kc) {
-  const float* c = s + 8 * kc;
-  a[0] = pack_f32_bf16(c[0], c[1]);
-  a[1] = pack_f32_bf16(c[2], c[3]);
-  a[2] = pack_f32_bf16(c[4], c[5]);
-  a[3] = pack_f32_bf16(c[6], c[7]);
-}
-
-// The same operand in two bf16 parts, hi + lo, which together keep
-// ~16 bits of each value.
-__device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4],
-                                               uint32_t (&lo)[4],
-                                               const float* s, int kc) {
-  acc_to_a(hi, s, kc);
-  const float* c = s + 8 * kc;
-  lo[0] = pack_f32_bf16(bf16_rest(c[0]), bf16_rest(c[1]));
-  lo[1] = pack_f32_bf16(bf16_rest(c[2]), bf16_rest(c[3]));
-  lo[2] = pack_f32_bf16(bf16_rest(c[4]), bf16_rest(c[5]));
-  lo[3] = pack_f32_bf16(bf16_rest(c[6]), bf16_rest(c[7]));
-}
-
 // A = X (64 rows of a tile at xa) against B = Y^T (64 rows of a tile at
 // yb), over the DP head dims: s = X Y^T, m64n64, fp32.
 template <int DP>
@@ -829,29 +805,6 @@ __global__ void flash_bwd_group_sum_kernel(const __grid_constant__ Params p,
   }
 }
 
-// A bf16 map of a [B, S, heads, D] operand (element strides st: batch,
-// sequence, head; head dims contiguous) as (head dim, head, sequence,
-// batch), box [64 rows][64 head dims], 128-byte swizzle; reads past any
-// edge fill zeros.
-bool tensor_map_4d(CUtensorMap* out, const void* ptr, int D, int heads,
-                   int S, int B, const long long* st) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                 static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {kChunk, 1, kTile, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   constexpr size_t dq_smem = tc_dq_smem<D>();
@@ -870,10 +823,10 @@ cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
     opted_in = true;
   }
   CUtensorMap tq, tk, tv, tdo;
-  if (!tensor_map_4d(&tq, p.q, D, p.H, p.Sq, p.B, p.st + kQ) ||
-      !tensor_map_4d(&tk, p.k, D, p.KV, p.Sk, p.B, p.st + kK) ||
-      !tensor_map_4d(&tv, p.v, D, p.KV, p.Sk, p.B, p.st + kV) ||
-      !tensor_map_4d(&tdo, p.dout, D, p.H, p.Sq, p.B, p.st + kDO))
+  if (!tensor_map_4d(&tq, p.q, D, p.H, p.Sq, p.B, p.st + kQ, kTile) ||
+      !tensor_map_4d(&tk, p.k, D, p.KV, p.Sk, p.B, p.st + kK, kTile) ||
+      !tensor_map_4d(&tv, p.v, D, p.KV, p.Sk, p.B, p.st + kV, kTile) ||
+      !tensor_map_4d(&tdo, p.dout, D, p.H, p.Sq, p.B, p.st + kDO, kTile))
     return cudaErrorInvalidValue;
   const float scale_log2 = p.scale * kLog2e;
   const int nqb = (p.Sq + NWG * kTile - 1) / (NWG * kTile);

@@ -9,19 +9,25 @@ wrapper raises.  Each launch adds one to ``attention.launches`` and one
 to its path's count in ``attention.paths``.
 
 On CUDA, ``select_path`` picks one of two kernels before the launch:
-``tensor_core`` (mma.sync bf16 products, fp32 statistics) for bf16
-q, k and v whose rows start on 16-byte boundaries, and ``fma`` (fp32
-FMAs) for fp32, which the tensor cores cannot hold to the 1e-5 fp32
-policy, and for bf16 rows that are not 16-byte aligned.
+``tensor_core`` (wgmma bf16 products fed by TMA, warp-specialised,
+fp32 statistics) for bf16 q, k and v whose rows start on 16-byte
+boundaries, and ``fma`` (fp32 FMAs) for fp32, which the tensor cores
+cannot hold to the 1e-5 fp32 policy, and for bf16 rows that are not
+16-byte aligned.
 
-Both kernels are compiled for 64-query by 64-key tiles and head dims
-32, 64, 112 (zamba2's shared blocks), 128 and 256 (gemma3); the
-wrapper checks each launch's shared memory against
-``core.gpu_mapping.flash_smem_plan`` first.
-``bq``/``bk`` keep the reference's plan parameters but accept only
-that compiled tile: a call that passes neither takes the tuned plan
-cache's (``launch_plan``), which can only name that tile too.  q, k and
-v are read in place through their strides (the head dim must be
+Each path is compiled for its own tile (``path_tile``,
+``core.gpu_mapping.flash_tile``): ``tensor_core`` for 128 queries a
+block (two warpgroups of 64; 64 at head dim 256, where the two split the
+head dim) by 64 keys a K/V tile, ``fma`` for 64 by 64; both for head
+dims 32, 64, 112 (zamba2's shared blocks), 128 and 256 (gemma3).  A plan
+names the tile of serving's kernel; training's o_lo kernel splits the
+head dim from 112 up too (64 queries a block).  The wrapper checks
+each launch's shared memory against
+``core.gpu_mapping.flash_smem_plan`` first.  ``bq``/``bk`` keep the
+reference's plan parameters but accept only the tile of the path the
+call runs (``launch_plan``); the tuned plan cache, whose one candidate
+is that tile, is not read at launch.  q, k and v are
+read in place through their strides (the head dim must be
 contiguous).
 
 Training: under grad mode, a call whose q, k or v needs a gradient runs
@@ -56,10 +62,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ,
-                                          FLASH_FWD_LO_MAX_D, FLASH_PATHS,
+from repro_torch.core.gpu_mapping import (FLASH_FWD_LO_MAX_D, FLASH_PATHS,
                                           flash_bwd_smem_plan,
-                                          flash_smem_plan)
+                                          flash_smem_plan, flash_tile)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      attention_block,
@@ -116,24 +121,28 @@ BWD_ENTRIES = {
     "fma": ("flash_attention_bwd_launch", _BWD_COMMON + [_I, _P])}
 
 
+def path_tile(path: str, D: int) -> dict:
+    """The tile ``path``'s kernel is compiled for at head dim ``D``:
+    {"bq": queries of a block, "bk": keys of a K/V tile}."""
+    return dict(zip(("bq", "bk"), flash_tile(D, path)))
+
+
 def launch_plan(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
                 causal: bool, window: int, dtype: torch.dtype,
-                bq: Optional[int] = None, bk: Optional[int] = None) -> dict:
-    """The tile a CUDA call runs: ``bq``/``bk`` as passed, else the
-    tuned plan cache's for this problem (``tuning.runtime.cached_pins``),
-    else the compiled tile; anything but the compiled tile raises."""
-    from repro_torch.compat import dtype_name
-    from repro_torch.tuning.plan import AttentionProblem
-    from repro_torch.tuning.runtime import cached_pins
-    problem = AttentionProblem(B, Sq, Sk, H, KV, D, causal, window,
-                               dtype_name(dtype))
-    plan = {"bq": FLASH_BQ, "bk": FLASH_BK,
-            **cached_pins("flash_attention", problem, {"bq": bq, "bk": bk})}
-    for name, compiled in (("bq", FLASH_BQ), ("bk", FLASH_BK)):
-        if plan[name] != compiled:
-            raise ValueError(f"{name}={plan[name]}: the kernel is compiled "
-                             f"for {compiled}-row tiles")
-    return plan
+                bq: Optional[int] = None, bk: Optional[int] = None,
+                path: Optional[str] = None) -> dict:
+    """The tile a CUDA call runs: the compiled tile of ``path``
+    (``select_path``'s for aligned operands of ``dtype`` by default;
+    ``path_tile``).  ``bq``/``bk`` as passed must name it, or the call
+    raises.  The tuned plan cache is not read: its only candidate is
+    this tile, and a plan tuned against an earlier build of the kernel
+    may name another."""
+    compiled = path_tile(path or select_path(dtype, True), D)
+    for name, pin in (("bq", bq), ("bk", bk)):
+        if pin is not None and pin != compiled[name]:
+            raise ValueError(f"{name}={pin}: the kernel is compiled for "
+                             f"{compiled[name]}-row tiles at head dim {D}")
+    return compiled
 
 
 def _lib(path: str, backward: bool = False):
@@ -223,9 +232,10 @@ def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _check_card(q, k, v)
-    launch_plan(B, Sq, Sk, H, KV, D, causal, window, q.dtype, bq, bk)
     path = select_path(q.dtype, _aligned(q, k, v))
-    plan = flash_smem_plan(D, path)
+    launch_plan(B, Sq, Sk, H, KV, D, causal, window, q.dtype, bq, bk, path)
+    lo = with_lse and path == "tensor_core" and D <= FLASH_FWD_LO_MAX_D
+    plan = flash_smem_plan(D, path, lo=lo)
     if not plan["fits"]:
         raise ValueError(f"flash_attention {path} at head dim {D} needs "
                          f"{plan['smem_need']} bytes of shared memory, "
@@ -233,8 +243,7 @@ def _launch(q, k, v, causal, window, scale, bq=None, bk=None,
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    o_lo = (torch.empty_like(o) if with_lse and path == "tensor_core"
-            and D <= FLASH_FWD_LO_MAX_D else None)
+    o_lo = torch.empty_like(o) if lo else None
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -20,9 +20,10 @@ under autograd for CPU and ``meta`` tensors.
 
 ``attention_tc_model`` is the rounding of the CUDA forward's bf16
 tensor-core kernel in plain torch (``attention_tc_fp32`` its output
-before the final rounding): its o, its lse and ``o_lo``, the part of its
-fp32 output (the PV product taking each p as hi + lo) that the final
-bf16 rounding of o drops.
+before the final rounding), over the kernel's key tiles
+(``core.gpu_mapping.FLASH_TC_KEYS``, 64): its o, its lse and ``o_lo``,
+the part of its fp32 output (the PV product taking each p as hi + lo)
+that the final bf16 rounding of o drops.
 
 ``attention_bwd_tiles`` is the recipe of the CUDA backward
 (``csrc/flash_attention_bwd.cu``) written tile by tile in plain torch:
@@ -38,8 +39,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.gpu_mapping import FLASH_TC_KEYS
+
 NEG_INF = -1e30
-BLOCK = 64      # the CUDA kernels' query and key tiles
+BLOCK = 64      # the CUDA backward's query and key tiles
 LOG2E = 1.4426950408889634
 
 
@@ -94,12 +97,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_tc_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, causal: bool = True, window: int = 0,
-                      scale: Optional[float] = None, block: int = BLOCK,
-                      split_pv: bool = True):
+                      scale: Optional[float] = None,
+                      block: int = FLASH_TC_KEYS, split_pv: bool = True):
     """(out, full, lse) by the arithmetic of ``csrc/flash_attention.cu``'s
     bf16 tensor-core kernel: fp32 scores scaled by ``scale * log2(e)``,
     masked to -1e30 after that scaling, an online softmax over
-    ``block``-key tiles in the log2 domain (exp2), each tile's
+    ``block``-key tiles (the kernel's by default) in the log2 domain
+    (exp2), each tile's
     unnormalised p rounded to v's dtype before the PV product, the row
     sum kept from the fp32 p: out = acc / max(l, 1e-30) [B,Sq,H,D], which
     the kernel rounds to o; full = (acc + acc_lo) / max(l, 1e-30), acc_lo
@@ -145,8 +149,8 @@ def attention_tc_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_tc_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, causal: bool = True, window: int = 0,
-                       scale: Optional[float] = None, block: int = BLOCK,
-                       split_pv: bool = True):
+                       scale: Optional[float] = None,
+                       block: int = FLASH_TC_KEYS, split_pv: bool = True):
     """(o, o_lo, lse) of the tensor-core forward: ``attention_tc_fp32``'s
     out rounded once to q's dtype (o), its full output less o rounded to
     q's dtype (``o_lo``, which the kernel writes beside lse for the

@@ -756,8 +756,9 @@ def flash_kernel_rounding(q: torch.Tensor, k: torch.Tensor,
                           tile: int = 64) -> torch.Tensor:
     """The rounding of ``csrc/flash_attention.cu``'s bf16 tensor-core
     kernel in plain torch (``flash_attention.ref.attention_tc_model``,
-    whose o this is).  q: [B,S,H,D]; k,v: [B,S,KV,D] -> [B,S,H,D] in
-    q's dtype."""
+    whose o this is), over ``tile``-key tiles (the kernel's 64 by
+    default).  q: [B,S,H,D]; k,v: [B,S,KV,D] -> [B,S,H,D] in q's
+    dtype."""
     from repro_torch.kernels.flash_attention.ref import attention_tc_model
     return attention_tc_model(q, k, v, causal=causal, window=window,
                               scale=scale, block=tile)[0]
@@ -932,8 +933,9 @@ def flash_bwd_readings(B, Sq, Sk, H, KV, D, causal, window) -> dict:
     seed Sq + D), against ``attention_grad`` evaluated in fp32 on the
     same inputs: {recipe: {gradient: share of the allowance}} for the
     plain version itself in bf16; the kernels' recipes, D_i from the
-    tensor-core forward's o + o_lo (``ref.attention_tc_model``, its PV
-    product taking each p as hi + lo) and D_i = sum P dP; D_i from o +
+    tensor-core forward's o + o_lo (``ref.attention_tc_model`` over the
+    forward kernel's key tiles, its PV product taking each p as hi + lo)
+    and D_i = sum P dP; D_i from o +
     o_lo of a forward whose PV product takes p rounded once (tried and
     not taken: it misses dq at S 4096); D_i from the rounded o; and the
     usual FlashAttention-2 recipe (that D_i and one bf16 rounding of dS

@@ -14,7 +14,8 @@ same ``dispatch`` result and the same resolved tile) are one candidate:
   depths (``BK_DEPTHS``, 0 = the whole K) whose staging fits shared
   memory (``core.gpu_mapping.smem_plan``), clamped to the shape as the
   wrapper clamps it.
-- ``flash_attention``: one candidate, the one tile it is compiled for.
+- ``flash_attention``: one candidate, the tile its path is compiled
+  for at the problem's head dim (``ops.path_tile``).
 - ``wkv6``: on the ``tensor_core`` kernel the chunks whose rows per
   block (``ops.tc_rows``) are the distinct multiples of 16 up to the
   rows it is compiled for at this K; on ``fma`` the powers of two up to
@@ -35,8 +36,9 @@ from typing import Callable, Dict, Hashable, List, Tuple
 import torch
 
 from repro_torch.compat import torch_dtype
-from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, WKV_TC_ROWS,
-                                          smem_plan, wkv_smem_plan)
+from repro_torch.core.gpu_mapping import (WKV_TC_ROWS, smem_plan,
+                                          wkv_smem_plan)
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.tuning.plan import (AttentionProblem, MatmulProblem, Plan,
@@ -113,7 +115,10 @@ def _enum_spm_matmul(p: MatmulProblem) -> List[Plan]:
 # ------------------------------------------------------ flash_attention
 
 def _default_flash(p: AttentionProblem) -> Plan:
-    return {"bq": FLASH_BQ, "bk": FLASH_BK}
+    """The tile of the path the problem's dtype takes (``tensor_core``
+    for bf16, ``fma`` for fp32) at its head dim (``ops.path_tile``)."""
+    return fa_ops.path_tile(
+        fa_ops.select_path(torch_dtype(p.dtype), True), p.head_dim)
 
 
 def _enum_flash(p: AttentionProblem) -> List[Plan]:

@@ -36,13 +36,13 @@ from typing import Dict, Tuple
 
 from repro_torch.analysis.roofline import kernel_bound_s
 from repro_torch.compat import torch_dtype
-from repro_torch.core.gpu_mapping import (FLASH_BK, FLASH_BQ, H100,
-                                          WKV_TC_ROWS, GPUChip,
+from repro_torch.core.gpu_mapping import (H100, WKV_TC_ROWS, GPUChip,
                                           flash_smem_plan, smem_plan,
                                           splitk_rows, wkv_smem_plan)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
-from repro_torch.tuning.candidates import matmul_launch, wkv_launch
+from repro_torch.tuning.candidates import (defaults_for, matmul_launch,
+                                           wkv_launch)
 from repro_torch.tuning.plan import (AttentionProblem, MatmulProblem, Plan,
                                      Problem, WkvProblem)
 
@@ -124,10 +124,10 @@ def feasibility(kernel: str, problem: Problem, plan: Plan,
     compiled for, no shared-memory plan) does not fit."""
     if kernel not in ("spm_matmul", "flash_attention", "wkv6"):
         raise KeyError(f"unknown kernel {kernel!r}")
-    if kernel == "flash_attention" and \
-            (plan.get("bq"), plan.get("bk")) != (FLASH_BQ, FLASH_BK):
-        return Feasibility(False, 0, chip.smem_bytes)
     try:
+        if kernel == "flash_attention" and {n: plan.get(n) for n in (
+                "bq", "bk")} != defaults_for("flash_attention", problem):
+            return Feasibility(False, 0, chip.smem_bytes)
         need = smem_need(kernel, problem, plan)
     except (ValueError, KeyError):
         return Feasibility(False, 0, chip.smem_bytes)
@@ -145,7 +145,8 @@ def grid_steps(kernel: str, problem: Problem, plan: Plan) -> int:
                 * launch["splits"])
     if kernel == "flash_attention":
         a: AttentionProblem = problem
-        return a.batch * a.heads * math.ceil(a.seq_q / FLASH_BQ)
+        bq = defaults_for("flash_attention", a)["bq"]
+        return a.batch * a.heads * math.ceil(a.seq_q / bq)
     if kernel == "wkv6":
         w: WkvProblem = problem
         launch = wkv_launch(w, plan)
@@ -177,10 +178,10 @@ def flops_bytes(kernel: str, problem: Problem,
     if kernel == "flash_attention":
         a: AttentionProblem = problem
         e = _elem_bytes(a.dtype)
+        bq = defaults_for("flash_attention", a)["bq"]
         q_bytes = 2 * a.batch * a.seq_q * a.heads * a.head_dim * e
         kv_bytes = (2 * a.batch * a.kv_heads * a.seq_k * a.head_dim
-                    * e * (a.heads // a.kv_heads)
-                    * math.ceil(a.seq_q / FLASH_BQ))
+                    * e * (a.heads // a.kv_heads) * math.ceil(a.seq_q / bq))
         flops = 4.0 * a.batch * a.heads * a.seq_q * a.seq_k * a.head_dim
         if a.causal:
             flops /= 2

@@ -46,8 +46,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.compat import torch_dtype
-from repro_torch.core.gpu_mapping import FLASH_BK, FLASH_BQ, H100, GPUChip
+from repro_torch.core.gpu_mapping import H100, GPUChip
 from repro_torch.kernels.spm_matmul import ops as mm_ops
+from repro_torch.tuning.candidates import defaults_for
 from repro_torch.tuning.cost_model import analytic_cost_s as _kernel_cost_s
 from repro_torch.tuning.cost_model import feasibility as _kernel_feasibility
 from repro_torch.tuning.plan import plan_sig  # noqa: F401 (re-exported)
@@ -275,10 +276,6 @@ def _prefill_attn_problem(cfg, problem: ModelProblem) \
                             dtype=problem.dtype)
 
 
-def _flash_plan() -> Plan:
-    return {"bq": FLASH_BQ, "bk": FLASH_BK}
-
-
 def model_feasible(cfg, problem: ModelProblem, plan: Plan,
                    chip: GPUChip = H100) -> bool:
     """Shared-memory feasibility of the prefill attention: flash runs
@@ -287,8 +284,8 @@ def model_feasible(cfg, problem: ModelProblem, plan: Plan,
     ap = _prefill_attn_problem(cfg, problem)
     if ap is None:
         return True
-    return _kernel_feasibility("flash_attention", ap, _flash_plan(),
-                               chip).fits
+    return _kernel_feasibility("flash_attention", ap,
+                               defaults_for("flash_attention", ap), chip).fits
 
 
 def model_analytic_cost_s(cfg, problem: ModelProblem, plan: Plan,
@@ -303,7 +300,7 @@ def model_analytic_cost_s(cfg, problem: ModelProblem, plan: Plan,
     ap = _prefill_attn_problem(cfg, problem)
     if ap is not None:
         cost += cfg.num_layers * _kernel_cost_s(
-            "flash_attention", ap, _flash_plan(), chip)
+            "flash_attention", ap, defaults_for("flash_attention", ap), chip)
     step = sum(c * _kernel_cost_s(
         "spm_matmul", MatmulProblem(m, k, n, problem.dtype, tb),
         {"bm": plan["mm_bm"], "bn": plan["mm_bn"]}, chip)

@@ -178,6 +178,37 @@ def test_recipe_in_bf16_at_flash_bwd_main_shapes(case):
     assert len(faults) == 3 and min(faults.values()) > 1, faults
 
 
+@pytest.mark.parametrize("D", gpu_mapping.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 72),
+                                           (False, 0)])
+def test_tc_model_at_the_kernels_key_tile_is_the_plain_forward(D, causal,
+                                                               window):
+    """``ref.attention_tc_fp32`` walks the kernel's key tile at each
+    compiled head dim by default (64 keys; 200 keys: a ragged last
+    tile).  On fp32 inputs its output is the plain
+    version's and the reference's ``sdpa``'s within the repo's fp32
+    tolerance; on bf16 inputs, rounded once, within the bf16 allowance
+    of the plain version, and the 5 % scale fault is not."""
+    q, k, v, _ = _inputs(1, 200, 200, 4, 2, D, D + window)
+    kw = {"causal": causal, "window": window, "scale": 1.0 / math.sqrt(D)}
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    out, full, lse = attention_tc_fp32(qt, kt, vt, **kw)
+    assert torch.equal(out, attention_tc_fp32(
+        qt, kt, vt, block=gpu_mapping.FLASH_TC_KEYS, **kw)[0])
+    assert _rel(out.numpy(), attention_ref(qt, kt, vt, **kw).numpy()) < TOL
+    want = sdpa(*(jnp.asarray(a) for a in (q, k, v)), jnp.arange(200),
+                jnp.arange(200), **kw)
+    assert _rel(out.numpy(), want) < TOL
+    bf = torch.bfloat16
+    qb, kb, vb = (t.to(bf) for t in (qt, kt, vt))
+    plain = attention_ref(qb, kb, vb, **kw)
+    o = tolerance.flash_kernel_rounding(qb, kb, vb, **kw)
+    assert tolerance.check(o, plain, bf)[0] < 1
+    wrong = tolerance.flash_kernel_rounding(
+        qb, kb, vb, causal=causal, window=window, scale=1.05 * kw["scale"])
+    assert tolerance.check(wrong, plain, bf)[0] > 1
+
+
 def test_o_lo_needs_the_split_pv_product_at_qwen2s_sequence():
     """At S 4096 (``tolerance.FLASH_BWD_LONG_CASE``) D_i from o + o_lo holds
     dq only when the forward's PV product takes each p as hi + lo: o_lo
@@ -379,7 +410,7 @@ def test_backward_entries_and_smem_plan_match_the_source():
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              text).group(1))
     assert c("kThreads") == gpu_mapping.FLASH_THREADS
-    assert c("kTile") == gpu_mapping.FLASH_BWD_TILE == gpu_mapping.FLASH_BQ
+    assert c("kTile") == gpu_mapping.FLASH_BWD_TILE
     assert c("kChunk") == gpu_mapping.FLASH_BWD_TC_CHUNK
     assert c("kTcSplitD") == gpu_mapping.FLASH_BWD_TC_SPLIT_D
     assert c("kTcWideD") == gpu_mapping.FLASH_BWD_TC_WIDE_D

@@ -238,14 +238,17 @@ def test_plain_flash_cross_shapes_match_pallas_and_oracle(B, Sq, Sk, H, KV,
 
 
 def test_flash_smem_plan_at_head_dim_112():
-    """D = 112 rows pad to 120 bf16 (240 bytes, 15 x 16): Q and two K
-    and V buffers take 76,800 bytes on ``tensor_core`` (three blocks an
-    SM); the fp32 path's 103,424 leave two."""
+    """D = 112 pads to two 64-dim TMA boxes of 8 KB (the map's zero fill
+    supplies head dims 112..127): Q [128, 128] and three stages of a K
+    and a V tile of 64 keys take 132,152 bytes on ``tensor_core`` (one
+    block an SM); the fp32 path's 103,424 leave two."""
     tc = gpu_mapping.flash_smem_plan(112, "tensor_core")
     fma = gpu_mapping.flash_smem_plan(112, "fma")
-    assert (tc["smem_need"], fma["smem_need"]) == (76_800, 103_424)
-    assert (tc["blocks_per_sm"], fma["blocks_per_sm"]) == (3, 2)
-    assert (112 + gpu_mapping.FLASH_TC_PAD) * 2 // 16 % 2 == 1
+    assert (tc["smem_need"], fma["smem_need"]) == (132_152, 103_424)
+    assert (tc["blocks_per_sm"], fma["blocks_per_sm"]) == (1, 2)
+    assert tc == gpu_mapping.flash_smem_plan(128, "tensor_core")
+    assert (tc["keys"], tc["stages"], tc["q_bytes"]) == (64, 3, 2 * 2 * 8192)
+    assert tc["smem_need"] == 1024 + 2 * 2 * 8192 + 3 * 2 * 2 * 8192 + 7 * 8
 
 
 def test_flash_first_tile_fully_masked_row_is_cleared():
@@ -633,28 +636,85 @@ def test_wkv_shared_memory_rule_reads_the_kernels_constants():
 def test_flash_shared_memory_rule_reads_the_kernels_constants():
     """``flash_smem_plan`` names the sizes csrc/flash_attention.cu is
     compiled with, and gives each path's launcher's sum: at gemma3's
-    head dim 256, 168,960 bytes on ``tensor_core`` and 214,016 on
+    head dim 256, 230,456 bytes on ``tensor_core`` (the split pair's Q
+    of 64 rows and three stages of 64-key K and V tiles) and 214,016 on
     ``fma``, both under the 232,448 a block may use, one block an SM."""
     def c(name):
         return _cu_constant(name, "flash_attention.cu")
     assert c("kThreads") == gpu_mapping.FLASH_THREADS
-    assert c("kBQ") == gpu_mapping.FLASH_BQ
-    assert c("kBK") == gpu_mapping.FLASH_BK
+    assert c("kBQ") == gpu_mapping.FLASH_FMA_BQ
+    assert c("kBK") == gpu_mapping.FLASH_FMA_BK
+    assert c("kWgRows") == gpu_mapping.FLASH_TC_WG_ROWS
+    assert c("kTcKeys") == gpu_mapping.FLASH_TC_KEYS
+    assert "kTcThreads = 3 * kThreads;" in (
+        _build.CSRC / "flash_attention.cu").read_text()
+    assert c("kChunk") == gpu_mapping.FLASH_TC_CHUNK
+    assert c("kStages") == gpu_mapping.FLASH_TC_STAGES
+    assert (c("kProducerRegs"), c("kConsumerRegs")) \
+        == gpu_mapping.FLASH_TC_REGS
+    assert c("kRegBudget") == gpu_mapping.FLASH_TC_REG_BUDGET
+    assert c("kLoMaxD") == gpu_mapping.FLASH_FWD_LO_MAX_D
+    assert c("kSmemBytes") == gpu_mapping.H100.smem_bytes
     text = (_build.CSRC / "flash_attention.cu").read_text()
-    assert f"constexpr int LD = D + {gpu_mapping.FLASH_TC_PAD};" in text
     for d in gpu_mapping.FLASH_HEAD_DIMS:
         assert f"launch_tc<{d}>(" in text and f"launch_d<T, {d}>(" in text
     tc = gpu_mapping.flash_smem_plan(256, "tensor_core")
     fma = gpu_mapping.flash_smem_plan(256, "fma")
-    assert (tc["smem_need"], fma["smem_need"]) == (168_960, 214_016)
-    assert tc["fits"] and fma["fits"]
+    assert (tc["smem_need"], fma["smem_need"]) == (230_456, 214_016)
+    assert tc["fits"] and fma["fits"] and tc["stages"] == 3
     assert tc["blocks_per_sm"] == fma["blocks_per_sm"] == 1
     assert gpu_mapping.flash_smem_plan(64, "tensor_core")["smem_need"] \
-        == (64 + 4 * 64) * 72 * 2
+        == 1024 + 2 * 8192 + 3 * 2 * 8192 + 7 * 8
     with pytest.raises(ValueError, match="head dim"):
         gpu_mapping.flash_smem_plan(96, "tensor_core")
     with pytest.raises(ValueError, match="path"):
         gpu_mapping.flash_smem_plan(64, "wgmma")
+
+
+# head dim -> (serving's kernel, the o_lo kernel): (split, overlap)
+FLASH_TC_SCHEDULES = {32: ((False, True), (False, False)),
+                      64: ((False, True), (False, False)),
+                      112: ((False, True), (True, False)),
+                      128: ((False, True), (True, False)),
+                      256: ((True, True), None)}
+
+
+@pytest.mark.parametrize("D", gpu_mapping.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("lo", [False, True])
+def test_flash_tc_plan_and_registers_at_each_head_dim(D, lo):
+    """At every compiled head dim, with and without o_lo: a warpgroup's
+    live tiles (O, the 64-key scores; overlapped, p too; o_lo doubling O
+    and p) against the 120-register budget give the schedule: serving's
+    kernel overlaps a tile's softmax with the last P V up to head dim
+    128 and splits the head dim between its warpgroups at 256; the o_lo
+    kernel runs in series, split from 112 up (no o_lo kernel at 256: it
+    would not fit split and in series either).  A split block covers 64
+    queries; the ring fits shared memory."""
+    regs = gpu_mapping.flash_tc_registers(D, lo)
+    want = FLASH_TC_SCHEDULES[D][lo]
+    compiled = not lo or D <= gpu_mapping.FLASH_FWD_LO_MAX_D
+    assert (want is not None) == compiled
+    dp = -(-D // 64) * 64
+    held = dp // 2 if regs["split"] else dp
+    assert regs["head_dims"] == held
+    assert regs["live"] == (held // 2 * (1 + lo) + 32
+                            + (16 * (1 + lo) if regs["overlap"] else 0))
+    assert (regs["live"] <= 120) == compiled
+    if not compiled:
+        return
+    assert (regs["split"], regs["overlap"]) == want
+    rows = 64 if regs["split"] else 128
+    assert regs["rows"] == rows
+    if not lo:   # a plan names serving's kernel's tile
+        assert gpu_mapping.flash_tile(D, "tensor_core") == (rows, 64)
+    assert gpu_mapping.flash_tile(D, "fma") == (64, 64)
+    plan = gpu_mapping.flash_smem_plan(D, "tensor_core", lo=lo)
+    assert plan["fits"] and (plan["rows"], plan["keys"]) == (rows, 64)
+    assert plan["stages"] == 3 and plan["threads"] == 3 * 128
+    assert plan["smem_need"] == (1024 + plan["q_bytes"]
+                                 + plan["stages"] * plan["stage_bytes"]
+                                 + (2 * plan["stages"] + 1) * 8)
+    assert plan["q_bytes"] == rows // 64 * dp // 64 * 8192
 
 
 @pytest.mark.parametrize("S,K,dtype,aligned,chunk,want", [

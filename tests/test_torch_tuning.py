@@ -15,6 +15,7 @@ process-wide caches around themselves.
 """
 import importlib.util
 import json
+import math
 import pathlib
 import random
 import warnings
@@ -614,15 +615,82 @@ def test_wkv_candidates_launch_distinctly_and_fit(problem):
 def test_flash_has_one_candidate():
     p = AttentionProblem(4, 256, 256, 14, 2, 64, dtype="bfloat16")
     assert enumerate_candidates("flash_attention", p) \
-        == [{"bq": 64, "bk": 64}] == [defaults_for("flash_attention", p)]
-    assert feasibility("flash_attention", p, {"bq": 64, "bk": 64}).fits
+        == [{"bq": 128, "bk": 64}] == [defaults_for("flash_attention", p)]
+    assert feasibility("flash_attention", p, {"bq": 128, "bk": 64}).fits
     assert not feasibility("flash_attention", p,
-                           {"bq": 128, "bk": 64}).fits
+                           {"bq": 64, "bk": 64}).fits
     from repro_torch.kernels.flash_attention import ops as fa_ops
     assert fa_ops.launch_plan(4, 256, 256, 14, 2, 64, True, 0, BF16) \
-        == {"bq": 64, "bk": 64}
+        == {"bq": 128, "bk": 64}
     with pytest.raises(ValueError):
-        fa_ops.launch_plan(4, 256, 256, 14, 2, 64, True, 0, BF16, bq=128)
+        fa_ops.launch_plan(4, 256, 256, 14, 2, 64, True, 0, BF16, bq=64)
+
+
+# (dtype, head dim) -> the tile its path runs: tensor_core (bf16) 128
+# queries by 64 keys, 64 queries at head dim 256 (its warpgroups split
+# the head dim); fma (fp32) 64 x 64
+FLASH_PATH_TILES = [("bfloat16", 64, "tensor_core", (128, 64)),
+                    ("bfloat16", 112, "tensor_core", (128, 64)),
+                    ("bfloat16", 256, "tensor_core", (64, 64)),
+                    ("float32", 64, "fma", (64, 64)),
+                    ("float32", 256, "fma", (64, 64))]
+
+
+@pytest.mark.parametrize("dtype,D,path,tile", FLASH_PATH_TILES)
+def test_flash_plan_names_its_paths_tile(caches, dtype, D, path, tile):
+    """Each path has its own compiled tile: the default plan, the tuned
+    candidates and the launch plan name it; a pin of any other tile (the
+    other path's among them) raises or is infeasible."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    p = AttentionProblem(4, 256, 256, 8, 2, D, dtype=dtype)
+    dt = getattr(torch, dtype)
+    want = dict(zip(("bq", "bk"), tile))
+    assert fa_ops.select_path(dt, True) == path
+    assert fa_ops.path_tile(path, D) == want
+    assert defaults_for("flash_attention", p) == want
+    assert enumerate_candidates("flash_attention", p) == [want]
+    assert fa_ops.launch_plan(4, 256, 256, 8, 2, D, True, 0, dt) == want
+    assert fa_ops.launch_plan(4, 256, 256, 8, 2, D, True, 0, dt,
+                              path=path) == want
+    others = {tuple(fa_ops.path_tile(q, D).values()) for q in fa_ops.PATHS}
+    others |= {(64, 128), (256, 64)}
+    for bq, bk in others - {tile}:
+        assert not feasibility("flash_attention", p,
+                               {"bq": bq, "bk": bk}).fits
+        with pytest.raises(ValueError, match="compiled"):
+            fa_ops.launch_plan(4, 256, 256, 8, 2, D, True, 0, dt, bq=bq,
+                               bk=bk, path=path)
+
+
+@pytest.mark.parametrize("stale", [{"bq": 64, "bk": 64},
+                                   {"bq": 32, "bk": 32}])
+def test_flash_launch_ignores_a_stale_cached_tile(caches, stale):
+    """A plan cache tuned against an earlier build of the forward (bf16
+    at head dim 64 once ran 64 x 64) holds a tile the kernel no longer
+    has: the launch neither raises nor changes its tile, so an old
+    cache cannot take serving down."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    p = AttentionProblem(4, 256, 256, 14, 2, 64, dtype="bfloat16")
+    tuning.active_cache().put(cache_key("flash_attention", p), stale)
+    assert tuning.active_cache().get(cache_key("flash_attention", p)) \
+        == stale
+    assert fa_ops.launch_plan(4, 256, 256, 14, 2, 64, True, 0, BF16) \
+        == {"bq": 128, "bk": 64}
+
+
+@pytest.mark.parametrize("dtype,D,path,tile", FLASH_PATH_TILES)
+def test_flash_cost_model_counts_blocks_by_its_paths_tile(dtype, D, path,
+                                                          tile):
+    """The cost model's blocks and K/V bytes follow the path's query
+    tile: B x H x ceil(Sq / bq) blocks, K and V read once a block."""
+    p = AttentionProblem(4, 1000, 1000, 8, 2, D, dtype=dtype)
+    plan = {"bq": tile[0], "bk": tile[1]}
+    summary = tuning.cost_summary("flash_attention", p, plan)
+    blocks = 4 * 8 * math.ceil(1000 / tile[0])
+    assert summary["grid_steps"] == blocks
+    e = 2 if dtype == "bfloat16" else 4
+    kv = 2 * 4 * 2 * 1000 * D * e * 4 * math.ceil(1000 / tile[0])
+    assert summary["bytes"] == 2 * 4 * 1000 * 8 * D * e + kv
 
 
 def test_cost_model_prices_each_path_by_its_loads():
