@@ -79,8 +79,10 @@ Phases, one result line each; any failure exits non-zero:
             and 6 decoder layers, prompt 1536 and frames as long, the
             config's cross K/V length; pixtral-12b: 40 layers, prompt
             1024, the stub's patch positions, no patches fed; bf16,
-            batch 4, 32 new tokens), qwen2-0.5b's with
-            ``REPRO_TRACE`` set.  Launch counters are zeroed just before
+            batch 4, 32 new tokens); qwen2-0.5b's then again, untimed
+            for the report, with ``REPRO_TRACE`` set (on the card its
+            graphs carry their module spans), whose tokens must be the
+            plain serve's.  Launch counters are zeroed just before
             each serve and read just after; each kernel of that path
             must have launched, and all 4x32 tokens must come out (a
             deadline shed fails) in range.  The timed prefill and decode
@@ -121,7 +123,8 @@ Phases, one result line each; any failure exits non-zero:
             ``repro_torch.obs.validate_report`` must accept, written to
             ``chiprun_out/chip_smoke_report.json``; and qwen2's
             ``REPRO_TRACE`` file must hold 1 ``prefill`` span, 32
-            ``decode*`` spans and 32 ``step_ms`` counters.
+            ``decode*`` spans and 32 ``step_ms`` counters, and the
+            module spans of 32 decode replays.
 
 8. tune    the jitter-aware autotuner (``repro_torch.tuning``) on the
             card, with a fresh plan cache at
@@ -1790,25 +1793,18 @@ def phase_serve(arch):
     want = serve_want(arch)
     phase = want.get("phase", 5)
     argv = serve_argv(arch)
-    env = f"REPRO_TRACE={SERVE_TRACE} " if arch == "qwen2-0.5b" else ""
     how = ("repro_torch.launch.serve" if arch in SERVES else
            f"repro_torch.launch.serve.serve(dataclasses.replace(get_config("
            f"{want['arch']!r}), num_layers={want['layers']}), args)")
-    print(f"phase {phase} serve: {env}{how} {' '.join(argv)}", flush=True)
-    if env:
-        SERVE_TRACE.unlink(missing_ok=True)
-        os.environ["REPRO_TRACE"] = str(SERVE_TRACE)
+    print(f"phase {phase} serve: {how} {' '.join(argv)}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    try:
-        if arch in SERVES:
-            res = serve.main(argv)
-        else:
-            res = serve.serve(serve_cfg(arch),
-                              serve.build_parser().parse_args(argv),
-                              compat.resolve_device("cuda"))
-    finally:
-        os.environ.pop("REPRO_TRACE", None)
+    if arch in SERVES:
+        res = serve.main(argv)
+    else:
+        res = serve.serve(serve_cfg(arch),
+                          serve.build_parser().parse_args(argv),
+                          compat.resolve_device("cuda"))
     launches = serve.launch_counts()
     paths = path_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1853,8 +1849,37 @@ def phase_serve(arch):
           f"dense-decoder count (params x tokens + causal attention) over "
           f"3, the forward's, prefill {shares['port_prefill'] or '-'}",
           flush=True)
+    if arch == "qwen2-0.5b":
+        traced_serve(arch, argv, res)
     return launches, dict(res, paths=paths, flop_shares=shares,
                           peak_gib=peak_gib)
+
+
+def traced_serve(arch, argv, res):
+    """The same serve again with ``REPRO_TRACE`` set, for its trace file
+    alone: on the card it replays graphs with their module spans, so
+    its times stay out of the report.  Prints its decode median and
+    prefill beside the plain serve's (``res``)."""
+    from repro_torch.launch import serve
+    print(f"phase 5 serve: REPRO_TRACE={SERVE_TRACE} "
+          f"repro_torch.launch.serve {' '.join(argv)}", flush=True)
+    SERVE_TRACE.unlink(missing_ok=True)
+    os.environ["REPRO_TRACE"] = str(SERVE_TRACE)
+    try:
+        traced = serve.main(argv)
+    finally:
+        os.environ.pop("REPRO_TRACE", None)
+    print(f"phase 5 serve {arch} with REPRO_TRACE (stamped graphs, not "
+          f"in the report): decode ms/step median "
+          f"{np.median(traced['decode_s']) * 1e3:.4f} against "
+          f"{np.median(res['decode_s']) * 1e3:.4f} plain, prefill "
+          f"{traced['prefill_s'] * 1e3:.3f} ms against "
+          f"{res['prefill_s'] * 1e3:.3f}; deadline overruns "
+          f"{traced['deadline']['overruns']}", flush=True)
+    if not np.array_equal(np.stack(traced["tokens"]),
+                          np.stack(res["tokens"])):
+        fail(f"{arch}: the traced serve's tokens differ from the plain "
+             f"serve's")
 
 
 def serve_flop_shares(arch, res):
@@ -2109,6 +2134,15 @@ def phase_predictability(serves, captures):
                   "step_ms counters": G}:
         fail(f"qwen2's REPRO_TRACE file holds {counts}, expected 1 "
              f"prefill span, {G} decode spans and {G} step_ms counters")
+    tracks = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["ph"] == "M"}
+    replays = {e["args"]["replay"] for e in doc["traceEvents"]
+               if e["ph"] == "X" and tracks[e["tid"]] == "device.decode"}
+    print(f"phase 7 predictability: its device.decode track holds the "
+          f"module spans of {len(replays)} decode replays", flush=True)
+    if len(replays) != G:
+        fail(f"qwen2's REPRO_TRACE file holds the module spans of "
+             f"{len(replays)} decode replays, expected {G}")
     return report
 
 

@@ -32,7 +32,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("spm_matmul", "flash_attention", "flash_attention_bwd", "wkv6",
-           "wkv6_bwd")
+           "wkv6_bwd", "stamp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 900

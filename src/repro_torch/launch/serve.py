@@ -65,11 +65,20 @@ weights on the device under ``--full``.
 Set ``REPRO_TRACE=/path/serve.json`` to record the prefill and every
 decode step as spans on the ``serve`` track (plus a per-step latency
 counter and the ``deadline_*`` instants) and dump a Chrome trace at
-exit, as the reference's serve does.
+exit, as the reference's serve does.  On the card the graphs are then
+captured with their module spans (``compile_step_fns``' ``spans``), and
+the trace also holds each replay's ``replay`` span on the ``host``
+track, its module spans on ``device.prefill`` and ``device.decode``
+(``obs.stamps``) and, on ``clock``, the offset to ``torch.profiler``'s
+clock; every span of it is on the recorder's clock
+(``time.perf_counter``).  The timed steps then replay the stamped
+graphs; a ring of stamps that fills is drained between two steps,
+outside their timing.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -89,6 +98,7 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models.lm import RunOptions
 from repro_torch.models.spec import tree_map
 from repro_torch.obs import TraceRecorder, jitter_stats, write_chrome_trace
+from repro_torch.obs import stamps
 from repro_torch.resilience.deadline import DeadlineMonitor
 from repro_torch.tuning.model import (ModelProblem, plan_sig,
                                       resolve_model_plan)
@@ -142,7 +152,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def decode_stepper(cfg, params, cache, tok, pos: int, opts: RunOptions):
+_NULL = contextlib.nullcontext()
+
+
+def _stamping(stamper, g, mode: str):
+    """The pass ``mode`` of ``g``'s spans, or nothing without a stamper."""
+    return _NULL if stamper is None else stamper.active(g, mode)
+
+
+def _replaying(stamper, g, pos: Optional[int] = None):
+    """One replay of ``g`` recorded by ``stamper``, or nothing without
+    one."""
+    return _NULL if stamper is None else stamper.replay(g, pos)
+
+
+def decode_stepper(cfg, params, cache, tok, pos: int, opts: RunOptions,
+                   stamper: Optional[stamps.Stamper] = None):
     """``step(tok, pos) -> logits`` for the decode loop over ``cache``.
 
     On the CPU it calls ``lm.decode_step``.  On CUDA it captures one
@@ -150,39 +175,46 @@ def decode_stepper(cfg, params, cache, tok, pos: int, opts: RunOptions):
     (the cache's buffers are baked in) and replays it.  The warm-up
     that capture needs writes the K/V of ``tok`` at ``pos``, which the
     first real step writes again.  ``step.captured`` holds the kernel
-    launches one replay makes, ``step.replays`` the replays so far."""
+    launches one replay makes, ``step.replays`` the replays so far.
+    On CUDA with a ``stamper`` the graph holds its spans' stamps and each
+    call records its host span (``compile_step_fns``)."""
     if tok.device.type != "cuda":
         def step(t, p):
             return lm_mod.decode_step(cfg, params, cache, t, p, opts)[0]
         step.captured = dict.fromkeys(launch_counts(), 0)
         step.replays = 0
+        step.stamper = None
         return step
+    g = None if stamper is None else stamper.graph("decode")
     static_tok = tok.clone()
     static_pos = torch.full((), pos, dtype=torch.long, device=tok.device)
     side = torch.cuda.Stream(tok.device)
     side.wait_stream(torch.cuda.current_stream(tok.device))
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), _stamping(stamper, g, "plan"):
         lm_mod.decode_step(cfg, params, cache, static_tok, static_pos, opts)
     torch.cuda.current_stream(tok.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph), _stamping(stamper, g, "capture"):
         logits, _ = lm_mod.decode_step(cfg, params, cache, static_tok,
                                        static_pos, opts)
 
     def step(t, p):
         static_tok.copy_(t)
         static_pos.fill_(p)
-        graph.replay()
+        with _replaying(stamper, g, p):
+            graph.replay()
         step.replays += 1
         return logits
     step.captured = {k: n - before[k] for k, n in launch_counts().items()}
     step.replays = 0
+    step.stamper = stamper
     return step
 
 
 def compile_step_fns(cfg, params, batch: dict, opts: RunOptions,
-                     prompt_len: int):
+                     prompt_len: int,
+                     spans: Optional[TraceRecorder] = None):
     """``(prefill_fn, step_fn)`` for the shapes of ``batch`` (the
     counterpart of the reference's ``compile_step_fns``).
 
@@ -201,48 +233,65 @@ def compile_step_fns(cfg, params, batch: dict, opts: RunOptions,
     decode step run here on both devices, so no first-call cost lands
     in the caller's samples.  ``prefill_fn.captured`` holds the kernel
     launches one replay makes, ``prefill_fn.replays`` the caller's replays
-    so far, as ``step_fn``'s do (zeros on the CPU)."""
+    so far, as ``step_fn``'s do (zeros on the CPU).
+
+    With a recorder (``spans``) both graphs are captured with a stamp at
+    each module boundary of ``lm`` (``obs.stamps``), and each call
+    records its host span, ``replay``, on the recorder's ``host`` track;
+    ``prefill_fn.stamper`` (also ``step_fn``'s) reads the replays'
+    device spans onto it (``collect``).  On the CPU the same spans are
+    stamped from the host clock during each call.  Without one, the
+    graphs are those of a run that records nothing."""
     dev = batch["tokens"].device
+    stamper = None if spans is None else stamps.Stamper(spans, dev)
+    pre = None if stamper is None else stamper.graph("prefill")
     if dev.type != "cuda":
         held = {}
+        dec = None if stamper is None else stamper.graph("decode")
 
         def prefill_fn(b):
-            logits, held["cache"] = lm_mod.prefill(cfg, params, b, opts)
+            with _replaying(stamper, pre):
+                logits, held["cache"] = lm_mod.prefill(cfg, params, b, opts)
             return logits, held["cache"]
 
         def step(t, p):
-            return lm_mod.decode_step(cfg, params, held["cache"], t, p,
-                                      opts)[0]
+            with _replaying(stamper, dec, p):
+                return lm_mod.decode_step(cfg, params, held["cache"], t, p,
+                                          opts)[0]
         prefill_fn.captured = dict.fromkeys(launch_counts(), 0)
         step.captured = dict.fromkeys(launch_counts(), 0)
         step.replays = prefill_fn.replays = 0
+        prefill_fn.stamper = step.stamper = stamper
         logits, _ = prefill_fn(batch)
         step(torch.argmax(logits[:, :cfg.vocab_size], dim=-1), prompt_len)
         return prefill_fn, step
     static = {k: v.clone() for k, v in batch.items()}
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), _stamping(stamper, pre, "plan"):
         lm_mod.prefill(cfg, params, static, opts)
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph), _stamping(stamper, pre, "capture"):
         logits, cache = lm_mod.prefill(cfg, params, static, opts)
     captured = {k: n - before[k] for k, n in launch_counts().items()}
-    graph.replay()
+    with _replaying(stamper, pre):
+        graph.replay()
     step = decode_stepper(cfg, params, cache,
                           torch.argmax(logits[:, :cfg.vocab_size], dim=-1),
-                          prompt_len, opts)
+                          prompt_len, opts, stamper)
 
     def prefill_fn(b):
         for k, v in static.items():
             v.copy_(b[k])
-        graph.replay()
+        with _replaying(stamper, pre):
+            graph.replay()
         prefill_fn.replays += 1
         return logits, cache
     prefill_fn.captured = captured
     prefill_fn.replays = 0
+    prefill_fn.stamper = stamper
     return prefill_fn, step
 
 
@@ -272,6 +321,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default=None,
                     help="parameter/activation dtype (default: the "
                          "config's)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and the prompt")
     return ap
 
 
@@ -298,7 +349,7 @@ def setup(args: argparse.Namespace, dev: torch.device):
 def setup_model(cfg, args: argparse.Namespace, dev: torch.device):
     """The plan and prompt ``args`` serve ``cfg`` with on ``dev``:
     ``(plan, plan_source, opts, params, batch)``.  Weights and
-    prompt are drawn from seed 0; an encoder-decoder model's ``frames``
+    prompt are drawn from ``--seed``; an encoder-decoder model's ``frames``
     [B, P, d_model] (fp32 normals) from the same generator after the
     tokens, as the reference's serve draws them."""
     B, P, G = args.batch, args.prompt_len, args.gen
@@ -321,9 +372,9 @@ def setup_model(cfg, args: argparse.Namespace, dev: torch.device):
     # and prompt on the card and on the CPU; a full-width one draws them
     # on the device
     init_dev = dev if args.full else torch.device("cpu")
-    params = lm_mod.init_params(cfg, seed=0, device=init_dev)
+    params = lm_mod.init_params(cfg, seed=args.seed, device=init_dev)
     gen = torch.Generator(device=init_dev)
-    gen.manual_seed(0)
+    gen.manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                            device=init_dev)
     batch = {"tokens": tokens, "targets": tokens}
@@ -360,15 +411,18 @@ def serve(cfg, args: argparse.Namespace, dev: torch.device) -> dict:
     rec = TraceRecorder(time_unit="us") if trace_path else None
     dmon = DeadlineMonitor(deadline_s=deadline_s, trace=rec)
 
-    # untimed: kernel builds, then the prefill and decode graphs
+    # untimed: kernel builds, then the prefill and decode graphs (on the
+    # card with their module spans when tracing)
     if dev.type == "cuda":
         _build.build()
-    prefill_fn, step = compile_step_fns(cfg, params, batch, opts, P)
+    prefill_fn, step = compile_step_fns(
+        cfg, params, batch, opts, P,
+        spans=rec if dev.type == "cuda" else None)
 
-    t0 = time.monotonic()
+    t0 = time.perf_counter()
     logits, cache = prefill_fn(batch)
     _sync(dev)
-    t_prefill = time.monotonic() - t0
+    t_prefill = time.perf_counter() - t0
     prefill_launches = {k: n * prefill_fn.replays
                         for k, n in prefill_fn.captured.items()}
     if rec is not None:
@@ -381,10 +435,10 @@ def serve(cfg, args: argparse.Namespace, dev: torch.device) -> dict:
     tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
     steppers = [step]
     for i in range(G):
-        t1 = time.monotonic()
+        t1 = time.perf_counter()
         logits = step(tok, P + i)
         _sync(dev)
-        t2 = time.monotonic()
+        t2 = time.perf_counter()
         times.append(t2 - t1)
         if rec is not None:
             rec.add_span(f"decode{i}", "serve", t1 * 1e6, t2 * 1e6,
@@ -393,6 +447,8 @@ def serve(cfg, args: argparse.Namespace, dev: torch.device) -> dict:
         tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
         out.append(tok.cpu().numpy())
         action = dmon.observe(i, t2 - t1)
+        if step.stamper is not None and step.stamper.full():
+            step.stamper.drain()
         if action == "warn":
             print(f"deadline overrun at decode step {i}: "
                   f"{(t2 - t1) * 1e3:.2f} ms > "
@@ -405,7 +461,8 @@ def serve(cfg, args: argparse.Namespace, dev: torch.device) -> dict:
                                     opts.windowed_cache)
             # new batch shape = new graph, captured outside the step
             # timing so the shed path stays capture-free too
-            step = decode_stepper(cfg, params, cache, tok, P + i + 1, opts)
+            step = decode_stepper(cfg, params, cache, tok, P + i + 1, opts,
+                                  step.stamper)
             steppers.append(step)
     replayed = {k: sum(s.captured[k] * s.replays for s in steppers)
                 for k in steppers[0].captured}
@@ -441,6 +498,8 @@ def serve(cfg, args: argparse.Namespace, dev: torch.device) -> dict:
           f"ladder record/warn/shed "
           f"{s['n_record']}/{s['n_warn']}/{s['n_shed']}  "
           f"worst overrun {s['worst_overrun_s']*1e3:.3f} ms")
+    if prefill_fn.stamper is not None:
+        prefill_fn.stamper.collect()
     if rec is not None and rec.spans:
         write_chrome_trace(rec, trace_path)
         print(f"trace: {len(rec.spans)} spans -> {trace_path}")

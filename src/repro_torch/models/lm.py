@@ -72,6 +72,7 @@ from repro_torch.models.common import embed_lookup, rmsnorm, rmsnorm_spec
 from repro_torch.models.spec import Par, init_tree, stack
 from repro_torch.models.spec import param_count as spec_param_count
 from repro_torch.models.spec import tree_from_items, tree_items, tree_map
+from repro_torch.obs import stamps
 from repro_torch.sharding.rules import placements_for, redistribute
 
 Device = Union[str, torch.device]
@@ -313,15 +314,18 @@ def _rwkv_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      collect: bool):
     """One RWKV layer over the whole sequence; with ``collect``, its
     decode state ``{"tm": {"shift", "wkv"}, "cm"}``."""
-    h = rmsnorm(x, p["ln_tm"])
-    res = rwkv_mod.timemix_forward(p["tm"], h, cfg.rwkv,
-                                   return_state=collect)
-    tm, st = res if collect else (res, None)
-    x = x + tm
-    h = rmsnorm(x, p["ln_cm"])
-    res = rwkv_mod.channelmix_forward(p["cm"], h, return_state=collect)
-    cm, st2 = res if collect else (res, None)
-    return x + cm, ({"tm": st, "cm": st2} if collect else None)
+    with stamps.span("time_mix"):
+        h = rmsnorm(x, p["ln_tm"])
+        res = rwkv_mod.timemix_forward(p["tm"], h, cfg.rwkv,
+                                       return_state=collect)
+        tm, st = res if collect else (res, None)
+        x = x + tm
+    with stamps.span("channel_mix"):
+        h = rmsnorm(x, p["ln_cm"])
+        res = rwkv_mod.channelmix_forward(p["cm"], h, return_state=collect)
+        cm, st2 = res if collect else (res, None)
+        x = x + cm
+    return x, ({"tm": st, "cm": st2} if collect else None)
 
 
 def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, use_moe: bool,
@@ -340,15 +344,18 @@ def _shared_block_full(cfg: ModelConfig, sp: dict, x: torch.Tensor,
     """zamba2's tied attention block over the whole sequence: attention
     over concat(x, x0) (d_in 2 x d_model) back to d_model, then the
     dense FFN.  Returns (x, (k, v) when ``collect``)."""
-    h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
-    res = attn_mod.self_attention(
-        sp["attn"], h, cfg.attention, positions,
-        theta=cfg.attention.rope_theta, window=0, chunk_q=opts.chunk_q,
-        chunk_kv=opts.chunk_kv, return_kv=collect)
-    att, kv = res if collect else (res, None)
-    x = x + att
-    h2 = rmsnorm(x, sp["ln_ffn"])
-    return x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation), kv
+    with stamps.span("attention"):
+        h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
+        res = attn_mod.self_attention(
+            sp["attn"], h, cfg.attention, positions,
+            theta=cfg.attention.rope_theta, window=0, chunk_q=opts.chunk_q,
+            chunk_kv=opts.chunk_kv, return_kv=collect)
+        att, kv = res if collect else (res, None)
+        x = x + att
+    with stamps.span("ffn"):
+        h2 = rmsnorm(x, sp["ln_ffn"])
+        x = x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation)
+    return x, kv
 
 
 def _mamba_layer_full(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
@@ -365,15 +372,18 @@ def _mamba_layer_full(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
         x, skv = _shared_block_full(cfg, sp, x, x0, positions, opts,
                                     collect)
         if collect:
-            c["shared_k"] = _to_cache_buf(skv[0], cache_len, opts)
-            c["shared_v"] = _to_cache_buf(skv[1], cache_len, opts)
-    h = rmsnorm(x, p["ln"])
-    res = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
-                                return_state=collect)
-    m, st = res if collect else (res, None)
-    if collect:
-        c["conv"], c["ssm"] = st["conv"], st["ssm"]
-    return x + m, (c if collect else None)
+            with stamps.span("cache"):
+                c["shared_k"] = _to_cache_buf(skv[0], cache_len, opts)
+                c["shared_v"] = _to_cache_buf(skv[1], cache_len, opts)
+    with stamps.span("mamba"):
+        h = rmsnorm(x, p["ln"])
+        res = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
+                                    return_state=collect)
+        m, st = res if collect else (res, None)
+        if collect:
+            c["conv"], c["ssm"] = st["conv"], st["ssm"]
+        x = x + m
+    return x, (c if collect else None)
 
 
 def _dec_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -384,22 +394,26 @@ def _dec_layer_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
     once into cross K/V), the dense FFN; with ``collect``, its decode
     state ``{"k", "v", "ck", "cv"}``."""
     a = cfg.attention
-    h = rmsnorm(x, p["ln_self"])
-    res = attn_mod.self_attention(
-        p["self"], h, a, positions, theta=0.0, window=0,
-        chunk_q=opts.chunk_q, chunk_kv=opts.chunk_kv, return_kv=collect)
-    att, kv = res if collect else (res, None)
-    x = x + att
-    h = rmsnorm(x, p["ln_cross"])
-    ck, cv = attn_mod.cross_kv(p["cross"], memory, a)
-    x = x + attn_mod.cross_attention(p["cross"], h, ck, cv, a)
-    h = rmsnorm(x, p["ln_ffn"])
-    x = x + ffn_mod.dense_ffn(p["ffn"], h, cfg.activation)
+    with stamps.span("attention"):
+        h = rmsnorm(x, p["ln_self"])
+        res = attn_mod.self_attention(
+            p["self"], h, a, positions, theta=0.0, window=0,
+            chunk_q=opts.chunk_q, chunk_kv=opts.chunk_kv, return_kv=collect)
+        att, kv = res if collect else (res, None)
+        x = x + att
+    with stamps.span("cross_attention"):
+        h = rmsnorm(x, p["ln_cross"])
+        ck, cv = attn_mod.cross_kv(p["cross"], memory, a)
+        x = x + attn_mod.cross_attention(p["cross"], h, ck, cv, a)
+    with stamps.span("ffn"):
+        h = rmsnorm(x, p["ln_ffn"])
+        x = x + ffn_mod.dense_ffn(p["ffn"], h, cfg.activation)
     if not collect:
         return x, None
-    return x, {"k": _to_cache_buf(kv[0], cache_len, opts),
-               "v": _to_cache_buf(kv[1], cache_len, opts),
-               "ck": ck, "cv": cv}
+    with stamps.span("cache"):
+        return x, {"k": _to_cache_buf(kv[0], cache_len, opts),
+                   "v": _to_cache_buf(kv[1], cache_len, opts),
+                   "ck": ck, "cv": cv}
 
 
 def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
@@ -413,6 +427,7 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
     a = cfg.attention
     for i, dsc in enumerate(unit):
         p = up[f"pos{i}"]
+        stamps.next_layer()
         if dsc.kind in ("rwkv", "mamba", "dec_attn"):
             if dsc.kind == "rwkv":
                 x, c = _rwkv_layer_full(cfg, p, x, collect)
@@ -428,26 +443,30 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             continue
         if dsc.kind not in ("attn", "enc_attn"):
             raise ValueError(dsc.kind)
-        h = rmsnorm(x, p["ln_attn"])
-        res = attn_mod.self_attention(
-            p["attn"], h, a, positions, theta=dsc.theta, window=dsc.window,
-            chunk_q=opts.chunk_q, chunk_kv=opts.chunk_kv,
-            causal=dsc.causal, return_kv=collect)
-        att, kv = res if collect else (res, None)
-        if cfg.use_post_norm:
-            att = rmsnorm(att, p["ln_attn_post"])
-        x = x + _wsc(att, opts, "x_sp")
-        h = rmsnorm(x, p["ln_ffn"])
-        f, al = _ffn(cfg, p, h, dsc.use_moe, opts)
-        if al is not None:
-            aux = aux + al
-        if cfg.use_post_norm:
-            f = rmsnorm(f, p["ln_ffn_post"])
-        x = x + _wsc(f, opts, "x_sp")
+        with stamps.span("attention"):
+            h = rmsnorm(x, p["ln_attn"])
+            res = attn_mod.self_attention(
+                p["attn"], h, a, positions, theta=dsc.theta,
+                window=dsc.window, chunk_q=opts.chunk_q,
+                chunk_kv=opts.chunk_kv, causal=dsc.causal,
+                return_kv=collect)
+            att, kv = res if collect else (res, None)
+            if cfg.use_post_norm:
+                att = rmsnorm(att, p["ln_attn_post"])
+            x = x + _wsc(att, opts, "x_sp")
+        with stamps.span("ffn"):
+            h = rmsnorm(x, p["ln_ffn"])
+            f, al = _ffn(cfg, p, h, dsc.use_moe, opts)
+            if al is not None:
+                aux = aux + al
+            if cfg.use_post_norm:
+                f = rmsnorm(f, p["ln_ffn_post"])
+            x = x + _wsc(f, opts, "x_sp")
         if collect:
-            cache[f"pos{i}"] = {
-                "k": _to_cache_buf(kv[0], cache_len, opts, dsc.window),
-                "v": _to_cache_buf(kv[1], cache_len, opts, dsc.window)}
+            with stamps.span("cache"):
+                cache[f"pos{i}"] = {
+                    "k": _to_cache_buf(kv[0], cache_len, opts, dsc.window),
+                    "v": _to_cache_buf(kv[1], cache_len, opts, dsc.window)}
     return x, aux, (cache if collect else None)
 
 
@@ -493,7 +512,8 @@ def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
         return x, aux, _zeros(blk.stage_cache_spec(
             cfg, stage, x.shape[0], cache_len, opts.windowed_cache),
             x.device)
-    stacked = tree_map(lambda *xs: torch.stack(xs), *caches)
+    with stamps.span("cache", layer=None):
+        stacked = tree_map(lambda *xs: torch.stack(xs), *caches)
     return x, aux, stacked
 
 
@@ -518,10 +538,12 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
     (0 without MoE)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = _embed(cfg, params, tokens, batch, opts)
+    with stamps.span("embed", layer=None):
+        x = _embed(cfg, params, tokens, batch, opts)
+        if cfg.family == "encdec":
+            x = x + params["dec_pos"][:S]
     memory = None
     if cfg.family == "encdec":
-        x = x + params["dec_pos"][:S]
         memory = _encode(cfg, params, batch["frames"], opts)
     x0 = x
     positions = torch.arange(S, dtype=torch.long, device=tokens.device)
@@ -534,7 +556,8 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
                                       shared, cache_len)
         aux = aux + a_i
         caches[f"stage{si}"] = c_i
-    x = rmsnorm(x, params["final_norm"])
+    with stamps.span("head", layer=None):
+        x = rmsnorm(x, params["final_norm"])
     return x, aux, (caches if collect else None)
 
 
@@ -565,7 +588,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     cache_len = opts.cache_len or S
     x, _, caches = forward_hidden(cfg, params, batch, opts, collect=True,
                                   cache_len=cache_len)
-    logits = compute_logits(cfg, params, x[:, -1])
+    with stamps.span("head", layer=None):
+        logits = compute_logits(cfg, params, x[:, -1])
     return logits, caches
 
 
@@ -575,17 +599,21 @@ def _rwkv_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """One RWKV decode step.  The new token-shift and WKV states are
     copied into the cache's buffers (``c``, views of the stacked cache),
     so a captured graph's next replay reads them."""
-    h = rmsnorm(x, p["ln_tm"])
-    tm, st = rwkv_mod.timemix_forward(p["tm"], h, cfg.rwkv, c["tm"],
-                                      return_state=True, tile=tile)
-    x = x + tm
-    h = rmsnorm(x, p["ln_cm"])
-    cm, st2 = rwkv_mod.channelmix_forward(p["cm"], h, c["cm"],
+    with stamps.span("time_mix"):
+        h = rmsnorm(x, p["ln_tm"])
+        tm, st = rwkv_mod.timemix_forward(p["tm"], h, cfg.rwkv, c["tm"],
                                           return_state=True, tile=tile)
-    c["tm"]["shift"].copy_(st["shift"])
-    c["tm"]["wkv"].copy_(st["wkv"])
-    c["cm"].copy_(st2)
-    return x + cm
+        x = x + tm
+    with stamps.span("channel_mix"):
+        h = rmsnorm(x, p["ln_cm"])
+        cm, st2 = rwkv_mod.channelmix_forward(p["cm"], h, c["cm"],
+                                              return_state=True, tile=tile)
+        x = x + cm
+    with stamps.span("cache"):
+        c["tm"]["shift"].copy_(st["shift"])
+        c["tm"]["wkv"].copy_(st["wkv"])
+        c["cm"].copy_(st2)
+    return x
 
 
 def _mamba_layer_decode(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
@@ -601,20 +629,25 @@ def _mamba_layer_decode(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
     if dsc.shared_attn:
         a = cfg.attention
         sp = blk.tree_index(shared, unit_idx % cfg.ssm.n_shared_blocks)
-        h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
-        att, _, _ = attn_mod.decode_attention(
-            sp["attn"], h, a, c["shared_k"], c["shared_v"], pos,
-            theta=a.rope_theta, window=0, tile=tile)
-        x = x + att
-        h2 = rmsnorm(x, sp["ln_ffn"])
-        x = x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation, tile)
-    h = rmsnorm(x, p["ln"])
-    m, st = ssm_mod.mamba_decode(p["mamba"], h, cfg.ssm,
-                                 {"conv": c["conv"], "ssm": c["ssm"]},
-                                 tile)
-    c["conv"].copy_(st["conv"])
-    c["ssm"].copy_(st["ssm"])
-    return x + m
+        with stamps.span("attention"):
+            h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
+            att, _, _ = attn_mod.decode_attention(
+                sp["attn"], h, a, c["shared_k"], c["shared_v"], pos,
+                theta=a.rope_theta, window=0, tile=tile)
+            x = x + att
+        with stamps.span("ffn"):
+            h2 = rmsnorm(x, sp["ln_ffn"])
+            x = x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation, tile)
+    with stamps.span("mamba"):
+        h = rmsnorm(x, p["ln"])
+        m, st = ssm_mod.mamba_decode(p["mamba"], h, cfg.ssm,
+                                     {"conv": c["conv"], "ssm": c["ssm"]},
+                                     tile)
+        x = x + m
+    with stamps.span("cache"):
+        c["conv"].copy_(st["conv"])
+        c["ssm"].copy_(st["ssm"])
+    return x
 
 
 def _dec_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -624,16 +657,20 @@ def _dec_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     K/V row into the cache in place; cross-attention reads the cached
     cross K/V (``decode=True``: torch ops, one query)."""
     a = cfg.attention
-    h = rmsnorm(x, p["ln_self"])
-    att, _, _ = attn_mod.decode_attention(p["self"], h, a, c["k"], c["v"],
-                                          pos, theta=0.0, window=0,
-                                          tile=tile)
-    x = x + att
-    h = rmsnorm(x, p["ln_cross"])
-    x = x + attn_mod.cross_attention(p["cross"], h, c["ck"], c["cv"], a,
-                                     decode=True, tile=tile)
-    h = rmsnorm(x, p["ln_ffn"])
-    return x + ffn_mod.dense_ffn(p["ffn"], h, cfg.activation, tile)
+    with stamps.span("attention"):
+        h = rmsnorm(x, p["ln_self"])
+        att, _, _ = attn_mod.decode_attention(p["self"], h, a, c["k"],
+                                              c["v"], pos, theta=0.0,
+                                              window=0, tile=tile)
+        x = x + att
+    with stamps.span("cross_attention"):
+        h = rmsnorm(x, p["ln_cross"])
+        x = x + attn_mod.cross_attention(p["cross"], h, c["ck"], c["cv"], a,
+                                         decode=True, tile=tile)
+    with stamps.span("ffn"):
+        h = rmsnorm(x, p["ln_ffn"])
+        x = x + ffn_mod.dense_ffn(p["ffn"], h, cfg.activation, tile)
+    return x
 
 
 def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
@@ -645,6 +682,7 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
     for i, dsc in enumerate(unit):
         p = up[f"pos{i}"]
         c = cache_unit[f"pos{i}"]
+        stamps.next_layer()
         if dsc.kind == "rwkv":
             x = _rwkv_layer_decode(cfg, p, x, c, tile)
             continue
@@ -657,18 +695,20 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             continue
         if dsc.kind not in ("attn", "enc_attn"):
             raise ValueError(dsc.kind)
-        h = rmsnorm(x, p["ln_attn"])
-        att, _, _ = attn_mod.decode_attention(
-            p["attn"], h, a, c["k"], c["v"], pos, theta=dsc.theta,
-            window=dsc.window, tile=tile)
-        if cfg.use_post_norm:
-            att = rmsnorm(att, p["ln_attn_post"])
-        x = x + att
-        h = rmsnorm(x, p["ln_ffn"])
-        f, _ = _ffn(cfg, p, h, dsc.use_moe, opts, tile)
-        if cfg.use_post_norm:
-            f = rmsnorm(f, p["ln_ffn_post"])
-        x = x + f
+        with stamps.span("attention"):
+            h = rmsnorm(x, p["ln_attn"])
+            att, _, _ = attn_mod.decode_attention(
+                p["attn"], h, a, c["k"], c["v"], pos, theta=dsc.theta,
+                window=dsc.window, tile=tile)
+            if cfg.use_post_norm:
+                att = rmsnorm(att, p["ln_attn_post"])
+            x = x + att
+        with stamps.span("ffn"):
+            h = rmsnorm(x, p["ln_ffn"])
+            f, _ = _ffn(cfg, p, h, dsc.use_moe, opts, tile)
+            if cfg.use_post_norm:
+                f = rmsnorm(f, p["ln_ffn_post"])
+            x = x + f
     return x
 
 
@@ -687,10 +727,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     is what ``compat.donated_jit`` (buffer donation) buys the
     reference.  whisper's decoder position is a device gather at
     ``pos``, so a captured graph replays it at each new position."""
-    x = _embed(cfg, params, token[:, None], None, opts)
-    if cfg.family == "encdec":
-        x = x + params["dec_pos"].index_select(
-            0, attn_mod.position_index(pos, x.device))
+    with stamps.span("embed", layer=None):
+        x = _embed(cfg, params, token[:, None], None, opts)
+        if cfg.family == "encdec":
+            x = x + params["dec_pos"].index_select(
+                0, attn_mod.position_index(pos, x.device))
     x0 = x
     shared = params.get("shared")
     scan_units = (cfg.scan_layers if opts.decode_scan is None
@@ -708,6 +749,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             for i, (up, cu) in enumerate(views):
                 x = _apply_unit_decode(cfg, up, st.unit, x, x0, pos, cu,
                                        shared, i, opts)
-    x = rmsnorm(x, params["final_norm"])
-    logits = compute_logits(cfg, params, x[:, 0], opts.mm_tiles)
+    with stamps.span("head", layer=None):
+        x = rmsnorm(x, params["final_norm"])
+        logits = compute_logits(cfg, params, x[:, 0], opts.mm_tiles)
     return logits, cache

@@ -15,6 +15,10 @@ this package makes it observable:
   samples or seeded simulator sweeps.
 - ``report``       — the schema-v1 report, with a fingerprint that names
   the card.
+- ``stamps``       — spans inside the captured prefill and decode graphs,
+  stamped on the device at each module boundary of ``models/lm.py``
+  and laid on a ``TraceRecorder`` (the port's own; the reference has no
+  counterpart).
 """
 from repro_torch.obs.chrome_trace import to_chrome_trace, write_chrome_trace
 from repro_torch.obs.jitter import JitterStats, jitter_stats, simulate_sweep
