@@ -300,8 +300,10 @@ the rest of the repository beside this file, it fails before printing
 any result.  Per-case numbers also go to ``chiprun_out/chip_smoke.json``,
 phase 11's record to ``chiprun_out/chip_smoke_multidevice.json``.
 ``python3 chip_smoke.py <name>`` runs one subset of ``SUBSETS`` and
-prints no result lines: ``3``, phases 1 and 2 and phase 3's wkv6
-backward cases only (``chiprun_out/chip_smoke_wkv_bwd.json``); ``fwd``,
+prints no result lines: ``mm``, phases 1 and 2 and phase 3's
+spm_matmul cases only (``chiprun_out/chip_smoke_matmul.json``); ``3``,
+phases 1 and 2 and phase 3's wkv6 backward cases only
+(``chiprun_out/chip_smoke_wkv_bwd.json``); ``fwd``,
 phases 1 and 2 and the flash forward's cases, phase 3's and phase
 9(a)'s train forward with and without lse and o_lo
 (``chiprun_out/chip_smoke_flash_fwd.json``); ``9a``, phases 1 and 2
@@ -478,6 +480,20 @@ def matmul_cases():
                           {}, True))
     cases.append(("rwkv logits (lm_head^T)", B, rd, rV, True, bf, f32, {},
                   True))
+    # the benchmark's decode batches (portbench/workloads): rwkv6-1.6b's
+    # seven products at 8 rows (the N = 8 form of split-K), pixtral-12b's
+    # five at 16
+    for what, k, n in (("r/k/v/g/o, cm r", rd, rd), ("cm k", rd, rff),
+                       ("cm v", rff, rd), ("mix_w1", rd, 160),
+                       ("mix_w2 (x5)", 32, rd), ("wd_w1", rd, 64),
+                       ("wd_w2", 64, rd)):
+        cases.append((f"rwkv decode B8 {what}", 8, k, n, False, bf, None, {},
+                      True))
+    for what, k, n in (("q proj", 5120, 4096), ("k/v proj", 5120, 1024),
+                       ("o proj", 4096, 5120), ("gate/up", 5120, 14_336),
+                       ("down", 14_336, 5120)):
+        cases.append((f"pixtral decode B16 {what}", 16, k, n, False, bf, None,
+                      {}, True))
     gd, gq, gkv, gff, gV, GP = 3840, 4096, 2048, 15_360, 262_144, 4 * 2048
     for phase, m in (("decode", B), ("prefill", GP)):
         for what, k, n in (("q proj", gd, gq), ("k/v proj", gd, gkv),
@@ -3839,6 +3855,9 @@ def subset_multidevice(dev):
 # record goes to ``chiprun_out/<file>``; no result lines.
 #   name: (what it runs, build, run, file)
 SUBSETS = {
+    "mm": ("phase 3's spm_matmul cases", True,
+           lambda dev: run_matmul(dev, seeded(dev, 0)),
+           "chip_smoke_matmul.json"),
     "3": ("phase 3's wkv6 backward cases", True,
           lambda dev: run_wkv_bwd(dev, seeded(dev, 0)),
           "chip_smoke_wkv_bwd.json"),

@@ -51,10 +51,11 @@ H100 = GPUChip()
 # csrc/spm_matmul.cu's shared-memory layouts (the kernels' constants;
 # tests/test_torch_kernels.py reads them back from the source)
 SMEM_PAD = 8            # tiled path: row padding, in elements
-SPLITK_WARPS = 8        # split-K decode path: warps of a block
+SPLITK_BK = 64          # split-K decode path: K depth of a stage (128
+#                         bf16 bytes)
 WGMMA_BK = 64           # wgmma path: K depth of a stage (128 bf16 bytes)
 WGMMA_PART_PAD = 8      # wgmma path: fp32 epilogue tile row padding
-WGMMA_ALIGN = 1024      # wgmma path: swizzle-atom alignment slack
+WGMMA_ALIGN = 1024      # wgmma and split-K: swizzle-atom alignment slack
 MBARRIER_BYTES = 8
 PATHS = ("tiled", "splitk", "wgmma")
 
@@ -109,8 +110,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def splitk_rows(m: int) -> int:
-    """Rows the split-K decode kernel is compiled for: 4, 8 or 16."""
-    return 4 if m <= 4 else 8 if m <= 8 else 16
+    """A's rows in the split-K decode kernel's box, wgmma's N: 8 or 16."""
+    return 8 if m <= 8 else 16
 
 
 def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
@@ -127,11 +128,6 @@ def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
     ``bkc`` is ``bk`` (the whole K when ``bk == 0``) rounded up to the
     16-deep MMA step.
 
-    ``splitk``: ``bk`` is the block's K slice; the block keeps that
-    slice of A in fp32 ([bk, rows], rows = ``splitk_rows(m)``), one
-    fp32 [rows, bn] partial per warp and the block's own [rows, bn]
-    partial, which the cluster reads.
-
     ``wgmma``: ``stages`` ring stages of an A box [bm, bk] and a B box
     [bk, bn] in ``elem_bytes``, a full and an empty mbarrier per stage,
     and 1 KB of slack to align the 128-byte swizzle atoms; the
@@ -139,22 +135,24 @@ def smem_plan(m: int, k: int, n: int, bm: int, bn: int, bk: int = 0,
     the block's partial, which the cluster reads) reuses the drained
     stages.
 
-    ``m`` and ``n`` enter only through ``rows``: edges are masked, not
-    padded in memory."""
-    del n
+    ``splitk``: the same ring, of a B box [bk, bn] and an A box of
+    ``bm`` rows (``splitk_rows(m)``, zero-filled past M) a stage; the
+    block's fp32 [bm, bn] partial, which the cluster reads, reuses the
+    drained stages.  K does not enter: the ring streams any slice.
+
+    ``m`` and ``n`` do not enter (split-K's rows come as ``bm``): edges
+    are masked or zero-filled, not padded in memory."""
+    del m, n
     if path == "tiled":
         bkc = _round_up(k if bk <= 0 else min(bk, k), 16)
         a = bm * (bkc + SMEM_PAD)
         b = bn * (bkc + SMEM_PAD) if trans_b else bkc * (bn + SMEM_PAD)
         need = stages * (a + b) * elem_bytes
-    elif path == "splitk":
-        bkc = bk
-        rows = splitk_rows(m)
-        need = 4 * (bk * rows + (SPLITK_WARPS + 1) * rows * bn)
-    elif path == "wgmma":
+    elif path in ("splitk", "wgmma"):
         bkc = bk
         ring = stages * (bm + bn) * bk * elem_bytes
-        tile = bm * (bn + WGMMA_PART_PAD) * 4
+        pad = WGMMA_PART_PAD if path == "wgmma" else 0
+        tile = bm * (bn + pad) * 4
         need = WGMMA_ALIGN + max(ring, tile) + 2 * stages * MBARRIER_BYTES
     else:
         raise ValueError(f"path {path!r} not in {PATHS}")

@@ -12,12 +12,11 @@
 //
 //   * `splitk_decode_kernel` (bf16, M <= 16, B as [K, N], rows 16-byte
 //     aligned): decode.  Bytes bound it (each weight read once per step;
-//     qwen2-0.5b's 0.99 GB take >= 0.29 ms at 3.35 TB/s), and a grid of
-//     one block per 64-column tile leaves most SMs idle at these widths.
-//     A cluster of up to 8 blocks splits K instead, streams the weights
-//     with 16-byte loads, many in flight, and reduces the fp32 partials
-//     through distributed shared memory in rank order.  Notes at the
-//     kernel.
+//     qwen2-0.5b's 0.99 GB take >= 0.29 ms at 3.35 TB/s).  The weights,
+//     streamed by a TMA-fed mbarrier ring, are wgmma's 64-row operand and
+//     the tokens its N (8 or 16); a cluster of up to 8 blocks splits K so
+//     that the grid fills the SMs, and reduces the fp32 partials through
+//     distributed shared memory in rank order.  Notes at the kernel.
 //   * `wgmma_gemm_kernel` (bf16, M >= 64, rows 16-byte aligned): prefill.
 //     Tensor-core operations bound the wide products; a TMA-fed 4-stage
 //     mbarrier ring feeds two consumer warpgroups running wgmma on a
@@ -333,36 +332,51 @@ cudaError_t launch_typed(const void* a, const void* b, void* c, int m, int n,
 
 // ============================================== decode: cluster split-K
 //
-// M <= 16, bf16, B as [K, N].  Bytes bound it: each weight is read once.
+// M <= 16, bf16, B as [K, N].  Bytes bound it: each weight is read once
+// per step (pixtral-12b's 22 GB of weights take >= 6.5 ms a step at 3.35
+// TB/s), and at this M the products are a sliver of the tensor cores'
+// rate.  The operands are swapped so that the weights fill wgmma's
+// 64-row operand: a block computes C^T[64 columns, NT] = B^T[64, K
+// slice] * A^T[K slice, NT] as wgmma m64nNTk16, NT = 8 for M <= 8 and 16
+// for M <= 16, A's rows past M zeros in shared memory and never stored.
+// B's tile is read MN-major, as the [K, N] weight lies (64 columns x 64 K
+// rows a stage, no transposed copy); A's [NT, 64] box K-major.  Both come
+// by TMA in the 128-byte swizzle the descriptors name, zero-filled past
+// K, N and M.  One producer warp keeps a ring of kSkStages stages in
+// flight, each guarded by a `full` mbarrier (the bytes landed) and an
+// `empty` one (the consumer is done with it), while one consumer
+// warpgroup runs wgmma on the stages that have landed: the loads never
+// wait on the arithmetic.  Blocks are small (160 threads, ~62 KB), so
+// several share an SM.
+//
 // A cluster of `splits` blocks (cluster dims (splits, 1, 1)) owns one
-// 64-column output tile; block `rank` streams K rows [rank*ks, ...) of
-// that tile with 16-byte loads, 16 (MR <= 4) or 8 of them in flight per
-// thread, 64 KB or 32 KB per block.  The first loads are issued before
-// A's slice is staged in shared memory (fp32), so the two latencies
-// overlap; a slice of at most 64 rows reads A straight from L2 and skips
-// the staging and its barrier (the LoRA products' K of 32 and 64).  Each
-// block sums its partial over its warps in order; after a cluster
-// barrier each block sums a share of the tile over the cluster's
-// partials in rank order through distributed shared memory and stores
-// it once: one launch, no atomics, the same bits from the same inputs.
-// One split is launched without a cluster and stores directly.
+// 64-column tile; block `rank` sums K steps [rank * kb_per, ...), whole
+// 64-deep steps (the wrapper picks the fewest splits, at most 8, that
+// give each of the 132 SMs a block).  Each block parks its fp32 partial
+// in its drained ring; after a cluster barrier each block sums a share of
+// the tile over the cluster's partials in rank order through distributed
+// shared memory and stores it once: one launch, no atomics, the same bits
+// from the same inputs.  One split is launched without a cluster and
+// stores its own partial.
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSkThreads = 256;
-constexpr int kSkWarps = kSkThreads / 32;
-constexpr int kSkBN = 64;                        // a cluster's columns
-constexpr int kSkGroups = kSkBN / 8;             // 16-byte column groups
-constexpr int kSkRows = kSkThreads / kSkGroups;  // K rows one pass reads
+constexpr int kSkBN = 64;        // a cluster's columns: wgmma's 64 rows
+constexpr int kSkBK = 64;        // K rows of a stage: 128 bytes of bf16
+constexpr int kSkStages = 6;     // TMA ring depth
+constexpr int kSkThreads = 160;  // a consumer warpgroup, a producer warp
+constexpr int kSkWBytes = kSkBN * kSkBK * 2;  // B's tile of a stage, 8 KB
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& w, float (&f)[8]) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
+// a stage: B's tile, then A's [NT][kSkBK] box (1024-byte aligned both)
+template <int NT>
+constexpr int kSkStageBytes = kSkWBytes + NT * kSkBK * 2;
+// 1 KB of alignment slack, the stages, a full and an empty barrier each
+template <int NT>
+constexpr size_t kSkSmem =
+    1024 + static_cast<size_t>(kSkStages) * kSkStageBytes<NT> +
+    16 * kSkStages;
+static_assert(16 * kSkBN * 4 <= kSkStages * kSkWBytes,
+              "the block's fp32 partial reuses the stages");
 
 template <typename T>
 __device__ __forceinline__ void store_one(void* C, int out_f32, long long idx,
@@ -374,172 +388,166 @@ __device__ __forceinline__ void store_one(void* C, int out_f32, long long idx,
   }
 }
 
-// Rows base, base + kSkRows, ... (H of them) of the thread's 16-byte
-// column group of B, zeros past the slice or past N.  Issued together,
-// before any of them is used.
-template <int H>
-__device__ __forceinline__ void splitk_load(uint4 (&w)[H], const bf16* bp,
-                                            long long ldb, int base, int nk,
-                                            bool col_ok) {
-#pragma unroll
-  for (int u = 0; u < H; ++u) {
-    const int kk = base + u * kSkRows;
-    w[u] = (col_ok && kk < nk)
-               ? __ldg(reinterpret_cast<const uint4*>(bp + kk * ldb))
-               : make_uint4(0u, 0u, 0u, 0u);
-  }
+// d (64 x NT, fp32) += A (64 x 16, MN-major: B's tile as it lies) * B
+// (16 x NT, K-major: A's rows), both from shared memory.  Each thread of
+// the warpgroup holds NT / 2 of d's values.
+__device__ __forceinline__ void wgmma_sk(float (&d)[4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// acc += A[:, rows] * w for the H rows base, base + kSkRows, ...; `a(u,
-// kk, m)` gives A's element (m, kk) of the slice, kk the u-th of those
-// rows.
-template <int MR, int H, typename AF>
-__device__ __forceinline__ void splitk_fma(float (&acc)[MR][8],
-                                           const uint4 (&w)[H], int base,
-                                           int nk, AF a) {
-#pragma unroll
-  for (int u = 0; u < H; ++u) {
-    const int kk = base + u * kSkRows;
-    if (kk < nk) {
-      float bv[8];
-      bf16x8_to_f32(w[u], bv);
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float am = a(u, kk, m);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(am, bv[j], acc[m][j]);
-      }
-    }
-  }
+__device__ __forceinline__ void wgmma_sk(float (&d)[8], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-template <int MR>
+template <int NT>
 __global__ void __launch_bounds__(kSkThreads)
-    splitk_decode_kernel(const bf16* __restrict__ A,
-                         const bf16* __restrict__ B, void* __restrict__ C,
-                         int M, int N, int K, long long lda, long long ldb,
-                         int out_f32, int ks) {
-  constexpr int U = MR <= 4 ? 16 : 8;  // 16-byte loads in flight per thread
+    splitk_decode_kernel(const __grid_constant__ CUtensorMap tmB,
+                         const __grid_constant__ CUtensorMap tmA,
+                         void* __restrict__ C, int M, int N, int K,
+                         int out_f32, int kb_per) {
+  constexpr int kStage = kSkStageBytes<NT>;
+  extern __shared__ __align__(16) unsigned char sk_smem_raw[];
+  unsigned char* smem =
+      sk_smem_raw + ((1024 - (smem_addr(sk_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kSkStages * kStage);
+  uint64_t* empty = full + kSkStages;
+
   // the cluster is (splits, 1, 1) and the grid's x extent is `splits`
   const int rank = blockIdx.x;
   const int splits = gridDim.x;
-
-  extern __shared__ __align__(16) float sk_smem[];
-  float* As = sk_smem;                      // [ks][MR]: A's slice, fp32
-  float* red = As + ks * MR;                // [kSkWarps][MR][kSkBN]
-  float* part = red + kSkWarps * MR * kSkBN;  // [MR][kSkBN]: this block's sum
-
   const int n0 = blockIdx.y * kSkBN;
-  const int k0 = rank * ks;
-  const int nk = max(0, min(K, k0 + ks) - k0);
-  const int grp = threadIdx.x % kSkGroups;
-  const int kr = threadIdx.x / kSkGroups;
-  const int n = n0 + grp * 8;
-  const bool col_ok = n < N;  // N is a multiple of 8
-  const bf16* bp = B + static_cast<long long>(k0) * ldb + n;
+  const int kb0 = rank * kb_per;
+  const int nkb = max(0, min((K + kSkBK - 1) / kSkBK, kb0 + kb_per) - kb0);
 
-  float acc[MR][8];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-
-  if (nk <= 2 * kSkRows) {
-    // two rows per thread at most: their B loads in flight while A's
-    // values come straight from global memory (L2), no staging and no
-    // barrier
-    uint4 w[2];
-    splitk_load<2>(w, bp, ldb, kr, nk, col_ok);
-    float ar[2][MR];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int kk = kr + u * kSkRows;
-#pragma unroll
-      for (int m = 0; m < MR; ++m)
-        ar[u][m] = (m < M && kk < nk)
-                       ? __bfloat162float(A[m * lda + k0 + kk])
-                       : 0.f;
+    for (int s = 0; s < kSkStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
     }
-    splitk_fma<MR, 2>(acc, w, kr, nk,
-                      [&](int u, int, int m) { return ar[u][m]; });
-  } else {
-    // the first rows of B are in flight while A's slice is staged
-    uint4 w[U];
-    splitk_load<U>(w, bp, ldb, kr, nk, col_ok);
-    for (int idx = threadIdx.x; idx < MR * nk; idx += kSkThreads) {
-      const int m = idx / nk;
-      const int k = idx - m * nk;
-      As[k * MR + m] = m < M ? __bfloat162float(A[m * lda + k0 + k]) : 0.f;
-    }
-    __syncthreads();
-    const auto a_s = [&](int, int kk, int m) { return As[kk * MR + m]; };
-    for (int base = kr; base < nk; base += kSkRows * U) {
-      if (base != kr) splitk_load<U>(w, bp, ldb, base, nk, col_ok);
-      splitk_fma<MR, U>(acc, w, base, nk, a_s);
-    }
-  }
-
-  // the block's sum: over the warp's four row groups by shuffles, then
-  // over the warps in order
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int m = 0; m < MR; ++m) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < kSkGroups) red[(warp * MR + m) * kSkBN + lane * 8 + j] = v;
-    }
+    mbar_fence_init();
   }
   __syncthreads();
-  constexpr int E = MR * kSkBN;
-  for (int e = threadIdx.x; e < E; e += kSkThreads) {
-    float v = 0.f;
+
+  float acc[NT / 2];
 #pragma unroll
-    for (int q = 0; q < kSkWarps; ++q) v += red[q * E + e];
-    if (splits == 1) {  // no cluster: the block's sum is the output
-      const int row = e / kSkBN;
-      const int col = n0 + (e - row * kSkBN);
-      if (row < M && col < N)
-        store_one<bf16>(C, out_f32, static_cast<long long>(row) * N + col, v);
-    } else {
-      part[e] = v;
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {  // the producer
+      for (int i = 0; i < nkb; ++i) {
+        const int st = i % kSkStages;
+        if (i >= kSkStages) mbar_wait(&empty[st], ((i / kSkStages) - 1) & 1);
+        unsigned char* sb = smem + st * kStage;
+        const int kc = (kb0 + i) * kSkBK;
+        mbar_arrive_expect_tx(&full[st], kStage);
+        tma_load_2d(sb, &tmB, n0, kc, &full[st]);
+        tma_load_2d(sb + kSkWBytes, &tmA, kc, 0, &full[st]);
+      }
+    }
+  } else {
+    for (int i = 0; i < nkb; ++i) {
+      const int st = i % kSkStages;
+      mbar_wait(&full[st], (i / kSkStages) & 1);
+      const uint32_t sb = smem_addr(smem + st * kStage);
+      const uint32_t sa = sb + kSkWBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSkBK / 16; ++kk) {
+        // B's tile, MN-major: the k16 step is 16 rows of 128 bytes, 8-row
+        // groups 1024 bytes apart.  A's box, K-major: the k16 step is 32
+        // bytes along the swizzled row, 8-row groups 1024 bytes apart.
+        wgmma_sk(acc, wgmma_desc_sw128(sb + kk * 2048, kSkWBytes, 1024),
+                 wgmma_desc_sw128(sa + kk * 32, 16, 1024));
+      }
+      wgmma_commit();
+      // keep this step's products in flight; the previous step's are
+      // done, so its stage goes back to the producer
+      wgmma_wait<1>();
+      if (i > 0 && threadIdx.x == 0)
+        mbar_arrive(&empty[(i - 1) % kSkStages]);
+    }
+    wgmma_wait<0>();
+  }
+
+  // The partial goes to the drained stages as [NT][kSkBN] (token-major),
+  // so the stores below run along N.
+  __syncthreads();  // every stage's products are done
+  float* part = reinterpret_cast<float*>(smem);
+  if (threadIdx.x < 128) {
+    // accumulator fragment: warp w holds rows (columns of C) 16w..16w+15;
+    // acc[4j + e] is row lane/4 (+8 for e >= 2), column (row of C)
+    // 8j + 2(lane%4) (+1 for odd e)
+    const int lane = threadIdx.x & 31;
+    const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const int t = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      float* p = part + (8 * j + t) * kSkBN + r;
+      p[0] = acc[4 * j];
+      p[kSkBN] = acc[4 * j + 1];
+      p[8] = acc[4 * j + 2];
+      p[kSkBN + 8] = acc[4 * j + 3];
     }
   }
-  if (splits == 1) return;
-
+  const int E = M * kSkBN;  // rows past M are never stored
+  if (splits == 1) {  // no cluster: the block's partial is the output
+    __syncthreads();
+    for (int e = threadIdx.x; e < E; e += kSkThreads) {
+      const int row = e / kSkBN;
+      const int col = n0 + (e - row * kSkBN);
+      if (col < N)
+        store_one<bf16>(C, out_f32, static_cast<long long>(row) * N + col,
+                        part[e]);
+    }
+    return;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every partial of the cluster is written
   const int per = (E + splits - 1) / splits;
   const int e_end = min(E, (rank + 1) * per);
   for (int e = rank * per + threadIdx.x; e < e_end; e += kSkThreads) {
     float v = 0.f;
-    for (int r = 0; r < splits; ++r) v += cluster.map_shared_rank(part, r)[e];
+    for (int q = 0; q < splits; ++q) v += cluster.map_shared_rank(part, q)[e];
     const int row = e / kSkBN;
     const int col = n0 + (e - row * kSkBN);
-    if (row < M && col < N)
+    if (col < N)
       store_one<bf16>(C, out_f32, static_cast<long long>(row) * N + col, v);
   }
   cluster.sync();  // no block leaves while another reads its partial
 }
 
-template <int MR>
-cudaError_t launch_splitk_mr(const void* a, const void* b, void* c, int m,
-                             int n, int k, long long lda, long long ldb,
-                             int out_f32, int splits, int ks,
-                             cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(ks) * MR + (kSkWarps + 1) * MR * kSkBN) *
-      sizeof(float);
-  static size_t opted_in = 48 * 1024;  // once per instantiation and size
-  if (smem > opted_in) {
+template <int NT>
+cudaError_t launch_splitk_nt(const CUtensorMap& mb, const CUtensorMap& ma,
+                             void* c, int m, int n, int k, int out_f32,
+                             int splits, int kb_per, cudaStream_t stream) {
+  constexpr size_t smem = kSkSmem<NT>;
+  static bool opted_in = false;  // once per instantiation
+  if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        splitk_decode_kernel<MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        splitk_decode_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    opted_in = smem;
+    opted_in = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (n + kSkBN - 1) / kSkBN, 1);
@@ -553,10 +561,8 @@ cudaError_t launch_splitk_mr(const void* a, const void* b, void* c, int m,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, splitk_decode_kernel<MR>,
-                            static_cast<const bf16*>(a),
-                            static_cast<const bf16*>(b), c, m, n, k, lda, ldb,
-                            out_f32, ks);
+  return cudaLaunchKernelEx(&cfg, splitk_decode_kernel<NT>, mb, ma, c, m, n,
+                            k, out_f32, kb_per);
 }
 
 // =================================================== prefill: TMA + wgmma
@@ -899,26 +905,29 @@ extern "C" int spm_matmul_launch(const void* a, const void* b, void* c, int m,
 
 // Decode path: M <= 16, bf16 A and B, B as [K, N] with N a multiple of 8,
 // every row 16-byte aligned.  `splits` blocks (1..8, one cluster) per
-// 64-column tile, each over `ks` rows of K (a multiple of 16; the last
-// may be shorter).  out_f32: 1 = fp32 C, 0 = bf16 C.
+// 64-column tile, each over `ks` rows of K (a multiple of 64; the last
+// may be shorter).  out_f32: 1 = fp32 C, 0 = bf16 C.  Returns
+// cudaErrorInvalidValue when a tensor map cannot be made.
 extern "C" int spm_matmul_splitk_launch(const void* a, const void* b, void* c,
                                         int m, int n, int k, long long lda,
                                         long long ldb, int out_f32, int splits,
                                         int ks, void* stream) {
-  if (m < 1 || m > 16 || splits < 1 || splits > 8 || ks <= 0 || ks % 16)
+  if (m < 1 || m > 16 || splits < 1 || splits > 8 || ks <= 0 || ks % kSkBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = m <= 8 ? 8 : 16;  // A's rows as wgmma's N
+  // one row of A has no stride to speak of (a view's may read 0)
+  const long long ra = m > 1 ? lda : (k + 7) / 8 * 8;
+  CUtensorMap mb, ma;
+  const uint64_t es = sizeof(bf16);
+  if (!tensor_map(&mb, b, n, k, ldb * es, kSkBN, kSkBK) ||
+      !tensor_map(&ma, a, k, m, ra * es, kSkBK, nt))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (m <= 4) {
-    err = launch_splitk_mr<4>(a, b, c, m, n, k, lda, ldb, out_f32, splits, ks,
-                              s);
-  } else if (m <= 8) {
-    err = launch_splitk_mr<8>(a, b, c, m, n, k, lda, ldb, out_f32, splits, ks,
-                              s);
-  } else {
-    err = launch_splitk_mr<16>(a, b, c, m, n, k, lda, ldb, out_f32, splits,
-                               ks, s);
-  }
+  cudaError_t err =
+      nt == 8 ? launch_splitk_nt<8>(mb, ma, c, m, n, k, out_f32, splits,
+                                    ks / kSkBK, s)
+              : launch_splitk_nt<16>(mb, ma, c, m, n, k, out_f32, splits,
+                                     ks / kSkBK, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

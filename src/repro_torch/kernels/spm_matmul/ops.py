@@ -10,9 +10,12 @@ its path's count in ``matmul.paths``.
 On CUDA, ``select_path`` picks one of three kernels before the launch:
 
 * ``splitk``: bf16 operands whose rows start on 16-byte boundaries,
-  M <= 16 (decode) and B given as [K, N] with N a multiple of 8.  One
-  cluster of ``splits`` blocks (1 to 8, the portable cluster limit) per
-  64-column tile, each block over one K slice (``splitk_plan``).
+  M <= 16 (decode) and B given as [K, N] with N a multiple of 8.  TMA
+  and wgmma with the weights as the 64-row operand and the tokens as N
+  (8 or 16); one cluster of ``splits`` blocks (1 to 8, the portable
+  cluster limit) per 64-column tile, each block over one K slice of
+  whole 64-deep steps, as few splits as give every SM a block
+  (``splitk_plan``).
 * ``wgmma``: bf16, 16-byte aligned rows, M >= 64 (prefill), either B
   layout.  TMA and wgmma on 128 x 128 x 64 tiles; problems with fewer
   tiles than half the SMs split K over a cluster in 64-deep steps
@@ -34,7 +37,8 @@ either, ``bk`` is halved from 512 down to 128, the reference's
 
 ``splitk`` and ``wgmma`` run fixed tiles (``PATH_TILES``): 16 x 64
 with a K slice the wrapper picks from the shape (the split count is
-not a plan parameter), and 128 x 128 x 64.  A call whose plan pins
+not a plan parameter; its ring streams the slice 64 rows a stage), and
+128 x 128 x 64.  A call whose plan pins
 another ``bm``, ``bn`` or ``bk`` runs on ``tiled``, which honours it.
 So the serving plan's decode pins (16 x 64) name the ``splitk`` tile,
 and a plan that pins any other tile times the kernel that runs it.
@@ -65,8 +69,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.gpu_mapping import (H100, PATHS, WGMMA_BK,
-                                          smem_plan, splitk_rows)
+from repro_torch.core.gpu_mapping import (H100, PATHS, SPLITK_BK,
+                                          WGMMA_BK, smem_plan, splitk_rows)
 from repro_torch.kernels import _build
 from repro_torch.kernels.spm_matmul.ref import matmul_ref
 
@@ -77,9 +81,9 @@ TILES = ((16, 64), (32, 64), (32, 128), (64, 64), (64, 128), (128, 128))
 DEFAULT_BK = 64
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 MAX_SPLITS = 8            # the portable thread-block cluster size
-SPLITK_MAX_M = 16         # decode path: rows of A (the MMA tile's rows)
+SPLITK_MAX_M = 16         # decode path: rows of A (wgmma's largest N here)
 SPLITK_BN = 64            # decode path: output columns of one cluster
-SPLITK_MIN_ROWS = 64      # decode path: the shortest K slice worth a split
+SPLITK_STAGES = 6         # decode path: TMA ring depth
 WGMMA_MIN_M = 64          # wgmma path: one warpgroup's 64 rows
 WGMMA_TILE = (128, 128)   # wgmma path: output tile
 WGMMA_STAGES = 4          # wgmma path: TMA ring depth
@@ -172,22 +176,23 @@ def k_slices(k: int, splits: int, step: int) -> tuple:
 
 @functools.lru_cache(maxsize=1024)
 def splitk_plan(m: int, k: int, n: int) -> Optional[dict]:
-    """The decode path's split: enough splits (at most ``MAX_SPLITS``)
-    that column tiles x splits covers the SMs, but no slice shorter than
-    ``SPLITK_MIN_ROWS`` (below that the cluster's reduction costs more
-    than the rows it spreads), K cut into slices of a multiple of 16
-    rows; more splits while a block's shared memory would not fit.
-    None when even ``MAX_SPLITS`` does not fit.  Blocks are small (256
-    threads, tens of KB), so several share an SM."""
+    """The decode path's split: the fewest splits that give every SM a
+    block (column tiles x splits >= the SMs), at most ``MAX_SPLITS`` and
+    at most one a ``SPLITK_BK``-deep step, K cut into slices of whole
+    steps (``ks`` rows).  Fewer splits would leave SMs without bytes in
+    flight; more give each block less to stream for the same ramp-up
+    and reduction, and on the card take longer (PERF.md §6).  None
+    when the ring of ``SPLITK_STAGES`` does not fit shared memory.
+    Blocks are small (160 threads, ~62 KB), so several share an SM and
+    the grid runs as one wave."""
+    if not smem_plan(m, k, n, splitk_rows(m), SPLITK_BN, SPLITK_BK,
+                     stages=SPLITK_STAGES, path="splitk")["fits"]:
+        return None
     tiles = math.ceil(n / SPLITK_BN)
-    want = max(1, min(MAX_SPLITS, math.ceil(H100.num_sms / tiles),
-                      k // SPLITK_MIN_ROWS))
-    for s in range(want, MAX_SPLITS + 1):
-        ks, splits = k_slices(k, s, 16)
-        if smem_plan(m, k, n, splitk_rows(m), SPLITK_BN, ks,
-                     path="splitk")["fits"]:
-            return {"splits": splits, "ks": ks}
-    return None
+    steps = math.ceil(k / SPLITK_BK)
+    want = max(1, min(MAX_SPLITS, steps, math.ceil(H100.num_sms / tiles)))
+    per, splits = k_slices(steps, want, 1)
+    return {"splits": splits, "ks": per * SPLITK_BK}
 
 
 @functools.lru_cache(maxsize=1024)
@@ -208,9 +213,9 @@ def dispatch(m: int, k: int, n: int, dtype: torch.dtype, trans_b: bool,
              bn: Optional[int] = None, bk: Optional[int] = None) -> dict:
     """``{"path", "splits", ...}``: the kernel a CUDA call launches and
     its split, decided before the launch.  A call goes to ``tiled`` when
-    its plan pins a tile other than the path's (``PATH_TILES``), when
-    no split-K slice fits shared memory, or when the ``wgmma`` ring of
-    ``WGMMA_STAGES`` does not."""
+    its plan pins a tile other than the path's (``PATH_TILES``), or when
+    the ring of its path (``SPLITK_STAGES``, ``WGMMA_STAGES``) does not
+    fit shared memory."""
     path = select_path(m, n, dtype, trans_b, aligned)
     if path != "tiled" and any(
             pin is not None and pin != tile
@@ -245,7 +250,8 @@ def launch_of(m: int, k: int, n: int, dtype: torch.dtype, trans_b: bool,
               bn: Optional[int] = None, bk: Optional[int] = None) -> dict:
     """``dispatch`` for exactly these pins, with ``tile``: what the
     launched kernel runs, ``bm``, ``bn`` and ``bkc`` (the K extent a
-    block stages per step: the K slice on ``splitk``) and, on ``tiled``,
+    block stages per step; on ``splitk`` the K slice a block sums, which
+    its ring streams ``SPLITK_BK`` rows a stage) and, on ``tiled``,
     ``resolve_plan``'s whole plan (``bk``, ``stages``).  Do not mutate
     ``tile``."""
     launch = dispatch(m, k, n, dtype, trans_b, aligned, bm, bn, bk)

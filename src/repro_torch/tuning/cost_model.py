@@ -36,9 +36,10 @@ from typing import Dict, Tuple
 
 from repro_torch.analysis.roofline import kernel_bound_s
 from repro_torch.compat import torch_dtype
-from repro_torch.core.gpu_mapping import (H100, WKV_TC_ROWS, GPUChip,
-                                          flash_smem_plan, smem_plan,
-                                          splitk_rows, wkv_smem_plan)
+from repro_torch.core.gpu_mapping import (H100, SPLITK_BK, WKV_TC_ROWS,
+                                          GPUChip, flash_smem_plan,
+                                          smem_plan, splitk_rows,
+                                          wkv_smem_plan)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.spm_matmul import ops as mm_ops
 from repro_torch.tuning.candidates import (defaults_for, matmul_launch,
@@ -96,7 +97,8 @@ def smem_need(kernel: str, problem: Problem, plan: Plan) -> int:
         tile, e = launch["tile"], _elem_bytes(p.dtype)
         if launch["path"] == "splitk":
             fit = smem_plan(p.m, p.k, p.n, splitk_rows(p.m), tile["bn"],
-                            tile["bkc"], path="splitk")
+                            SPLITK_BK, e, stages=mm_ops.SPLITK_STAGES,
+                            path="splitk")
         elif launch["path"] == "wgmma":
             fit = smem_plan(p.m, p.k, p.n, tile["bm"], tile["bn"],
                             tile["bkc"], e, stages=mm_ops.WGMMA_STAGES,

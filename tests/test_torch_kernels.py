@@ -403,20 +403,33 @@ DECODE_SHAPES = [(4, 896, 896), (4, 896, 128), (4, 896, 4864),
                  (4, 7168, 2048), (4, 2048, 160), (4, 32, 2048),
                  (4, 2048, 64), (4, 64, 2048)]
 PREFILL_SHAPES = [(1024, k, n) for _, k, n in DECODE_SHAPES]
+# the benchmark's decode products: pixtral-12b's five at its batch of 16,
+# rwkv6-1.6b's seven at its batch of 8
+BENCH_DECODE_SHAPES = [(16, 5120, 4096), (16, 5120, 1024), (16, 4096, 5120),
+                       (16, 5120, 14336), (16, 14336, 5120)] + [
+    (8, k, n) for _, k, n in DECODE_SHAPES[4:]]
 
 
 @pytest.mark.parametrize("m,k,n", DECODE_SHAPES + [(1, 896, 896),
-                                                   (16, 896, 896)])
+                                                   (16, 896, 896)]
+                         + BENCH_DECODE_SHAPES)
 def test_splitk_count_covers_the_sms(m, k, n):
-    """At most the portable cluster of 8; column tiles x splits covers
-    the 132 SMs unless 8 splits, or slices of the shortest length worth
-    a split, run out first."""
+    """At most the portable cluster of 8, slices of whole 64-deep steps
+    that cover K once; column tiles x splits covers the 132 SMs, with
+    the fewest splits that do, unless it stops at the most splits
+    allowed (8, or one a step); the ring fits shared memory, whatever
+    K."""
     plan = mm_ops.splitk_plan(m, k, n)
-    s, tiles = plan["splits"], -(-n // mm_ops.SPLITK_BN)
-    assert 1 <= s <= mm_ops.MAX_SPLITS
-    assert tiles * s >= H100.num_sms or s == mm_ops.MAX_SPLITS \
-        or (s + 1) * mm_ops.SPLITK_MIN_ROWS > k
-    assert s == 1 or plan["ks"] >= mm_ops.SPLITK_MIN_ROWS
+    s, ks = plan["splits"], plan["ks"]
+    tiles, steps = -(-n // mm_ops.SPLITK_BN), -(-k // gpu_mapping.SPLITK_BK)
+    assert 1 <= s <= mm_ops.MAX_SPLITS and ks % gpu_mapping.SPLITK_BK == 0
+    assert (s - 1) * ks < k <= s * ks
+    most = mm_ops.k_slices(steps, min(mm_ops.MAX_SPLITS, steps), 1)[1]
+    assert tiles * s >= H100.num_sms or s == most
+    assert s == 1 or tiles * (s - 1) < H100.num_sms
+    assert smem_plan(m, k, n, gpu_mapping.splitk_rows(m), mm_ops.SPLITK_BN,
+                     gpu_mapping.SPLITK_BK, stages=mm_ops.SPLITK_STAGES,
+                     path="splitk")["fits"]
 
 
 @pytest.mark.parametrize("k", [16, 32, 64, 100, 896, 2048, 4864, 7168,
@@ -505,14 +518,26 @@ def test_route_reads_alignment_from_the_operands():
         == "tiled"
 
 
-def test_splitk_without_a_fitting_slice_goes_tiled():
-    """A K too deep for even 8 slices of A in shared memory."""
-    assert mm_ops.splitk_plan(16, 1 << 18, 64) is None
-    assert mm_ops.dispatch(16, 1 << 18, 64, torch.bfloat16, False,
-                           True)["path"] == "tiled"
+def test_splitk_without_a_fitting_slice_goes_tiled(monkeypatch):
+    """The ring streams any K: a deep one splits 8 ways on split-K.  A
+    ring deeper than shared memory holds (the stage count the card
+    would refuse) sends the product to the tiled kernel."""
+    args = (16, 1 << 18, 64)
+    mm_ops.splitk_plan.cache_clear()
+    try:
+        assert mm_ops.splitk_plan(*args) == {"splits": 8, "ks": 1 << 15}
+        assert mm_ops.dispatch(*args, torch.bfloat16, False,
+                               True)["path"] == "splitk"
+        mm_ops.splitk_plan.cache_clear()
+        monkeypatch.setattr(mm_ops, "SPLITK_STAGES", 32)
+        assert mm_ops.splitk_plan(*args) is None
+        assert mm_ops.dispatch(*args, torch.bfloat16, False,
+                               True)["path"] == "tiled"
+    finally:
+        mm_ops.splitk_plan.cache_clear()
 
 
-@pytest.mark.parametrize("m,k,n", DECODE_SHAPES)
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES + BENCH_DECODE_SHAPES)
 def test_serving_plan_pins_name_the_splitk_tile(m, k, n):
     """The decode pins the serving plan takes from ``resolve_plan``
     (the tile its WCET bound counts) are the split-K path's tile, so
@@ -574,10 +599,15 @@ def test_smem_plan_rejects_stages_that_do_not_fit():
     # the epilogue's fp32 tile (the split-K partial) reuses the stages,
     # unless there are too few of them
     assert ring(2)["smem_need"] == 1024 + 128 * 136 * 4 + 2 * 16
-    # split-K decode: A's slice in fp32, the warps' and the block's sums
-    sk = smem_plan(4, 2048, 2048, 4, 64, 416, path="splitk")
-    assert sk["smem_need"] == 4 * (416 * 4 + 9 * 4 * 64) and sk["fits"]
-    assert not smem_plan(16, 8192, 64, 16, 64, 8192, path="splitk")["fits"]
+    # split-K decode: the same ring of a 64 x 64 B box and an A box of 8
+    # or 16 rows a stage; the block's fp32 partial reuses the stages
+    def sk(rows, stages):
+        return smem_plan(4, 2048, 2048, rows, 64, 64, 2, stages=stages,
+                         path="splitk")
+    assert sk(8, 6)["smem_need"] == 1024 + 6 * (8192 + 1024) + 6 * 16
+    assert sk(16, 6)["smem_need"] == 1024 + 6 * (8192 + 2048) + 6 * 16
+    assert sk(16, 6)["fits"] and not sk(16, 23)["fits"]
+    assert sk(16, 1)["smem_need"] == 1024 + 10240 + 16   # the partial fits
     with pytest.raises(ValueError):
         smem_plan(4, 64, 64, 16, 64, 64, path="wgmma-typo")
 
@@ -596,7 +626,8 @@ def test_shared_memory_rule_reads_the_kernels_constants():
     assert _cu_constant("kWgBK") == gpu_mapping.WGMMA_BK
     assert _cu_constant("kWgStages") == mm_ops.WGMMA_STAGES
     assert _cu_constant("kSkBN") == mm_ops.SPLITK_BN
-    assert _cu_constant("kSkThreads") // 32 == gpu_mapping.SPLITK_WARPS
+    assert _cu_constant("kSkBK") == gpu_mapping.SPLITK_BK
+    assert _cu_constant("kSkStages") == mm_ops.SPLITK_STAGES
     assert _cu_constant("kPad") == gpu_mapping.SMEM_PAD
     text = (_build.CSRC / "spm_matmul.cu").read_text()
     assert f"kWgPartLd = kWgBN + {gpu_mapping.WGMMA_PART_PAD};" in text

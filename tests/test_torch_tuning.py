@@ -493,7 +493,12 @@ def test_launch_plan_without_an_entry_is_the_untuned_launch(caches, shape):
 
 
 def test_main_path_products_cover_the_served_models():
-    assert len(MAIN_PRODUCTS) == 97
+    assert len(MAIN_PRODUCTS) == 109
+    # the benchmark's decode batches (portbench/workloads), logits aside
+    for arch, B in (("pixtral-12b", 16), ("rwkv6-1.6b", 8)):
+        for m, k, n, tb, _ in port_model.decode_products(get_config(arch),
+                                                         B):
+            assert tb or (m, k, n, tb) in MAIN_PRODUCTS
     for arch, B, P in (("qwen2-0.5b", 4, 256), ("rwkv6-1.6b", 4, 256),
                        ("gemma3-12b", 4, 2048), ("zamba2-7b", 4, 512),
                        ("whisper-base", 4, 1536), ("pixtral-12b", 4, 1024),
@@ -701,7 +706,9 @@ def test_cost_model_prices_each_path_by_its_loads():
     # A re-read per 64-column tile on both; B once (one row block)
     a, b, c = 4 * 896 * 2, 896 * 4864 * 2, 4 * 4864 * 2
     assert splitk["bytes"] == tiled["bytes"] == 76 * a + b + c
-    assert splitk["grid_steps"] == 2 * tiled["grid_steps"] == 152
+    assert tiled["grid_steps"] == 76
+    assert splitk["grid_steps"] \
+        == 76 * mm_ops.splitk_plan(4, 896, 4864)["splits"]
     prefill = MatmulProblem(1024, 896, 4864, "bfloat16")
     wg = tuning.cost_summary("spm_matmul", prefill,
                              {"bm": 128, "bn": 128, "bk": 64})
