@@ -75,7 +75,10 @@ Phases, one result line each; any failure exits non-zero:
             and depth (qwen2-0.5b and rwkv6-1.6b: 24 layers, prompt 256;
             gemma3-12b: 48 layers, prompt 2048, twice its local window;
             zamba2-7b: 81 Mamba2 layers and 13 tied-block applications,
-            prompt 512, two SSD chunks of 256; whisper-base: 6 encoder
+            prompt 512, two SSD chunks of 256; zamba2-7b-instruct, the
+            published form: the same depth, the tied blocks at head dim
+            224 with each hybrid layer's adapter and linear, prompt
+            1024, the benchmark cell's; whisper-base: 6 encoder
             and 6 decoder layers, prompt 1536 and frames as long, the
             config's cross K/V length; pixtral-12b: 40 layers, prompt
             1024, the stub's patch positions, no patches fed; bf16,
@@ -92,7 +95,9 @@ Phases, one result line each; any failure exits non-zero:
             kernel once per layer (spm_matmul once per product), one
             decode replay the step's spm_matmul products (zamba2: 241
             spm_matmul and 13 flash_attention, at head dim 112, a prefill
-            replay; 241 spm_matmul a decode replay; whisper-base: 97
+            replay; 241 spm_matmul a decode replay; zamba2-7b-instruct:
+            280 spm_matmul and 13 flash_attention, at head dim 224, a
+            prefill replay, 280 spm_matmul a decode replay; whisper-base: 97
             spm_matmul and 18 flash_attention, encoder, decoder self and
             cross, a prefill replay, 49 spm_matmul a decode replay;
             pixtral-12b: 281 and 40, and 281).  The wrappers
@@ -111,14 +116,14 @@ Phases, one result line each; any failure exits non-zero:
             padded vocabulary, the logits past 51,865 of the prefill
             replay and of a decode replay all -1e30, no argmax there.
 6. trace    each served model's decode graph, and gemma3-12b's and
-            zamba2-7b's prefill graphs, replayed under
+            both zamba2s' prefill graphs, replayed under
             ``torch.profiler``: the replay's time (CUDA events), the
             device's busy share, and its kernels' device time by family.
 7. predictability  the jitter statistics (median, p99, spread, CoV,
             WCET margin) of each serve's 32 decode steps and of its
             prefill graph's replays timed by CUDA events (10 for qwen2,
-            rwkv6 and whisper, 3 for gemma3, zamba2 and pixtral), as a
-            schema-v1 report
+            rwkv6 and whisper, 3 for gemma3, both zamba2s and pixtral),
+            as a schema-v1 report
             (``repro_torch.obs.make_report``) that
             ``repro_torch.obs.validate_report`` must accept, written to
             ``chiprun_out/chip_smoke_report.json``; and qwen2's
@@ -311,7 +316,10 @@ and phase 9(a)'s flash backward cases
 (``chiprun_out/chip_smoke_flash_bwd.json``); ``9``, phases 1, 2 and 9
 (``chiprun_out/chip_smoke_train.json``); ``10``, phases 1 and 10
 (``chiprun_out/chip_smoke_dryrun.json``); ``11``, phases 1, 2 and 11
-(``chiprun_out/chip_smoke_multidevice.json``).
+(``chiprun_out/chip_smoke_multidevice.json``); ``zamba2-7b-instruct``,
+phases 1 and 2, phase 3's spm_matmul and flash cases at that model's
+shapes, and phases 5 and 6 of its serve
+(``chiprun_out/chip_smoke_zamba2-7b-instruct.json``).
 """
 import functools
 import gc
@@ -457,7 +465,8 @@ def matmul_cases():
     (prefill M = 4 x 2048; the tied logits read the 262,144 x 3840
     table, 2.01 GB, in place), of zamba2-7b (prefill M = 4 x 512;
     in_proj's N = 14,576 leaves 48 columns past the split-K tiles and
-    112 past the wgmma tiles), of whisper-base (K = 512 at M = 6144 on
+    112 past the wgmma tiles), of zamba2-7b-instruct (the benchmark's
+    batch of 32 and phase 5's of 4), of whisper-base (K = 512 at M = 6144 on
     wgmma: 8 K steps a tile) and of pixtral-12b (d 5120)."""
     from repro_torch.kernels import CONFORMANCE_SHAPES
     bf, f32 = torch.bfloat16, torch.float32
@@ -513,6 +522,25 @@ def matmul_cases():
                           {}, True))
     cases.append(("zamba2 logits (lm_head^T)", B, zd, zV, True, bf, f32, {},
                   True))
+    # zamba2-7b-instruct at the benchmark's batch (decode M = 32, on the
+    # tiled kernel; prefill M = 32 x 1024) and at phase 5's (M = 4,
+    # 4 x 1024): in_proj N = 2 x 7168 + 2 x 2 x 64 + 112 = 14,704, the
+    # tied blocks' q/k/v from concat(x, x0), o (out_proj's shape), one
+    # gate/up product and down, each hybrid layer's rank-128 adapter and
+    # its linear; the logits against the tied embedding table
+    for phase, m in (("decode B32", 32), ("prefill B32", 32 * 1024),
+                     ("decode", B), ("prefill", B * 1024)):
+        for what, k, n in (("in_proj", zd, 14_704),
+                           ("out_proj, tied o", zi, zd),
+                           ("tied q/k/v", zi, zi),
+                           ("tied gate/up", zd, 2 * zff),
+                           ("tied down", zff, zd), ("adapter A", zd, 128),
+                           ("adapter B", 128, 2 * zff), ("linear", zd, zd)):
+            cases.append((f"zamba2-7b-instruct {phase} {what}", m, k, n,
+                          False, bf, None, {}, True))
+        if phase.startswith("decode"):
+            cases.append((f"zamba2-7b-instruct {phase} logits (embed^T)", m,
+                          zd, zV, True, bf, f32, {}, True))
     # whisper-base: prefill M = 4 x 1536 (frames as long as the prompt);
     # q/k/v/o of the encoder, decoder self and cross blocks are all
     # 512 x 512; the logits read the padded 51,968-row table
@@ -592,6 +620,8 @@ def flash_cases():
               1024, bf, True),
              ("zamba2 shared-attention prefill", 4, 512, 512, 32, 32, 112,
               True, 0, bf, True),
+             ("zamba2-7b-instruct tied-block prefill", 32, 1024, 1024, 32,
+              32, 224, True, 0, bf, True),
              ("whisper encoder and cross prefill", 4, 1536, 1536, 8, 8, 64,
               False, 0, bf, True),
              ("whisper decoder self prefill", 4, 1536, 1536, 8, 8, 64,
@@ -613,6 +643,11 @@ def flash_cases():
               False),
              ("fp32 D=112", 1, 256, 256, 4, 4, 112, True, 0, f32, False),
              ("unaligned bf16 D=112", 1, 128, 128, 4, 4, 112, True, 0, bf,
+              False),
+             ("ragged S=100 D=224", 2, 100, 100, 8, 8, 224, True, 0, bf,
+              False),
+             ("fp32 D=224", 1, 256, 256, 4, 4, 224, True, 0, f32, False),
+             ("unaligned bf16 D=224", 1, 128, 128, 4, 4, 224, True, 0, bf,
               False),
              ("ragged S=100 D=256 window 24", 2, 100, 100, 4, 2, 256, True,
               24, bf, False),
@@ -666,11 +701,14 @@ def mask_of(Sq, Sk, causal, window, dev):
     return ok
 
 
-def run_matmul(dev, gen):
+def run_matmul(dev, gen, only=""):
+    """Phase 3's spm_matmul cases (those whose label starts with
+    ``only``)."""
     from repro_torch.kernels.spm_matmul import ops
     from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
     rows = []
-    for label, m, k, n, tb, dt, out, plan, main in matmul_cases():
+    for label, m, k, n, tb, dt, out, plan, main in [
+            c for c in matmul_cases() if c[0].startswith(only)]:
         a = torch.randn(m, k + (label == "unaligned bf16"), generator=gen,
                         device=dev).to(dt)[:, -k:]
         bshape = (n, k) if tb else (k, n)
@@ -768,11 +806,14 @@ def library_matmul_ms(sets, trans_b, out):
     return time_ms(lambda x, y: torch.mm(x, y.t(), out_dtype=out), sets)
 
 
-def run_flash(dev, gen):
+def run_flash(dev, gen, only=""):
+    """Phase 3's flash_attention cases (those whose label starts with
+    ``only``)."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.tolerance import ATOL_FRAC, RTOL, check
     rows = []
-    for label, B, Sq, Sk, H, KV, D, causal, w, dt, main in flash_cases():
+    for label, B, Sq, Sk, H, KV, D, causal, w, dt, main in [
+            c for c in flash_cases() if c[0].startswith(only)]:
         # "unaligned": each head's row one element off the 16-byte grid
         off = int(label.startswith("unaligned"))
         q, k, v = (torch.randn(B, s, n, D + off, generator=gen,
@@ -1734,6 +1775,15 @@ SERVES = {
                   "per_prefill": {"spm_matmul": 81 * 2 + 13 * 6 + 1,
                                   "flash_attention": 13},
                   "mm_per_step": 81 * 2 + 13 * 6 + 1},
+    # the published form, at the benchmark cell's prompt of 1024 (four
+    # SSD chunks of 256): 81 mamba layers of 2 products, 13 tied-block
+    # applications of 9 (q, k, v, o, gate/up, the adapter's two, down,
+    # the layer's linear) and one flash launch each at head dim 224
+    "zamba2-7b-instruct": {"prompt": 1024, "vocab": 32_000,
+                           "kernels": ("spm_matmul", "flash_attention"),
+                           "per_prefill": {"spm_matmul": 81 * 2 + 13 * 9 + 1,
+                                           "flash_attention": 13},
+                           "mm_per_step": 81 * 2 + 13 * 9 + 1},
     # prompt 1536: the config's cross_kv_len; frames as long as the
     # prompt.  Prefill: 6 encoder layers of 6 products, 6 decoder layers
     # of 10 (self q/k/v/o, cross q/k/v/o, FFN up/down), one flash launch
@@ -1762,7 +1812,8 @@ G = 32
 # prefill graph replays timed per served arch (3 for phase 11's), greedy
 # tokens compared between the graphs and eager calls
 PREFILL_REPLAYS = {"qwen2-0.5b": 10, "rwkv6-1.6b": 10, "gemma3-12b": 3,
-                   "zamba2-7b": 3, "whisper-base": 10, "pixtral-12b": 3}
+                   "zamba2-7b": 3, "zamba2-7b-instruct": 3,
+                   "whisper-base": 10, "pixtral-12b": 3}
 PARITY_TOKENS = 8
 
 
@@ -1932,7 +1983,7 @@ def phase_capture(dev, arch, timing=True, phase=5, traces=None,
     graphs against eager calls, then (``timing``) the prefill graph's
     replays timed by CUDA events, and the traces of phase 6 (``traces``:
     which graphs, by default the decode graph and, for gemma3-12b and
-    zamba2-7b, the prefill graph; ``probe(cfg, params)``, if given,
+    both zamba2s, the prefill graph; ``probe(cfg, params)``, if given,
     returns the trace's families and what it read)."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1994,7 +2045,7 @@ def phase_capture(dev, arch, timing=True, phase=5, traces=None,
     tok = graph_toks[:, -1].to(dev)
     if traces is None:
         traces = ("decode", "prefill") if arch in (
-            "gemma3-12b", "zamba2-7b") else ("decode",)
+            "gemma3-12b", "zamba2-7b", "zamba2-7b-instruct") else ("decode",)
     trace_phase = 6 if phase == 5 else phase
     out = {"prefill_replay_ms": replay_ms, "probe": probed}
     if "decode" in traces:
@@ -3844,6 +3895,24 @@ def subset_flash_forward(dev):
     return rows
 
 
+def subset_zamba2_instruct(dev):
+    """zamba2-7b-instruct alone: phase 3's spm_matmul and flash cases of
+    its shapes, then phase 5's serve of it and its capture (with phase
+    6's traces)."""
+    arch = "zamba2-7b-instruct"
+    rows = run_matmul(dev, seeded(dev, 0), arch)
+    rows += run_flash(dev, seeded(dev, 0), arch)
+    launches, res = phase_serve(arch)
+    release()
+    capture = phase_capture(dev, arch)
+    release()
+    return {"cases": rows, "launches": launches,
+            "serve": {k: res[k] for k in (
+                "prefill_s", "decode_s", "jitter", "plan", "paths",
+                "prefill_launches", "replayed_launches", "peak_gib")},
+            "capture": capture}
+
+
 def subset_multidevice(dev):
     multi, _, _ = phase_multidevice(dev)
     multi["dryrun"] = phase_dryrun(EP_DRYRUNS, 11, "dryrun_moe_ep")
@@ -3872,7 +3941,11 @@ SUBSETS = {
     "10": ("the dry run", False, lambda dev: phase_dryrun(),
            "chip_smoke_dryrun.json"),
     "11": ("the multi-device layer and the wide serves", True,
-           subset_multidevice, "chip_smoke_multidevice.json")}
+           subset_multidevice, "chip_smoke_multidevice.json"),
+    "zamba2-7b-instruct": ("phase 3's cases at zamba2-7b-instruct's "
+                           "shapes, phase 5's serve and capture of it",
+                           True, subset_zamba2_instruct,
+                           "chip_smoke_zamba2-7b-instruct.json")}
 
 
 def main():

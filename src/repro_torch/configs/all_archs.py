@@ -3,7 +3,8 @@
 from repro_torch.configs import (deepseek_67b, gemma3_12b,
                                   llama4_maverick_400b, pixtral_12b,
                                   qwen2_0_5b, qwen2_72b, qwen3_moe_235b,
-                                  rwkv6_1_6b, whisper_base, zamba2_7b)
+                                  rwkv6_1_6b, whisper_base, zamba2_7b,
+                                  zamba2_7b_instruct)
 
 ALL_ARCH_IDS = (
     "gemma3-12b",
@@ -16,4 +17,9 @@ ALL_ARCH_IDS = (
     "llama4-maverick-400b-a17b",
     "qwen3-moe-235b-a22b",
     "rwkv6-1.6b",
+)
+
+# registered for the port alone: the JAX package has no such arch
+PORT_ONLY_ARCH_IDS = (
+    "zamba2-7b-instruct",
 )

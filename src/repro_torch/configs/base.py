@@ -106,6 +106,25 @@ class SSMConfig:
     # zamba2: a weight-tied attention block applied every N ssm layers
     shared_attn_every: int = 0
     n_shared_blocks: int = 2  # alternating tied blocks (zamba2 uses 2)
+    # groups of heads that share one B and one C (Mamba2's ngroups); the
+    # gated norm then normalizes each group's d_inner / n_groups channels
+    n_groups: int = 1
+    # None: the port's variant (a tied block before every
+    # ``shared_attn_every``-th layer from 0, residual adds inside it).
+    # A tuple: the published Zamba2 form, the layers that first run a
+    # tied block (by hybrid ordinal, cycling the blocks), whose output
+    # feeds the layer's Mamba input: x + Mamba(norm(x + linear_i(T)))
+    hybrid_layer_ids: Optional[Tuple[int, ...]] = None
+    # the published form's per-layer LoRA on the tied block's gate/up
+    # product (rank; 0 = none)
+    adapter_rank: int = 0
+
+    @property
+    def published(self) -> bool:
+        """The published Zamba2 form (``hybrid_layer_ids`` given): its
+        stage layout, tied-block equation, MLP weights and each hybrid
+        layer's adapter and linear."""
+        return self.hybrid_layer_ids is not None
 
 
 @dataclass(frozen=True)
@@ -152,7 +171,7 @@ class ModelConfig:
     rwkv: Optional[RWKVConfig] = None
     encdec: Optional[EncDecConfig] = None
     frontend: FrontendStub = field(default_factory=FrontendStub)
-    activation: str = "swiglu"  # swiglu | geglu | gelu
+    activation: str = "swiglu"  # swiglu | geglu | geglu_exact | gelu
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     scale_embeddings: bool = False  # gemma: embeddings * sqrt(d_model)
@@ -302,7 +321,10 @@ def reduce_config(cfg: ModelConfig, *, layers: int, d_model: int,
             expert_ff=64, group_size=32,
             shared_expert_ff=64 if cfg.moe.shared_expert_ff else 0)
     if cfg.ssm:
-        kw["ssm"] = dataclasses.replace(cfg.ssm, chunk_size=32)
+        ids = cfg.ssm.hybrid_layer_ids
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, chunk_size=32, hybrid_layer_ids=None if ids is None
+            else tuple(i for i in ids if i < layers))
         kw["attention"] = dataclasses.replace(
             cfg.attention, num_heads=4, num_kv_heads=4, head_dim=64)
     if cfg.rwkv:

@@ -74,7 +74,10 @@ WKV_BWD_TC_PAD = 8      # tensor-core path: row padding, in elements
 # csrc/flash_attention.cu's layouts (the kernels' constants; tests read
 # them back)
 FLASH_THREADS = 128     # fma: threads of a block; tensor_core: of a warpgroup
-FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)   # the compiled head dims
+FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)   # the backward's compiled dims
+# the forward's: 224 serves zamba2-7b-instruct's tied blocks, which
+# take no gradient (serving only)
+FLASH_FWD_HEAD_DIMS = (32, 64, 112, 128, 224, 256)
 FLASH_PATHS = ("tensor_core", "fma")
 FLASH_FMA_BQ = 64       # fma: queries of a block
 FLASH_FMA_BK = 64       # fma: keys of a K/V tile
@@ -272,7 +275,10 @@ def flash_tc_registers(D: int, lo: bool) -> dict:
     series; a warpgroup overlaps where its tiles fit that way
     (``overlap``).  ``live`` is the schedule's count.  The rule holds at
     any head dim (the CPU models run it at small ones); the kernel is
-    compiled at ``FLASH_HEAD_DIMS``."""
+    compiled at ``FLASH_FWD_HEAD_DIMS``.  At 224 (padded to 256) it is
+    256's schedule: O of all 224 would take 128 registers padded (112
+    unpadded) beside the scores' 32, over the budget, so the warpgroups
+    split the head dim."""
     n = 2 if lo else 1
 
     def live(dp, overlap):
@@ -313,9 +319,10 @@ def flash_smem_plan(D: int, path: str, chip: GPUChip = H100,
     a stage and one for Q; one block an SM (its launch bounds'
     registers).  ``fma``: fp32 Q, K and
     V with rows padded by one [rows, D + 1], and p [FLASH_FMA_BQ,
-    FLASH_FMA_BK + 1] (``launch_d``)."""
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {FLASH_HEAD_DIMS}")
+    FLASH_FMA_BK + 1] (``launch_d``).  Compiled at
+    ``FLASH_FWD_HEAD_DIMS``."""
+    if D not in FLASH_FWD_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {FLASH_FWD_HEAD_DIMS}")
     if path == "tensor_core":
         tile = -(-D // FLASH_TC_CHUNK) * FLASH_TC_WG_ROWS * FLASH_TC_CHUNK * 2
         rows = flash_tc_registers(D, lo)["rows"]

@@ -25,7 +25,7 @@
 //     through a 4-D map (head dim, head, sequence, batch) built in the C
 //     entry: GQA (head h reads KV head h / (H / KV)) and q, k and v's
 //     strides go into the map, which reads them in place; its zero fill
-//     pads head dims 32 -> 64 and 112 -> 128 and the rows past Sq or
+//     pads head dims 32 -> 64, 112 -> 128 and 224 -> 256 and the rows past Sq or
 //     Sk.  A zero-filled key scores 0, not -1e30, so keys >= Sk are
 //     masked like any other.
 //   * S = Q K^T is an SS wgmma with fp32 accumulators, and the online
@@ -49,9 +49,10 @@
 //     spilled, 112 did not).  Serving's kernel up to head dim 128
 //     overlaps: each tile's S is issued beside the last tile's P V and
 //     its softmax runs under that product (80 and 112 registers).  At
-//     256 its warpgroups split the head dim, each holding 128 of O for
-//     the block's 64 query rows and each computing S (112, overlapped;
-//     one warpgroup holding all of O needs 160 even in series).  The o_lo
+//     224 and 256 its warpgroups split the head dim, each holding 128 of
+//     O for the block's 64 query rows and each computing S (112,
+//     overlapped; one warpgroup holding all of O needs 160 even in
+//     series, 144 at 224 unpadded).  The o_lo
 //     kernel runs S, the softmax and P V in series (96 registers), its
 //     warpgroups split from head dim 112 up (160 unsplit).  ptxas
 //     serialises every wgmma of a kernel whose in-flight operands do not
@@ -72,8 +73,9 @@
 // the tile's keys, the pair reduces the row max and sum with one
 // shuffle, and each keeps half of the row's output dims.
 //
-// Head dims 32, 64, 112, 128 and 256 are compiled, one instantiation
-// each.  Both paths:
+// Head dims 32, 64, 112, 128, 224 (zamba2-7b-instruct's tied blocks)
+// and 256 are compiled, one instantiation each; the backward
+// (csrc/flash_attention_bwd.cu) is not compiled at 224.  Both paths:
 //   * Given an `lse` pointer ([B, H, Sq] fp32), write each row's
 //     log-sum-exp of its masked, scaled scores, m + log(l), for the
 //     backward; with a null pointer they write nothing more, and o's
@@ -275,6 +277,9 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                               window, scale, s);
     case 128:
       return launch_d<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
+                              window, scale, s);
+    case 224:
+      return launch_d<T, 224>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                               window, scale, s);
     case 256:
       return launch_d<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
@@ -941,6 +946,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
       break;
     case 128:
       err = launch_tc<128>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
+                           strides, causal, window, scale, s);
+      break;
+    case 224:
+      err = launch_tc<224>(q, k, v, o, lse, o_lo, B, Sq, Sk, H, KV,
                            strides, causal, window, scale, s);
       break;
     case 256:

@@ -52,6 +52,9 @@ host clock around work that ends in ``torch.cuda.synchronize()``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
       --full --batch 4 --prompt-len 1024 --gen 32         # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch zamba2-7b-instruct --full --batch 4 --prompt-len 512 \\
+      --gen 32                                            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-235b-a22b --dtype float32          # reduced MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
@@ -271,6 +274,10 @@ def compile_step_fns(cfg, params, batch: dict, opts: RunOptions,
     with torch.cuda.stream(side), _stamping(stamper, pre, "plan"):
         lm_mod.prefill(cfg, params, static, opts)
     torch.cuda.current_stream(dev).wait_stream(side)
+    # the eager run's memory back to the card: the graph's pool cannot
+    # take the allocator's cached blocks (zamba2-7b-instruct's prefill
+    # at 32 x 1024 needs most of the card twice over otherwise)
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
     with torch.cuda.graph(graph), _stamping(stamper, pre, "capture"):

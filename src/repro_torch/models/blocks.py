@@ -13,6 +13,9 @@ layers), RWKV, hybrid and encoder-decoder:
 
   zamba2 : stage0: 13 units x [shared_attn+mamba, mamba x5],
            stage1: 1 unit   x [mamba x3]     (81 = 13*6 + 3)
+  zamba2-7b-instruct (stages from ``hybrid_layer_ids``, runs of equal
+           units): [mamba x6], [hybrid+mamba x4], 11 units x
+           [hybrid+mamba x5], [hybrid+mamba x3]  (81 = 6 + 5 + 66 + 4)
   whisper: stage0: 6 units x [dec_attn] (self, cross, FFN); the
            encoder is its own stage (``encoder_stage``): 6 units x
            [enc_attn], not causal
@@ -53,6 +56,34 @@ class LayerDescr:
 class StageDescr:
     n_units: int
     unit: Tuple[LayerDescr, ...]
+    # hybrid ordinal of the stage's first tied-block application: unit i
+    # (whose first layer runs one) applies block (first_hybrid + i) mod
+    # n_shared_blocks
+    first_hybrid: int = 0
+
+
+def _published_hybrid_stages(num_layers: int,
+                             ids: Tuple[int, ...]) -> Tuple[StageDescr, ...]:
+    """Stages of the published Zamba2 layout: each hybrid id starts a
+    segment that runs to the next id (the layers before the first are a
+    segment of Mamba layers alone); runs of equal segments are one stage
+    of that many units."""
+    ids = sorted(ids)
+    starts = ([0] if not ids or ids[0] > 0 else []) + ids
+    segs = [(i in ids, (starts + [num_layers])[k + 1] - i)
+            for k, i in enumerate(starts)]
+    stages, ordinal, k = [], 0, 0
+    while k < len(segs):
+        n = 1
+        while k + n < len(segs) and segs[k + n] == segs[k]:
+            n += 1
+        hyb, length = segs[k]
+        unit = tuple(LayerDescr("mamba", shared_attn=hyb and j == 0)
+                     for j in range(length))
+        stages.append(StageDescr(n, unit, ordinal))
+        ordinal += n if hyb else 0
+        k += n
+    return tuple(stages)
 
 
 def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
@@ -80,6 +111,9 @@ def build_stages(cfg: ModelConfig) -> Tuple[StageDescr, ...]:
         return (StageDescr(cfg.num_layers // m.moe_every, unit),)
     if cfg.family == "hybrid":
         s = cfg.ssm
+        if s.published:
+            return _published_hybrid_stages(cfg.num_layers,
+                                            s.hybrid_layer_ids)
         per = s.shared_attn_every
         n_full = cfg.num_layers // per
         tail = cfg.num_layers - n_full * per
@@ -135,10 +169,22 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
             "ffn": ffn_mod.dense_ffn_spec(d, cfg.d_ff, cfg.activation, dt),
         }
     if dsc.kind == "mamba":
-        return {
+        p = {
             "ln": rmsnorm_spec(d),
             "mamba": ssm_mod.mamba_spec(d, cfg.ssm, dt),
         }
+        if dsc.shared_attn and cfg.ssm.published:
+            # the published form's own weights of a hybrid layer: the
+            # adapter on the tied block's gate/up product, and linear_i
+            r = cfg.ssm.adapter_rank
+            if r:
+                p["adapter_a"] = Par((d, r), ("embed", None),
+                                     init="scaled", dtype=dt)
+                p["adapter_b"] = Par((r, 2 * cfg.d_ff), (None, "ffn"),
+                                     init="scaled", dtype=dt)
+            p["linear"] = Par((d, d), ("embed", None), init="scaled",
+                              dtype=dt)
+        return p
     if dsc.kind == "rwkv":
         return {
             "ln_tm": rmsnorm_spec(d),
@@ -150,8 +196,22 @@ def layer_spec(cfg: ModelConfig, dsc: LayerDescr) -> dict:
 
 
 def shared_block_spec(cfg: ModelConfig) -> dict:
-    """zamba2's weight-tied attention block operating on concat(x, x0)."""
+    """zamba2's weight-tied attention block operating on concat(x, x0).
+    The published form's MLP has one gate/up product ``w_gate_up`` [d,
+    2 d_ff] (gate first), as its adapter's output is laid out."""
     d, dt = cfg.d_model, cfg.dtype
+    if cfg.ssm.published:
+        return {
+            "ln_in": rmsnorm_spec(2 * d),
+            "attn": attn_mod.attn_spec(2 * d, cfg.attention, dt, d_out=d),
+            "ln_ffn": rmsnorm_spec(d),
+            "ffn": {
+                "w_gate_up": Par((d, 2 * cfg.d_ff), ("embed", "ffn"),
+                                 init="scaled", dtype=dt),
+                "w_down": Par((cfg.d_ff, d), ("ffn", "embed"),
+                              init="scaled", dtype=dt),
+            },
+        }
     return {
         "ln_in": rmsnorm_spec(2 * d),
         "attn": attn_mod.attn_spec(2 * d, cfg.attention, dt, d_out=d),

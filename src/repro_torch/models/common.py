@@ -41,6 +41,8 @@ def activate(h_gate: torch.Tensor, h_up: Optional[torch.Tensor],
         return F.silu(h_gate) * h_up
     if kind == "geglu":
         return F.gelu(h_gate, approximate="tanh") * h_up
+    if kind == "geglu_exact":   # zamba2's published MLP: erf GELU
+        return F.gelu(h_gate) * h_up
     if kind == "gelu":
         return F.gelu(h_gate, approximate="tanh")
     if kind == "relu_sq":
@@ -49,7 +51,7 @@ def activate(h_gate: torch.Tensor, h_up: Optional[torch.Tensor],
 
 
 def is_gated(kind: str) -> bool:
-    return kind in ("swiglu", "geglu")
+    return kind in ("swiglu", "geglu", "geglu_exact")
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,19 @@ def dense_ffn(p: dict, x: torch.Tensor, activation: str,
     return linear(h, p["w_down"], tile)
 
 
+def adapted_gated_ffn(p: dict, x: torch.Tensor, activation: str,
+                      adapter: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                      tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Zamba2's published tied MLP: [g | u] = x W_gate_up + (x A) B (the
+    hybrid layer's adapter (A, B), or none), then the down product of
+    act(g, u)."""
+    gu = linear(x, p["w_gate_up"], tile)
+    if adapter is not None:
+        gu = gu + linear(linear(x, adapter[0], tile), adapter[1], tile)
+    g, u = gu.chunk(2, dim=-1)
+    return linear(activate(g, u, activation), p["w_down"], tile)
+
+
 # ---------------------------------------------------------------------------
 # mixture of experts (capacity-factor, static shapes)
 

@@ -33,11 +33,18 @@ learned position table too; decode looks it up at ``pos`` on the
 device.
 
 A zamba2 shared block attends over concat(x, x0), x0 the embedding
-output, and selects tied block ``unit index % n_shared_blocks``; the
-unit loops carry both.  Decode updates every cache buffer in place: the
-new K/V rows (the shared blocks' included) and the recurrent states
-(RWKV's, Mamba2's conv and SSM), so a captured decode graph's next
-replay reads them.
+output, and selects tied block ``hybrid ordinal % n_shared_blocks``
+(the ordinal: the stage's ``first_hybrid`` plus the unit index); the
+unit loops carry both.  In the port's variant (``zamba2-7b``) the block
+adds its attention and FFN to x; in the published form
+(``zamba2-7b-instruct``, ``SSMConfig.hybrid_layer_ids``) its output T,
+after the layer's own adapter and ``linear``, only feeds the layer's
+Mamba input: x + Mamba(RMSNorm(x + T)); its spans are
+``shared_attention`` (concat, norm, attention), ``ffn`` (norm, MLP,
+``linear``) and ``mamba``.  The hybrid's norms take ``cfg.norm_eps``.
+Decode updates every cache buffer in place: the new K/V rows (the
+shared blocks' included) and the recurrent states (RWKV's, Mamba2's
+conv and SSM), so a captured decode graph's next replay reads them.
 
 Training: ``train_loss`` (``forward_hidden`` then the chunked
 ``lm_loss``, plus the MoE balance term) is differentiated by autograd.
@@ -358,27 +365,59 @@ def _shared_block_full(cfg: ModelConfig, sp: dict, x: torch.Tensor,
     return x, kv
 
 
+def _adapter(p: dict):
+    """A published hybrid layer's adapter (A, B), or None."""
+    return (p["adapter_a"], p["adapter_b"]) if "adapter_a" in p else None
+
+
+def _tied_block_mlp(cfg: ModelConfig, sp: dict, p: dict, att: torch.Tensor,
+                    tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The published tied block after its attention: the norm, the gated
+    MLP with the layer's adapter, the layer's ``linear``: T."""
+    with stamps.span("ffn"):
+        h = rmsnorm(att, sp["ln_ffn"], cfg.norm_eps)
+        t = ffn_mod.adapted_gated_ffn(sp["ffn"], h, cfg.activation,
+                                      _adapter(p), tile)
+        return attn_mod.linear(t, p["linear"], tile)
+
+
 def _mamba_layer_full(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
                       x: torch.Tensor, x0: torch.Tensor,
                       positions: torch.Tensor, opts: RunOptions,
-                      collect: bool, shared: Optional[dict], unit_idx: int,
+                      collect: bool, shared: Optional[dict], hybrid: int,
                       cache_len: int):
     """One hybrid layer over the whole sequence (the unit's first also
-    runs its tied shared block); with ``collect``, its decode state
-    ``{"conv", "ssm"}`` (and the shared block's ``shared_k``/``_v``)."""
+    runs tied block ``hybrid`` mod ``n_shared_blocks``, ``hybrid`` its
+    ordinal); with ``collect``, its decode state ``{"conv", "ssm"}``
+    (and the shared block's ``shared_k``/``_v``)."""
     c = {}
+    eps = cfg.norm_eps
+    published = cfg.ssm.published
+    t = None
     if dsc.shared_attn:
-        sp = blk.tree_index(shared, unit_idx % cfg.ssm.n_shared_blocks)
-        x, skv = _shared_block_full(cfg, sp, x, x0, positions, opts,
-                                    collect)
+        sp = blk.tree_index(shared, hybrid % cfg.ssm.n_shared_blocks)
+        if published:
+            a = cfg.attention
+            with stamps.span("shared_attention"):
+                h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"], eps)
+                res = attn_mod.self_attention(
+                    sp["attn"], h, a, positions, theta=a.rope_theta,
+                    window=0, chunk_q=opts.chunk_q, chunk_kv=opts.chunk_kv,
+                    return_kv=collect)
+                att, skv = res if collect else (res, None)
+        else:
+            x, skv = _shared_block_full(cfg, sp, x, x0, positions, opts,
+                                        collect)
         if collect:
             with stamps.span("cache"):
                 c["shared_k"] = _to_cache_buf(skv[0], cache_len, opts)
                 c["shared_v"] = _to_cache_buf(skv[1], cache_len, opts)
+        if published:
+            t = _tied_block_mlp(cfg, sp, p, att)
     with stamps.span("mamba"):
-        h = rmsnorm(x, p["ln"])
+        h = rmsnorm(x if t is None else x + t, p["ln"], eps)
         res = ssm_mod.mamba_forward(p["mamba"], h, cfg.ssm,
-                                    return_state=collect)
+                                    return_state=collect, eps=eps)
         m, st = res if collect else (res, None)
         if collect:
             c["conv"], c["ssm"] = st["conv"], st["ssm"]
@@ -420,7 +459,7 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                      x0: torch.Tensor, positions: torch.Tensor,
                      opts: RunOptions, collect: bool,
                      memory: Optional[torch.Tensor],
-                     shared: Optional[dict], unit_idx: int,
+                     shared: Optional[dict], hybrid: int,
                      cache_len: int):
     cache = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -433,7 +472,7 @@ def _apply_unit_full(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                 x, c = _rwkv_layer_full(cfg, p, x, collect)
             elif dsc.kind == "mamba":
                 x, c = _mamba_layer_full(cfg, p, dsc, x, x0, positions,
-                                         opts, collect, shared, unit_idx,
+                                         opts, collect, shared, hybrid,
                                          cache_len)
             else:
                 x, c = _dec_layer_full(cfg, p, x, memory, positions, opts,
@@ -493,7 +532,7 @@ def _run_stage_full(cfg: ModelConfig, sp: dict, stage: blk.StageDescr,
     remat = opts.remat and not collect and torch.is_grad_enabled()
     for i, up in enumerate(_unit_params(sp, stage.n_units)):
         args = (cfg, up, stage.unit, x, x0, positions, opts, collect,
-                memory, shared, i, cache_len)
+                memory, shared, stage.first_hybrid + i, cache_len)
         if remat:
             # the reference's jax.checkpoint of the unit body: its
             # activations are recomputed in the backward, not kept
@@ -557,7 +596,7 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict,
         aux = aux + a_i
         caches[f"stage{si}"] = c_i
     with stamps.span("head", layer=None):
-        x = rmsnorm(x, params["final_norm"])
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, (caches if collect else None)
 
 
@@ -619,30 +658,39 @@ def _rwkv_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _mamba_layer_decode(cfg: ModelConfig, p: dict, dsc: blk.LayerDescr,
                         x: torch.Tensor, x0: torch.Tensor,
                         pos: Union[int, torch.Tensor], c: dict,
-                        shared: Optional[dict], unit_idx: int,
+                        shared: Optional[dict], hybrid: int,
                         tile: Optional[Tuple[int, int]]) -> torch.Tensor:
-    """One hybrid decode step.  The shared block's new K/V row is
-    written into its cache in place (``decode_attention``); the new
-    conv and SSM states are copied into the cache's buffers (``c``,
-    views of the stacked cache), so a captured graph's next replay
-    reads them."""
+    """One hybrid decode step (tied block ``hybrid`` mod
+    ``n_shared_blocks`` first, in a unit's first layer).  The shared
+    block's new K/V row is written into its cache in place
+    (``decode_attention``); the new conv and SSM states are copied into
+    the cache's buffers (``c``, views of the stacked cache), so a
+    captured graph's next replay reads them."""
+    eps = cfg.norm_eps
+    t = None
     if dsc.shared_attn:
         a = cfg.attention
-        sp = blk.tree_index(shared, unit_idx % cfg.ssm.n_shared_blocks)
-        with stamps.span("attention"):
-            h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"])
+        sp = blk.tree_index(shared, hybrid % cfg.ssm.n_shared_blocks)
+        published = cfg.ssm.published
+        with stamps.span("shared_attention" if published else "attention"):
+            h = rmsnorm(torch.cat([x, x0], dim=-1), sp["ln_in"], eps)
             att, _, _ = attn_mod.decode_attention(
                 sp["attn"], h, a, c["shared_k"], c["shared_v"], pos,
                 theta=a.rope_theta, window=0, tile=tile)
-            x = x + att
-        with stamps.span("ffn"):
-            h2 = rmsnorm(x, sp["ln_ffn"])
-            x = x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation, tile)
+            if not published:
+                x = x + att
+        if published:
+            t = _tied_block_mlp(cfg, sp, p, att, tile)
+        else:
+            with stamps.span("ffn"):
+                h2 = rmsnorm(x, sp["ln_ffn"])
+                x = x + ffn_mod.dense_ffn(sp["ffn"], h2, cfg.activation,
+                                          tile)
     with stamps.span("mamba"):
-        h = rmsnorm(x, p["ln"])
+        h = rmsnorm(x if t is None else x + t, p["ln"], eps)
         m, st = ssm_mod.mamba_decode(p["mamba"], h, cfg.ssm,
                                      {"conv": c["conv"], "ssm": c["ssm"]},
-                                     tile)
+                                     tile, eps)
         x = x + m
     with stamps.span("cache"):
         c["conv"].copy_(st["conv"])
@@ -676,7 +724,7 @@ def _dec_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
                        x0: torch.Tensor, pos: Union[int, torch.Tensor],
                        cache_unit: dict, shared: Optional[dict],
-                       unit_idx: int, opts: RunOptions) -> torch.Tensor:
+                       hybrid: int, opts: RunOptions) -> torch.Tensor:
     tile = opts.mm_tiles
     a = cfg.attention
     for i, dsc in enumerate(unit):
@@ -688,7 +736,7 @@ def _apply_unit_decode(cfg: ModelConfig, up: dict, unit, x: torch.Tensor,
             continue
         if dsc.kind == "mamba":
             x = _mamba_layer_decode(cfg, p, dsc, x, x0, pos, c, shared,
-                                    unit_idx, tile)
+                                    hybrid, tile)
             continue
         if dsc.kind == "dec_attn":
             x = _dec_layer_decode(cfg, p, x, pos, c, tile)
@@ -742,14 +790,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             for i in range(st.n_units):
                 x = _apply_unit_decode(cfg, blk.tree_index(sp, i), st.unit,
                                        x, x0, pos, blk.tree_index(sc, i),
-                                       shared, i, opts)
+                                       shared, st.first_hybrid + i, opts)
         else:
             views = [(blk.tree_index(sp, i), blk.tree_index(sc, i))
                      for i in range(st.n_units)]
             for i, (up, cu) in enumerate(views):
                 x = _apply_unit_decode(cfg, up, st.unit, x, x0, pos, cu,
-                                       shared, i, opts)
+                                       shared, st.first_hybrid + i, opts)
     with stamps.span("head", layer=None):
-        x = rmsnorm(x, params["final_norm"])
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = compute_logits(cfg, params, x[:, 0], opts.mm_tiles)
     return logits, cache

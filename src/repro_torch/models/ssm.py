@@ -1,5 +1,6 @@
 """Mamba2 (SSD — state-space duality) blocks of the port, used by
-zamba2-7b.  Port of the reference's ``models/ssm.py``.
+zamba2-7b and zamba2-7b-instruct.  Port of the reference's
+``models/ssm.py``.
 
 The recurrence  h_t = exp(a_t) h_{t-1} + dt_t * B_t x_t^T,
                 y_t = C_t · h_t + D * x_t
@@ -27,6 +28,12 @@ What differs from the reference:
   step had no finite gradient.
 * ``mamba_decode`` returns the new states; the model's decode step
   copies them into its cache buffers.
+
+Beyond the reference: B and C in ``SSMConfig.n_groups`` groups, each
+shared by ``nheads / n_groups`` consecutive heads, and the gated norm
+over each group's ``d_inner / n_groups`` channels (Zamba2-7B-Instruct's
+two groups).  One group is the reference's arithmetic, op for op:
+``ssd_chunked`` runs a grouped call one group after another.
 """
 from __future__ import annotations
 
@@ -44,15 +51,16 @@ Tile = Optional[Tuple[int, int]]
 
 
 def ssm_dims(d_model: int, s: SSMConfig):
+    """(d_inner, heads, conv channels: x and the groups' B and C)."""
     d_inner = s.expand * d_model
     nheads = d_inner // s.head_dim
-    conv_dim = d_inner + 2 * s.state_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.state_dim
     return d_inner, nheads, conv_dim
 
 
 def mamba_spec(d_model: int, s: SSMConfig, dtype: str) -> dict:
     d_inner, nheads, conv_dim = ssm_dims(d_model, s)
-    d_in_proj = 2 * d_inner + 2 * s.state_dim + nheads
+    d_in_proj = d_inner + conv_dim + nheads      # z, x B C, dt
     return {
         "in_proj": Par((d_model, d_in_proj), ("embed", "ffn"), init="scaled",
                        dtype=dtype),
@@ -85,16 +93,43 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                 # [B, S+K-1, C]
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K)) + b
-    new_state = xp[:, -(K - 1):] if K > 1 else pad
+    # a copy: a view would keep all of xp alive with the state (at a
+    # 32 x 1024 prefill, 0.49 GB a layer held in the cache)
+    new_state = xp[:, -(K - 1):].clone() if K > 1 else pad
     return y, new_state
 
 
-def _split_proj(zxbcdt: torch.Tensor, d_inner: int, state: int,
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, conv_dim: int,
                 nheads: int):
     z = zxbcdt[..., :d_inner]
-    xBC = zxbcdt[..., d_inner:d_inner + d_inner + 2 * state]
+    xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
     dt = zxbcdt[..., -nheads:]
     return z, xBC, dt
+
+
+def _split_xbc(xBC: torch.Tensor, d_inner: int, s: SSMConfig):
+    """x [..., d_inner] and B, C: [..., N] for one group (the
+    reference's layout), [..., G, N] for more."""
+    G, N = s.n_groups, s.state_dim
+    xin = xBC[..., :d_inner]
+    Bm = xBC[..., d_inner:d_inner + G * N]
+    Cm = xBC[..., d_inner + G * N:]
+    if G > 1:
+        Bm = Bm.unflatten(-1, (G, N))
+        Cm = Cm.unflatten(-1, (G, N))
+    return xin, Bm, Cm
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                s: SSMConfig, eps: float) -> torch.Tensor:
+    """RMSNorm of y * silu(z), over each group's channels."""
+    g = y * F.silu(z)
+    if s.n_groups == 1:
+        return rmsnorm(g, w, eps)
+    gs = g.shape[-1] // s.n_groups
+    out = F.rms_norm(g.float().unflatten(-1, (s.n_groups, gs)), (gs,),
+                     None, eps) * w.float().view(s.n_groups, gs)
+    return out.flatten(-2).to(g.dtype)
 
 
 def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
@@ -105,9 +140,12 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
 
     x:  [B,S,H,P]  (already multiplied by dt)
     a:  [B,S,H]    log-decay per step (<= 0)
-    Bm: [B,S,N], Cm: [B,S,N]
+    Bm: [B,S,N], Cm: [B,S,N]; or [B,S,G,N] each, for G groups of H / G
+        consecutive heads (run one group after another)
     Returns (y [B,S,H,P], final_state [B,H,N,P]).
     """
+    if Bm.dim() == 4:
+        return _ssd_grouped(x, a, Bm, Cm, chunk, init_state)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     assert S % chunk == 0, (S, chunk)
@@ -156,19 +194,35 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     return y, state.to(x.dtype)
 
 
+def _ssd_grouped(x, a, Bm, Cm, chunk, init_state):
+    """``ssd_chunked`` over G groups, one group's H / G heads at a time
+    (so the chunks' [L, L] decay terms of one group are live at once)."""
+    G = Bm.shape[2]
+    Hg = x.shape[2] // G
+    ys, finals = [], []
+    for g in range(G):
+        hs = slice(g * Hg, (g + 1) * Hg)
+        y, final = ssd_chunked(
+            x[:, :, hs], a[:, :, hs], Bm[:, :, g], Cm[:, :, g], chunk,
+            None if init_state is None else init_state[:, hs])
+        ys.append(y)
+        finals.append(final)
+    return torch.cat(ys, dim=2), torch.cat(finals, dim=1)
+
+
 def mamba_forward(p: dict, x: torch.Tensor, s: SSMConfig,
-                  state: Optional[dict] = None, return_state: bool = False):
-    """Full-sequence Mamba2 block.  x: [B,S,d]."""
+                  state: Optional[dict] = None, return_state: bool = False,
+                  eps: float = 1e-6):
+    """Full-sequence Mamba2 block.  x: [B,S,d]; ``eps``: the gated
+    norm's."""
     d_model = x.shape[-1]
     d_inner, nheads, conv_dim = ssm_dims(d_model, s)
     zxbcdt = linear(x, p["in_proj"])
-    z, xBC, dt = _split_proj(zxbcdt, d_inner, s.state_dim, nheads)
+    z, xBC, dt = _split_proj(zxbcdt, d_inner, conv_dim, nheads)
     conv_state = None if state is None else state["conv"]
     xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
     xBC = F.silu(xBC)
-    xin = xBC[..., :d_inner]
-    Bm = xBC[..., d_inner:d_inner + s.state_dim]
-    Cm = xBC[..., d_inner + s.state_dim:]
+    xin, Bm, Cm = _split_xbc(xBC, d_inner, s)
 
     dt = _softplus(dt.float() + p["dt_bias"])                    # [B,S,H]
     a = -torch.exp(p["A_log"]) * dt                              # <= 0
@@ -181,7 +235,7 @@ def mamba_forward(p: dict, x: torch.Tensor, s: SSMConfig,
     y, final = ssd_chunked(xdt, a, Bm, Cm, chunk, init_ssm)
     y = y + xh * p["D"][:, None].to(xh.dtype)
     y = y.reshape(*x.shape[:-1], d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"])
+    y = _gated_norm(y, z, p["norm"], s, eps)
     out = linear(y, p["out_proj"])
     if return_state:
         return out, {"conv": new_conv, "ssm": final}
@@ -189,20 +243,18 @@ def mamba_forward(p: dict, x: torch.Tensor, s: SSMConfig,
 
 
 def mamba_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict,
-                 tile: Tile = None):
+                 tile: Tile = None, eps: float = 1e-6):
     """Single-token decode.  x: [B,1,d]; state {conv [B,K-1,C],
     ssm [B,H,N,P]}.  Returns (y [B,1,d], the new state); ``state`` is
-    not written."""
+    not written.  ``eps``: the gated norm's."""
     d_model = x.shape[-1]
-    d_inner, nheads, _ = ssm_dims(d_model, s)
+    d_inner, nheads, conv_dim = ssm_dims(d_model, s)
     zxbcdt = linear(x, p["in_proj"], tile)
-    z, xBC, dt = _split_proj(zxbcdt, d_inner, s.state_dim, nheads)
+    z, xBC, dt = _split_proj(zxbcdt, d_inner, conv_dim, nheads)
     xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
                                  state["conv"])
     xBC = F.silu(xBC)
-    xin = xBC[..., :d_inner]
-    Bm = xBC[..., d_inner:d_inner + s.state_dim]          # [B,1,N]
-    Cm = xBC[..., d_inner + s.state_dim:]
+    xin, Bm, Cm = _split_xbc(xBC, d_inner, s)       # B, C: [B,1,(G,)N]
 
     dt = _softplus(dt.float() + p["dt_bias"])                    # [B,1,H]
     a = torch.exp(-torch.exp(p["A_log"]) * dt)                   # [B,1,H]
@@ -210,12 +262,22 @@ def mamba_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict,
     xdt = xh * dt[:, 0, :, None].to(xh.dtype)
 
     S0 = state["ssm"].float()                                    # [B,H,N,P]
-    upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(), xdt.float())
-    S1 = S0 * a[:, 0, :, None, None] + upd
-    y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), S1)
+    if s.n_groups == 1:
+        upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(), xdt.float())
+        S1 = S0 * a[:, 0, :, None, None] + upd
+        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), S1)
+    else:                       # heads as [G, H / G]: one B and C a group
+        G = s.n_groups
+        hs = (x.shape[0], G, nheads // G)
+        upd = torch.einsum("bgn,bghp->bghnp", Bm[:, 0].float(),
+                           xdt.float().reshape(*hs, s.head_dim))
+        S1 = S0.reshape(*hs, *S0.shape[2:]) \
+            * a[:, 0].reshape(*hs)[..., None, None] + upd
+        y = torch.einsum("bgn,bghnp->bghp", Cm[:, 0].float(), S1)
+        S1, y = S1.flatten(1, 2), y.flatten(1, 2)
     y = y.to(xh.dtype) + xh * p["D"][:, None].to(xh.dtype)
     y = y.reshape(x.shape[0], 1, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"])
+    y = _gated_norm(y, z, p["norm"], s, eps)
     out = linear(y, p["out_proj"], tile)
     return out, {"conv": new_conv, "ssm": S1.to(state["ssm"].dtype)}
 

@@ -144,7 +144,9 @@ def decode_products(cfg, batch: int) -> List[Tuple[int, int, int, bool, int]]:
     layer's projections and dense FFN (an MoE layer's shared expert; its
     routed experts are einsums), an RWKV layer's sixteen, a Mamba2
     layer's ``in_proj`` and ``out_proj`` (and, first in a zamba2 unit,
-    its shared block's projections from concat(x, x0) and dense FFN), a
+    its shared block's projections from concat(x, x0) and dense FFN; in
+    the published form its gate/up and down products, the layer's
+    adapter and ``linear``), a
     whisper decoder layer's self q/k/v/o, cross q and o (its cross k/v
     are projected once, at prefill) and dense FFN, and the logits
     against the [V, d] table."""
@@ -178,10 +180,20 @@ def decode_products(cfg, batch: int) -> List[Tuple[int, int, int, bool, int]]:
                 continue
             if dsc.kind == "mamba":
                 s = cfg.ssm
-                d_inner, nheads, _ = ssm_dims(d, s)
-                if dsc.shared_attn:
+                d_inner, nheads, conv_dim = ssm_dims(d, s)
+                if dsc.shared_attn and s.published:
+                    # the published block: one gate/up product, the
+                    # layer's adapter and linear
+                    attn_ffn(2 * d, st.n_units, 0)
+                    add(d, 2 * cfg.d_ff, st.n_units)
+                    add(cfg.d_ff, d, st.n_units)
+                    if s.adapter_rank:
+                        add(d, s.adapter_rank, st.n_units)
+                        add(s.adapter_rank, 2 * cfg.d_ff, st.n_units)
+                    add(d, d, st.n_units)
+                elif dsc.shared_attn:
                     attn_ffn(2 * d, st.n_units, cfg.d_ff)
-                add(d, 2 * d_inner + 2 * s.state_dim + nheads, st.n_units)
+                add(d, d_inner + conv_dim + nheads, st.n_units)
                 add(d_inner, d, st.n_units)
                 continue
             if dsc.kind == "dec_attn":

@@ -687,7 +687,7 @@ def test_flash_shared_memory_rule_reads_the_kernels_constants():
     assert c("kLoMaxD") == gpu_mapping.FLASH_FWD_LO_MAX_D
     assert c("kSmemBytes") == gpu_mapping.H100.smem_bytes
     text = (_build.CSRC / "flash_attention.cu").read_text()
-    for d in gpu_mapping.FLASH_HEAD_DIMS:
+    for d in gpu_mapping.FLASH_FWD_HEAD_DIMS:
         assert f"launch_tc<{d}>(" in text and f"launch_d<T, {d}>(" in text
     tc = gpu_mapping.flash_smem_plan(256, "tensor_core")
     fma = gpu_mapping.flash_smem_plan(256, "fma")
@@ -707,10 +707,11 @@ FLASH_TC_SCHEDULES = {32: ((False, True), (False, False)),
                       64: ((False, True), (False, False)),
                       112: ((False, True), (True, False)),
                       128: ((False, True), (True, False)),
+                      224: ((True, True), None),
                       256: ((True, True), None)}
 
 
-@pytest.mark.parametrize("D", gpu_mapping.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("D", gpu_mapping.FLASH_FWD_HEAD_DIMS)
 @pytest.mark.parametrize("lo", [False, True])
 def test_flash_tc_plan_and_registers_at_each_head_dim(D, lo):
     """At every compiled head dim, with and without o_lo: a warpgroup's

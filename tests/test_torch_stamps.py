@@ -2,7 +2,8 @@
 CPU, reduced models through ``compile_step_fns(..., spans=rec)`` give
 per replay one span per module boundary, ordered, tiling the replay and
 inside its host span, with the same logits and tokens as without spans;
-the stamper's passes, its clock conversion and ``serve``'s ``--seed``.
+the stamper's passes, its clock conversion and ``serve``'s ``--seed``;
+the published hybrid's (zamba2-7b-instruct's) spans and their counts.
 On the card (``gpu``): stamped and unstamped graphs give the same bits
 and launch counts, each replay makes its stamps, and each stamp agrees
 with the profiler's start of its kernel."""
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -117,6 +120,69 @@ def test_spans_tile_each_replay_and_change_no_bit(arch):
             assert all(c == 1 for c in layered.values())
         names = {n for n, _ in shape}
         assert names <= MIXERS | FFNS | {"embed", "head", "cache"}
+
+
+def test_published_hybrid_spans_tile_each_replay():
+    """All 81 layers at tiny widths through ``compile_step_fns(...,
+    spans=rec)``: each replay's spans tile it, the mixer spans are the
+    81 ``mamba`` spans alone, 13 ``shared_attention`` spans hold the
+    tied blocks' attention (in no group of the benchmark's), and both
+    counts are on the recorder as counters; the logits are those of a
+    run with no spans."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import program_spans
+    arch = "zamba2-7b-instruct"
+    cfg = dataclasses.replace(
+        get_config(arch), d_model=32, d_ff=48, vocab_size=128,
+        vocab_pad_multiple=64, dtype="float32",
+        attention=dataclasses.replace(get_config(arch).attention,
+                                      num_heads=4, num_kv_heads=4,
+                                      head_dim=16, softmax_scale=8 ** -0.5),
+        ssm=dataclasses.replace(get_config(arch).ssm, head_dim=16,
+                                state_dim=8, chunk_size=8, adapter_rank=4))
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, 128, (2, 8),
+                           generator=torch.Generator().manual_seed(2))
+    opts = lm.RunOptions(chunk_q=8, chunk_kv=8, cache_len=12, remat=False)
+
+    def run(spans):
+        pf, step = serve.compile_step_fns(cfg, params, {"tokens": tokens},
+                                          opts, 8, spans=spans)
+        logits, _ = pf({"tokens": tokens})
+        out = [logits, step(torch.argmax(logits[:, :128], -1), 9)]
+        return torch.stack(out), pf
+    want, _ = run(None)
+    rec = TraceRecorder()
+    got, pf = run(rec)
+    assert torch.equal(got, want)
+    pf.stamper.collect()
+    counters = {c.name: c.value for c in rec.counters}
+    assert counters == {"prefill.mamba_spans": 81,
+                        "prefill.shared_attention_spans": 13,
+                        "decode.mamba_spans": 81,
+                        "decode.shared_attention_spans": 13}
+    grouped = {n for names in program_spans.GROUPS.values() for n in names}
+    assert "shared_attention" not in grouped
+    for phase in ("prefill", "decode"):
+        by = {}
+        for s in rec.spans_on(f"device.{phase}"):
+            by.setdefault(dict(s.args)["replay"], []).append(s)
+        for spans in by.values():
+            for a, b in zip(spans, spans[1:]):
+                assert a.end == b.start
+            names = [s.name for s in spans]
+            mixers = [n for n in names
+                      if n in program_spans.GROUPS["mixer"]]
+            assert mixers == ["mamba"] * 81
+            assert names.count("shared_attention") == 13
+            assert set(names) <= {"embed", "shared_attention", "ffn",
+                                  "mamba", "cache", "head"}
+        rows = program_spans.summarize(rec)[phase]
+        for row in rows:
+            inside = sum(row[g] for g in program_spans.GROUPS)
+            assert 0 < row["graph"] - inside < row["graph"]
 
 
 def test_no_stamper_no_span():

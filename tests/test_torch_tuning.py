@@ -493,14 +493,18 @@ def test_launch_plan_without_an_entry_is_the_untuned_launch(caches, shape):
 
 
 def test_main_path_products_cover_the_served_models():
-    assert len(MAIN_PRODUCTS) == 109
+    assert len(MAIN_PRODUCTS) == 139
     # the benchmark's decode batches (portbench/workloads), logits aside
-    for arch, B in (("pixtral-12b", 16), ("rwkv6-1.6b", 8)):
+    for arch, B in (("pixtral-12b", 16), ("rwkv6-1.6b", 8),
+                    ("zamba2-7b-instruct", 32)):
         for m, k, n, tb, _ in port_model.decode_products(get_config(arch),
                                                          B):
             assert tb or (m, k, n, tb) in MAIN_PRODUCTS
     for arch, B, P in (("qwen2-0.5b", 4, 256), ("rwkv6-1.6b", 4, 256),
                        ("gemma3-12b", 4, 2048), ("zamba2-7b", 4, 512),
+                       ("zamba2-7b-instruct", 4, 1024),
+                       # zamba2-7b-instruct.chat's batch
+                       ("zamba2-7b-instruct", 32, 1024),
                        ("whisper-base", 4, 1536), ("pixtral-12b", 4, 1024),
                        # chip_smoke.py phase 11's full-width serves
                        ("qwen3-moe-235b-a22b", 4, 256),
